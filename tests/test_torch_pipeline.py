@@ -1,0 +1,135 @@
+"""tpuflow_torch.compute_flow end to end on the CPU (the plain versions of
+the kernels) against the NumPy oracle, tpuflow's XLA pipeline and tpuflow's
+whole-level kernel pipeline in interpret mode, on the blob pairs of
+tests/test_pipeline.py; plus physical probes and the device contract."""
+
+import numpy as np
+import pytest
+import torch
+
+import tpuflow
+import tpuflow.oracle as oracle
+from tpuflow.config import FlowConfig as JFlowConfig
+from tpuflow.solver.bucketed import compiled_full_pipeline
+
+from tpuflow_torch import DataConstancy, FlowConfig, compute_flow, endpoint_error
+
+torch.set_num_threads(2)
+
+
+def gaussian_blob(h, w, cy, cx, sigma=4.0, amp=200.0):
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    return (amp * np.exp(-((ys - cy) ** 2 + (xs - cx) ** 2) / (2 * sigma ** 2))).astype(
+        np.float32)
+
+
+SMALL_CFG = dict(
+    warp_levels_count=3, warp_scale_factor=0.7, outer_iterations_count=6,
+    inner_iterations_count=3, equation_alpha=35.0, equation_smoothness=0.001,
+    equation_data=0.001, median_radius=3, gaussian_sigma=0.8,
+)
+WHOLE_CFG = dict(
+    warp_levels_count=4, warp_scale_factor=0.6, outer_iterations_count=4,
+    inner_iterations_count=3, median_radius=5, gaussian_sigma=1.0,
+)
+
+
+def two_blob_pair():
+    h, w = 25, 31
+    f0 = gaussian_blob(h, w, 12.0, 15.0) + gaussian_blob(h, w, 5.0, 6.0, 2.0, 80.0)
+    f1 = gaussian_blob(h, w, 13.1, 14.2) + gaussian_blob(h, w, 6.1, 5.2, 2.0, 80.0)
+    return f0, f1
+
+
+def wide_blob_pair():
+    h, w = 52, 60
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    f0 = 200.0 * np.exp(-((ys - 26) ** 2 + (xs - 30) ** 2) / 50.0)
+    f1 = 200.0 * np.exp(-((ys - 25.2) ** 2 + (xs - 31.1) ** 2) / 50.0)
+    return f0.astype(np.float32), f1.astype(np.float32)
+
+
+def test_matches_oracle():
+    f0, f1 = two_blob_pair()
+    want_u, want_v = oracle.compute_flow(f0, f1, **SMALL_CFG)
+    res = compute_flow(f0, f1, FlowConfig(**SMALL_CFG), device="cpu")
+    assert endpoint_error(res.u, res.v, want_u, want_v) <= 1e-3
+
+
+@pytest.mark.parametrize("pair,kw", [(two_blob_pair, SMALL_CFG), (wide_blob_pair, WHOLE_CFG)])
+def test_matches_tpuflow_xla(pair, kw):
+    f0, f1 = pair()
+    want = tpuflow.compute_flow(f0, f1, JFlowConfig(**kw))
+    res = compute_flow(f0, f1, FlowConfig(**kw), device="cpu")
+    assert res.u.shape == f0.shape
+    assert endpoint_error(res.u, res.v, np.asarray(want.u), np.asarray(want.v)) <= 1e-3
+
+
+def test_matches_whole_level_pipeline_interpret(monkeypatch):
+    # tpuflow's production pipeline with level_fused_whole in interpret mode
+    # (the wiring of tests/test_pipeline.py:124-149).
+    f0, f1 = wide_blob_pair()
+    monkeypatch.setenv("TPUFLOW_WHOLE_LEVEL", "interpret")
+    want_u, want_v = compiled_full_pipeline(f0.shape, JFlowConfig(**WHOLE_CFG),
+                                            unroll=True)(f0, f1)
+    res = compute_flow(f0, f1, FlowConfig(**WHOLE_CFG), device="cpu")
+    assert endpoint_error(res.u, res.v, np.asarray(want_u), np.asarray(want_v)) <= 1e-3
+
+
+def test_zero_motion_gives_zero_flow():
+    f0, _ = two_blob_pair()
+    res = compute_flow(f0, f0.copy(), FlowConfig(**SMALL_CFG), device="cpu")
+    assert np.abs(res.u).max() < 1e-6 and np.abs(res.v).max() < 1e-6
+
+
+TRANSLATION_CFG = dict(warp_levels_count=5, warp_scale_factor=0.8, outer_iterations_count=20,
+                       inner_iterations_count=5, equation_alpha=10.0, median_radius=3,
+                       gaussian_sigma=1.0)
+
+
+def translated_blob_pair():
+    # A blob translated by (+1.5, -1.0) px (tests/test_pipeline.py:47-71).
+    h, w = 40, 48
+    return gaussian_blob(h, w, 20.0, 24.0, 5.0), gaussian_blob(h, w, 19.0, 25.5, 5.0)
+
+
+def test_recovers_translation():
+    f0, f1 = translated_blob_pair()
+    res = compute_flow(f0, f1, FlowConfig(**TRANSLATION_CFG), device="cpu")
+    core = (slice(16, 24), slice(20, 28))
+    assert 1.0 < float(np.median(res.u[core])) < 2.0
+    assert -1.5 < float(np.median(res.v[core])) < -0.5
+
+
+def test_reversed_pair_negates_flow():
+    f0, f1 = translated_blob_pair()
+    cfg = FlowConfig(**TRANSLATION_CFG)
+    fwd = compute_flow(f0, f1, cfg, device="cpu")
+    bwd = compute_flow(f1, f0, cfg, device="cpu")
+    mask = np.hypot(fwd.u, fwd.v) > 0.3
+    assert mask.sum() > 50
+    corr = np.corrcoef(np.concatenate([fwd.u[mask], fwd.v[mask]]),
+                       np.concatenate([bwd.u[mask], bwd.v[mask]]))[0, 1]
+    assert corr < -0.9
+
+
+def test_cuda_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the test is for machines without it")
+    f0, f1 = two_blob_pair()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_flow(f0, f1, FlowConfig(**SMALL_CFG))
+
+
+@pytest.mark.parametrize("constancy", [DataConstancy.GRADIENT, DataConstancy.LOG_DERIVATIVES])
+def test_unported_constancy_raises(constancy):
+    f0, f1 = two_blob_pair()
+    with pytest.raises(NotImplementedError):
+        compute_flow(f0, f1, FlowConfig(data_constancy=constancy, **SMALL_CFG), device="cpu")
+
+
+def test_rejects_bad_frames():
+    with pytest.raises(ValueError):
+        compute_flow(np.zeros((8, 8)), np.zeros((8, 9)), device="cpu")
+    with pytest.raises(ValueError):
+        compute_flow(np.zeros((3, 8)), np.zeros((3, 8)), device="cpu")

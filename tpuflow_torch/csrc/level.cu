@@ -1,0 +1,330 @@
+// Hopper (sm_90a) kernels for one pyramid level of the grey-constancy solve.
+//
+// They replace the TPU's four level kernels, which all compute one function
+// and differ only in where the TPU kept each field:
+//   level_fused_whole   tpuflow/ops/pallas/level_fused.py:526  (body :246, warp :179)
+//   level_fused         tpuflow/ops/pallas/level_fused.py:472
+//   _relax_bucket_full  tpuflow/ops/pallas/relax_bucket.py:400
+//   _relax_du_chunked   tpuflow/ops/pallas/relax_du.py:457
+// On this card a level does not fit one core's fast memory, so the level is
+// a short sequence of launches over fields in device memory:
+//   tf_warp           once per level   backward bilinear warp
+//   tf_level_derivs   once per level   fx, fy, ft
+//   tf_outer_prologue once per outer   phi/ksi and the per-outer hoists
+//   tf_jacobi_sweep   outer x inner    one coupled T-form sweep
+//   tf_add_median     once per level   u + (T - u), then the window median
+//
+// Every field is a contiguous float32 (h, w) plane at the level's exact
+// size; stacks are planes back to back. The mirror boundary is reflect
+// indexing (neighbour -1 reads 1, neighbour n reads n-2), which is what the
+// TPU's ghost rows held in the valid region (tpuflow/ops/solver_ops.py:228-235).
+//
+// All kernels are one thread per pixel over 32x8 blocks. Each reads a few
+// neighbouring floats and does ~1 FLOP per byte, so device-memory bandwidth
+// bounds them at fine levels and launch latency at coarse ones; neighbour
+// reuse comes from L1/L2, not shared memory. Shared-memory k-sweep blocking
+// is later work.
+//
+// Numerics: the expressions keep the association order of the JAX
+// kernels term for term. The library is built without fast math and with
+// --fmad=false, so sqrtf and '/' round as IEEE and no multiply-add is
+// contracted: the kernels then agree with their plain PyTorch versions to
+// the last bit in practice, and the bounds in the tests have room to spare.
+//
+// Each C entry point launches on the caller's stream, allocates nothing,
+// and returns cudaGetLastError() so the Python wrapper can raise.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BX = 32;
+constexpr int BY = 8;
+
+__device__ __forceinline__ int refl(int i, int n) {
+  // Reference mirror: x < 0 -> -x, x >= n -> 2n - x - 2 (solve_2d.cu:75-76).
+  return i < 0 ? -i : (i >= n ? 2 * n - i - 2 : i);
+}
+
+dim3 grid_for(int h, int w) { return dim3((w + BX - 1) / BX, (h + BY - 1) / BY); }
+
+// ---------------------------------------------------------------------------
+// warp: replaces the in-kernel shift-sum (level_fused.py:179-243), the XLA
+// widened tier and the exact gather (bucketed.py:236-361). The TPU needed
+// the tiers because its gathers run on the scalar unit; here one exact
+// 4-tap gather serves every displacement.
+// Bound: 4 scattered reads of f1 per pixel (L2 serves them for small flow).
+// ---------------------------------------------------------------------------
+__global__ void warp_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
+                            const float* __restrict__ uv, float* __restrict__ out,
+                            int h, int w, float inv_hx, float inv_hy) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t n = (size_t)h * w;
+  const int i = y * w + x;
+  const float x_f = (float)x + uv[i] * inv_hx;
+  const float y_f = (float)y + uv[n + i] * inv_hy;
+  // Out of [0, w-1] x [0, h-1], or NaN, copies frame_0 (registration_2d.cu:48-72).
+  const bool invalid = !(x_f >= 0.0f) || x_f > (float)(w - 1) ||
+                       !(y_f >= 0.0f) || y_f > (float)(h - 1);
+  if (invalid) {
+    out[i] = f0[i];
+    return;
+  }
+  const float x0f = floorf(x_f);
+  const float y0f = floorf(y_f);
+  const int x0 = (int)x0f;
+  const int y0 = (int)y0f;
+  const int x1 = min(w - 1, x0 + 1);
+  const int y1 = min(h - 1, y0 + 1);
+  const float dx = x_f - x0f;
+  const float dy = y_f - y0f;
+  const float w00 = (1.0f - dx) * (1.0f - dy);
+  const float w01 = dx * (1.0f - dy);
+  const float w10 = (1.0f - dx) * dy;
+  const float w11 = dx * dy;
+  // The shift-sum's association: (row y0) + (row y1).
+  out[i] = (w00 * f1[y0 * w + x0] + w01 * f1[y0 * w + x1]) +
+           (w10 * f1[y1 * w + x0] + w11 * f1[y1 * w + x1]);
+}
+
+// ---------------------------------------------------------------------------
+// level_derivs: the grey first derivatives, once per level
+// (level_fused.py:285-289, bucketed.py:389-418).
+// Bound: 2 input planes read, 3 written.
+// ---------------------------------------------------------------------------
+__global__ void level_derivs_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
+                                    float* __restrict__ fxyz, int h, int w,
+                                    float div4hx, float div4hy) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t n = (size_t)h * w;
+  const int c = y * w + x;
+  const int xp = y * w + refl(x + 1, w), xm = y * w + refl(x - 1, w);
+  const int yp = refl(y + 1, h) * w + x, ym = refl(y - 1, h) * w + x;
+  fxyz[c] = (f0[xp] - f0[xm] + f1[xp] - f1[xm]) / div4hx;
+  fxyz[n + c] = (f0[yp] - f0[ym] + f1[yp] - f1[ym]) / div4hy;
+  fxyz[2 * n + c] = f1[c] - f0[c];
+}
+
+// phi = 1 / (2 sqrt(|grad T|^2 + e_s^2)) at (y, x), from the T iterate
+// (level_fused.py:348-353).
+__device__ __forceinline__ float phi_at(const float* __restrict__ tu,
+                                        const float* __restrict__ tv, int y, int x,
+                                        int h, int w, float div2hx, float div2hy,
+                                        float e_s2) {
+  const int xp = y * w + refl(x + 1, w), xm = y * w + refl(x - 1, w);
+  const int yp = refl(y + 1, h) * w + x, ym = refl(y - 1, h) * w + x;
+  const float dux = (tu[xp] - tu[xm]) / div2hx;
+  const float duy = (tu[yp] - tu[ym]) / div2hy;
+  const float dvx = (tv[xp] - tv[xm]) / div2hx;
+  const float dvy = (tv[yp] - tv[ym]) / div2hy;
+  const float grad2 = dux * dux + duy * duy + dvx * dvx + dvy * dvy + e_s2;
+  return 1.0f / (2.0f * sqrtf(grad2));
+}
+
+// ---------------------------------------------------------------------------
+// outer_prologue: phi, ksi and the per-outer hoists, term for term
+// level_fused.py:343-393. Each thread computes phi at its pixel and its four
+// (reflected) neighbours, so one launch does what the TPU did with a
+// maintained phi field. hoist planes: pw_xp, pw_xm, pw_yp, pw_ym, a12, a13,
+// a23, dnu, dnv.
+// Bound: 7 planes read (T x2 over a radius-2 stencil, u, v, fx, fy, ft),
+// 9 written; the 5x recomputed phi is arithmetic the card has to spare.
+// ---------------------------------------------------------------------------
+__global__ void outer_prologue_kernel(const float* __restrict__ T, const float* __restrict__ uv,
+                                      const float* __restrict__ fxyz, float* __restrict__ hoist,
+                                      int h, int w, float div2hx, float div2hy,
+                                      float alpha_hx2, float alpha_hy2, float e_s2,
+                                      float e_d2) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t n = (size_t)h * w;
+  const int c = y * w + x;
+  const float* tu = T;
+  const float* tv = T + n;
+
+  const float phi_c = phi_at(tu, tv, y, x, h, w, div2hx, div2hy, e_s2);
+  const float phi_xp = phi_at(tu, tv, y, refl(x + 1, w), h, w, div2hx, div2hy, e_s2);
+  const float phi_xm = phi_at(tu, tv, y, refl(x - 1, w), h, w, div2hx, div2hy, e_s2);
+  const float phi_yp = phi_at(tu, tv, refl(y + 1, h), x, h, w, div2hx, div2hy, e_s2);
+  const float phi_ym = phi_at(tu, tv, refl(y - 1, h), x, h, w, div2hx, div2hy, e_s2);
+
+  // Free-boundary weights alpha/h^2, zero at the image border (solve_2d.cu:333-340).
+  const float xp_w = x < w - 1 ? alpha_hx2 : 0.0f;
+  const float xm_w = x > 0 ? alpha_hx2 : 0.0f;
+  const float yp_w = y < h - 1 ? alpha_hy2 : 0.0f;
+  const float ym_w = y > 0 ? alpha_hy2 : 0.0f;
+  const float pw_xp = (phi_xp + phi_c) * 0.5f * xp_w;
+  const float pw_xm = (phi_xm + phi_c) * 0.5f * xm_w;
+  const float pw_yp = (phi_yp + phi_c) * 0.5f * yp_w;
+  const float pw_ym = (phi_ym + phi_c) * 0.5f * ym_w;
+  const float sum_h = pw_xp + pw_xm + pw_yp + pw_ym;
+
+  // ksi from the GREY tensor at du = T - u (reference quirk:
+  // cuda_operation_solve_2d.cpp:84).
+  const float du_c = tu[c] - uv[c];
+  const float dv_c = tv[c] - uv[n + c];
+  const float fx = fxyz[c];
+  const float fy = fxyz[n + c];
+  const float ft = fxyz[2 * n + c];
+  const float sq = (fx * fx * du_c + fx * fy * dv_c + fx * ft) * du_c +
+                   (fx * fy * du_c + fy * fy * dv_c + fy * ft) * dv_c +
+                   (fx * ft * du_c + fy * ft * dv_c + ft * ft);
+  const float sq0 = sq < 0.0f ? 0.0f : sq;  // max(sq, 0), NaN passes through
+  const float ksi = 1.0f / (2.0f * sqrtf(sq0 + e_d2));
+
+  hoist[c] = pw_xp;
+  hoist[n + c] = pw_xm;
+  hoist[2 * n + c] = pw_yp;
+  hoist[3 * n + c] = pw_ym;
+  hoist[4 * n + c] = ksi * (fx * fy);            // a12
+  hoist[5 * n + c] = ksi * (fx * ft);            // a13
+  hoist[6 * n + c] = ksi * (fy * ft);            // a23
+  hoist[7 * n + c] = ksi * (fx * fx) + sum_h;    // dnu
+  hoist[8 * n + c] = ksi * (fy * fy) + sum_h;    // dnv
+}
+
+// ---------------------------------------------------------------------------
+// jacobi_sweep: one coupled T-form sweep (sweep_core.py:45-79), new_du then
+// new_dv from the fresh new_du, storing T' = u + new_d (level_fused.py:328-341).
+// Ping-pong: reads T, writes T_out.
+// Bound: 15 planes read (T x2 as a 5-point stencil, u, v, 9 hoists), 2 written.
+// ---------------------------------------------------------------------------
+__global__ void jacobi_sweep_kernel(const float* __restrict__ T, const float* __restrict__ uv,
+                                    const float* __restrict__ hoist, float* __restrict__ T_out,
+                                    int h, int w) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t n = (size_t)h * w;
+  const int c = y * w + x;
+  const int xp = y * w + refl(x + 1, w), xm = y * w + refl(x - 1, w);
+  const int yp = refl(y + 1, h) * w + x, ym = refl(y - 1, h) * w + x;
+  const float* tu = T;
+  const float* tv = T + n;
+
+  const float u_c = uv[c];
+  const float v_c = uv[n + c];
+  const float pw_xp = hoist[c];
+  const float pw_xm = hoist[n + c];
+  const float pw_yp = hoist[2 * n + c];
+  const float pw_ym = hoist[3 * n + c];
+  const float a12 = hoist[4 * n + c];
+  const float a13 = hoist[5 * n + c];
+  const float a23 = hoist[6 * n + c];
+  const float dnu = hoist[7 * n + c];
+  const float dnv = hoist[8 * n + c];
+
+  const float sum_u = pw_xp * (tu[xp] - u_c) + pw_xm * (tu[xm] - u_c) +
+                      pw_yp * (tu[yp] - u_c) + pw_ym * (tu[ym] - u_c);
+  const float sum_v = pw_xp * (tv[xp] - v_c) + pw_xm * (tv[xm] - v_c) +
+                      pw_yp * (tv[yp] - v_c) + pw_ym * (tv[ym] - v_c);
+  const float dv_c = tv[c] - v_c;
+  const float new_du = (-a13 - a12 * dv_c + sum_u) / dnu;
+  const float new_dv = (-a23 - a12 * new_du + sum_v) / dnv;
+  T_out[c] = u_c + new_du;
+  T_out[n + c] = v_c + new_dv;
+}
+
+// ---------------------------------------------------------------------------
+// add_median: u + (T - u) (the XLA op order, level_fused.py:433-435), then
+// the R x R window median with reflect boundaries (median_2d.cu:87-299).
+// The window is sorted in registers by a fully unrolled odd-even
+// transposition network: an exact selection, so the result equals the
+// TPU's Batcher network. Each thread recomputes the sum at its R*R window
+// points instead of storing the summed field.
+// Bound: R*R reads of T and u per pixel per plane (L1 serves the overlap).
+// ---------------------------------------------------------------------------
+template <int R>
+__global__ void add_median_kernel(const float* __restrict__ T, const float* __restrict__ uv,
+                                  float* __restrict__ out, int h, int w) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t n = (size_t)h * w;
+  constexpr int N = R * R;
+  constexpr int R2 = R / 2;
+#pragma unroll 1
+  for (int p = 0; p < 2; ++p) {
+    const float* t = T + p * n;
+    const float* b = uv + p * n;
+    float a[N];
+#pragma unroll
+    for (int dy = 0; dy < R; ++dy) {
+      const int row = refl(y + dy - R2, h) * w;
+#pragma unroll
+      for (int dx = 0; dx < R; ++dx) {
+        const int j = row + refl(x + dx - R2, w);
+        const float base = b[j];
+        a[dy * R + dx] = base + (t[j] - base);
+      }
+    }
+#pragma unroll
+    for (int pass = 0; pass < N; ++pass) {
+#pragma unroll
+      for (int k = pass & 1; k + 1 < N; k += 2) {
+        const float lo = a[k + 1] < a[k] ? a[k + 1] : a[k];
+        const float hi = a[k + 1] < a[k] ? a[k] : a[k + 1];
+        a[k] = lo;
+        a[k + 1] = hi;
+      }
+    }
+    out[p * n + y * w + x] = a[N / 2];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* tf_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+int tf_warp(const float* f0, const float* f1, const float* uv, float* out, int h, int w,
+            float inv_hx, float inv_hy, void* stream) {
+  warp_kernel<<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      f0, f1, uv, out, h, w, inv_hx, inv_hy);
+  return (int)cudaGetLastError();
+}
+
+int tf_level_derivs(const float* f0, const float* f1, float* fxyz, int h, int w,
+                    float div4hx, float div4hy, void* stream) {
+  level_derivs_kernel<<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      f0, f1, fxyz, h, w, div4hx, div4hy);
+  return (int)cudaGetLastError();
+}
+
+int tf_outer_prologue(const float* T, const float* uv, const float* fxyz, float* hoist,
+                      int h, int w, float div2hx, float div2hy, float alpha_hx2,
+                      float alpha_hy2, float e_s2, float e_d2, void* stream) {
+  outer_prologue_kernel<<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      T, uv, fxyz, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
+  return (int)cudaGetLastError();
+}
+
+int tf_jacobi_sweep(const float* T, const float* uv, const float* hoist, float* T_out,
+                    int h, int w, void* stream) {
+  jacobi_sweep_kernel<<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      T, uv, hoist, T_out, h, w);
+  return (int)cudaGetLastError();
+}
+
+// radius: the window side after the reference guards (1, 3, 5 or 7).
+int tf_add_median(const float* T, const float* uv, float* out, int h, int w, int radius,
+                  void* stream) {
+  const dim3 grid = grid_for(h, w), block(BX, BY);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (radius) {
+    case 1: add_median_kernel<1><<<grid, block, 0, s>>>(T, uv, out, h, w); break;
+    case 3: add_median_kernel<3><<<grid, block, 0, s>>>(T, uv, out, h, w); break;
+    case 5: add_median_kernel<5><<<grid, block, 0, s>>>(T, uv, out, h, w); break;
+    case 7: add_median_kernel<7><<<grid, block, 0, s>>>(T, uv, out, h, w); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``tpuflow_torch/csrc/`` have a plain C interface. On
+first use ``nvcc`` compiles them for ``sm_90a`` into one shared library in
+``tpuflow_torch/_build/`` (named by a hash of the sources and flags, so an
+edit rebuilds), and ``ctypes`` loads it. Nothing is built at import time,
+and nothing here runs on a machine without CUDA unless a CUDA tensor
+reaches a kernel wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("level.cu",)
+# No fast math: sqrtf and '/' must round as IEEE. --fmad=false keeps every
+# multiply and add rounded on its own, as the JAX kernels associate them.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every entry point returns cudaGetLastError() after its launch; the last
+# argument is the stream.
+SIGNATURES = {
+    "tf_warp": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
+    "tf_level_derivs": (_P, _P, _P, _I, _I, _F, _F, _P),
+    "tf_outer_prologue": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
+    "tf_jacobi_sweep": (_P, _P, _P, _P, _I, _I, _P),
+    "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when a library built earlier was reused
+    log: str              # nvcc's output (ptxas register and spill report)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME is unset and nvcc is not on PATH)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    srcs = [CSRC / s for s in SOURCES]
+    digest = hashlib.sha256()
+    for s in srcs:
+        digest.update(s.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"libtpuflow_level_{digest.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tf_error_string.argtypes = (ctypes.c_int,)
+    lib.tf_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib=lib, path=so, build_seconds=seconds, log=log)
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """Check the tensors a kernel wrapper was given and say where they lie.
+
+    True for CUDA tensors on the current device (the kernel runs), False
+    for CPU tensors (the plain version runs); anything else raises, since
+    the kernels take only contiguous float32 on one device.
+    """
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"tensors on different devices: {device} and {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("expected contiguous tensors")
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensors on {device}, but the current CUDA device is "
+            f"{torch.cuda.current_device()}")
+    return True
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point ``name`` on the current stream; raise on a CUDA error."""
+    lib = load_library().lib
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {err} ({lib.tf_error_string(err).decode()})")

@@ -1,0 +1,69 @@
+"""The public front door: ``compute_flow``, ``FlowResult``, ``endpoint_error``
+(the port of tpuflow/solver/flow2d.py:44-60, :99, :354).
+
+One grey-constancy pair per call. The device is explicit: ``device="cuda"``
+runs the CUDA kernels and raises on a machine without CUDA; it never falls
+back to the CPU. ``device="cpu"`` runs the kernels' plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpuflow_torch.config import FlowConfig
+from tpuflow_torch.solver.level import solve
+
+
+@dataclasses.dataclass
+class FlowResult:
+    """Final flow in original-pixel units, on the host (numpy).
+    ``seconds`` covers upload, the solve and the download."""
+
+    u: np.ndarray
+    v: np.ndarray
+    seconds: float
+
+    @property
+    def megapixels_per_second(self) -> float:
+        h, w = self.u.shape
+        return (w * h) / self.seconds / 1e6
+
+
+def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
+                 device="cuda") -> FlowResult:
+    """Dense 2D optical flow from frame_0 to frame_1, two (H, W) frames of
+    any real dtype; computation is float32 on ``device``.
+
+    It switches TF32 off for matmuls and cuDNN (a process-wide PyTorch
+    setting): the smoothing and resample matmuls must be full float32, as
+    the JAX package's are (Precision.HIGHEST).
+    """
+    cfg = cfg or FlowConfig()
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' was asked for, but CUDA is not available")
+    f0 = np.asarray(frame_0, dtype=np.float32)
+    f1 = np.asarray(frame_1, dtype=np.float32)
+    if f0.shape != f1.shape or f0.ndim != 2:
+        raise ValueError(f"expected two equal (H, W) frames, got {f0.shape} {f1.shape}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    guard = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with guard:
+        uv = solve(torch.from_numpy(f0).to(device), torch.from_numpy(f1).to(device), cfg)
+        uv = uv.cpu().numpy()
+    return FlowResult(u=uv[0], v=uv[1], seconds=time.perf_counter() - t0)
+
+
+def endpoint_error(u_a, v_a, u_b, v_b) -> float:
+    """Mean endpoint error between two flow fields (the parity metric)."""
+    u_a, v_a = np.asarray(u_a), np.asarray(v_a)
+    u_b, v_b = np.asarray(u_b), np.asarray(v_b)
+    return float(np.mean(np.sqrt((u_a - u_b) ** 2 + (v_a - v_b) ** 2)))

@@ -1,0 +1,150 @@
+"""One pyramid level and the coarse-to-fine loop.
+
+The port of the bucketed engine's level step and pipeline
+(tpuflow/solver/bucketed.py: ``level_constants`` :389, ``_relax_dyn`` :448,
+the level steps :615/:953, ``make_pipeline_fn`` :1131) without its TPU
+machinery: every level's fields are exact-size float32 tensors, so there
+are no buckets, trims, ghost rows or VMEM gates, and no host
+synchronisation inside the loop. A level is
+
+    resample (frames from the full-resolution smoothed pair, flow from the
+    previous level) -> warp -> derivatives -> outer x (prologue +
+    inner x sweep) -> add + median
+
+where every step after the resample is a kernel wrapper from
+``tpuflow_torch.ops``. Level 0 uses the smoothed frames directly
+(oracle.py:591-595); the flow stays in original-pixel units.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from tpuflow_torch.config import DataConstancy, FlowConfig
+from tpuflow_torch.ops.gaussian import gaussian_smooth
+from tpuflow_torch.ops.level import (
+    add_median, add_median_plain, jacobi_sweep, jacobi_sweep_plain,
+    level_derivs, level_derivs_plain, outer_prologue, outer_prologue_plain,
+)
+from tpuflow_torch.ops.resample import resample
+from tpuflow_torch.ops.warp import warp, warp_plain
+from tpuflow_torch.pyramid import level_schedule
+
+F = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelScalars:
+    """Host-rounded float32 level constants, rounded exactly as
+    ``LevelScalars.make`` does (tpuflow/solver/bucketed.py:141-168); only
+    the fields the grey path reads."""
+
+    cw: int
+    ch: int
+    inv_hx: np.float32
+    inv_hy: np.float32
+    div2hx: np.float32
+    div2hy: np.float32
+    div4hx: np.float32
+    div4hy: np.float32
+    alpha_hx2: np.float32
+    alpha_hy2: np.float32
+
+    @staticmethod
+    def make(cw: int, ch: int, hx: float, hy: float, alpha: float) -> "LevelScalars":
+        return LevelScalars(
+            cw=int(cw),
+            ch=int(ch),
+            inv_hx=F(1.0) / F(hx),
+            inv_hy=F(1.0) / F(hy),
+            div2hx=F(2.0 * hx),
+            div2hy=F(2.0 * hy),
+            div4hx=F(4.0 * hx),
+            div4hy=F(4.0 * hy),
+            alpha_hx2=F(float(alpha) / (float(hx) * float(hx))),
+            alpha_hy2=F(float(alpha) / (float(hy) * float(hy))),
+        )
+
+
+class Steps(NamedTuple):
+    """The per-level step functions the driver calls."""
+
+    warp: Callable
+    level_derivs: Callable
+    outer_prologue: Callable
+    jacobi_sweep: Callable
+    add_median: Callable
+
+
+# The kernel wrappers (their plain versions on CPU tensors): the main path.
+KERNEL_STEPS = Steps(warp, level_derivs, outer_prologue, jacobi_sweep, add_median)
+# The plain PyTorch versions on any device, to compare the kernels against.
+PLAIN_STEPS = Steps(warp_plain, level_derivs_plain, outer_prologue_plain,
+                    jacobi_sweep_plain, add_median_plain)
+
+
+def relax(fxyz: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
+          cfg: FlowConfig, _steps: Steps = KERNEL_STEPS) -> torch.Tensor:
+    """The iterate T = uv + d (2, h, w) after outer x inner relaxation from
+    d = 0; ``T - uv`` is the (du, dv) the TPU relaxation kernels return."""
+    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
+    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
+    T = uv.clone()
+    for _ in range(cfg.outer_iterations_count):
+        hoist = _steps.outer_prologue(T, uv, fxyz, sc.div2hx, sc.div2hy,
+                                      sc.alpha_hx2, sc.alpha_hy2, e_s2, e_d2)
+        for _ in range(cfg.inner_iterations_count):
+            T = _steps.jacobi_sweep(T, uv, hoist)
+    return T
+
+
+def level_tail(f0_l: torch.Tensor, f1_w: torch.Tensor, uv: torch.Tensor,
+               sc: LevelScalars, cfg: FlowConfig,
+               _steps: Steps = KERNEL_STEPS) -> torch.Tensor:
+    """Derivatives + relaxation + add + median on an already warped level
+    (what ``level_fused`` computes); returns the level's flow (2, h, w)."""
+    fxyz = _steps.level_derivs(f0_l, f1_w, sc.div4hx, sc.div4hy)
+    T = relax(fxyz, uv, sc, cfg, _steps)
+    return _steps.add_median(T, uv, cfg.median_radius)
+
+
+def level_step(frames_l: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
+               cfg: FlowConfig, _steps: Steps = KERNEL_STEPS) -> torch.Tensor:
+    """One whole level after the resample (what ``level_fused_whole``
+    computes): frames_l (2, h, w) = [f0_l, f1_l], uv (2, h, w) the
+    prolongated flow; returns the level's flow (2, h, w)."""
+    f1_w = _steps.warp(frames_l[0], frames_l[1], uv, sc.inv_hx, sc.inv_hy)
+    return level_tail(frames_l[0], f1_w, uv, sc, cfg, _steps)
+
+
+def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
+          _steps: Steps = KERNEL_STEPS) -> torch.Tensor:
+    """The coarse-to-fine solve on f0's device; returns (u, v) as (2, h, w).
+
+    ``_steps`` is for comparing the kernels with their plain versions
+    end to end; callers leave it alone.
+    """
+    if cfg.data_constancy != DataConstancy.GREY:
+        raise NotImplementedError(
+            f"only grey constancy is ported so far, got {cfg.data_constancy.value}")
+    h0, w0 = f0.shape
+    if min(h0, w0) < 4:
+        raise ValueError(f"frames must be at least 4x4, got {h0}x{w0}")
+    frames = gaussian_smooth(torch.stack([f0, f1]), cfg.gaussian_sigma)
+    uv = None
+    for spec in level_schedule(w0, h0, cfg.warp_levels_count, cfg.warp_scale_factor):
+        cw, ch = spec.width, spec.height
+        sc = LevelScalars.make(cw, ch, spec.hx, spec.hy, cfg.equation_alpha)
+        # Frames always come from the full-resolution smoothed pair
+        # (reference: optical_flow_2d.cpp:283-304); level 0 uses it as is.
+        frames_l = frames if spec.level == 0 else resample(frames, cw, ch)
+        if uv is None:
+            uv = torch.zeros((2, ch, cw), dtype=torch.float32, device=f0.device)
+        else:
+            uv = resample(uv, cw, ch)
+        uv = level_step(frames_l, uv, sc, cfg, _steps)
+    return uv
