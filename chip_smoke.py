@@ -8,16 +8,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds tpuflow_torch/csrc into tpuflow_torch/_build
   3. kernels  each CUDA kernel against its plain PyTorch version on the card,
-              on seeded inputs at the 584x388 and 1920x1080 finest-level shapes
-  4. e2e      compute_flow(FlowConfig()) at 584x388 on a textured pair shifted
-              by (+1.25, -0.75) px: kernel path vs plain path, the recovered
-              shift, and the NumPy oracle on a reduced schedule
-  5. e2e      the same at 1920x1080 (no oracle: it would take hours)
-  6. launches each kernel's launch count in the main-path runs of phases 4-5
-              against what the level schedule implies
-  7. times    median ms per pair and Mpix/s of both paths, CUDA events
+              on seeded inputs at 584x388, 1920x1080 and 3840x2160; times at
+              1920x1080 and 3840x2160
+  4. e2e      compute_flow(FlowConfig()) (grey) at 584x388 and 1920x1080 on
+              a textured pair shifted by (+1.25, -0.75) px: kernel path vs
+              plain path, the recovered shift, and at 584x388 the NumPy
+              oracle on a reduced schedule; each run's launch counts
+  5. e2e      models.full_model() (gradient) and models.xray_log(alpha=1e-3)
+              (log) at 584x388, with the same checks
+  6. e2e      models.full_model() at 3840x2160 (the size class the TPU sends
+              to _relax_du_streamed): kernel path vs one plain run, the
+              shift (better than zero flow), the launch counts, the peak
+              device memory
+  7. cli      python -m tpuflow_torch.cli on u8 RAW files at 584x388 with
+              --constancy log and alpha 1e-3; its flow files bytewise
+              against compute_flow, and the shift they recover
+  8. times    ms per pair and Mpix/s by CUDA events: grey kernel and plain
+              paths at 584x388 and 1920x1080; the gradient kernel path at
+              584x388, 1920x1080 and 3840x2160, its plain path at 584x388
 
-Then the kernels table as one JSON line, the nvidia-smi line, and last
+Each main-path run of phases 4-6 sets every launch count to 0 just before
+it and reads the counts just after. Then come the kernels table as one JSON
+line, the done line with the total seconds, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or run outside a checkout
 of the repo, it exits 1 and prints no result.
 """
@@ -29,35 +41,60 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SIZES = ((584, 388), (1920, 1080))   # (width, height)
-SHIFT = (1.25, -0.75)                 # true (u, v) of the textured pair, px
-MARGIN = 24                           # border px left out of the shift check
+SIZES = ((584, 388), (1920, 1080))   # (width, height) of the grey runs
+SIZE_4K = (3840, 2160)
 # The reduced schedule the oracle finishes in seconds at 584x388.
 ORACLE_KW = dict(warp_levels_count=8, warp_scale_factor=0.7,
                  outer_iterations_count=10, inner_iterations_count=5,
                  equation_alpha=35.0, median_radius=5, gaussian_sigma=1.5)
+# The log runs use xray_log(alpha=LOG_ALPHA). Its tensor holds squared second
+# derivatives of log1p of 8-bit frames, about 1e-3 here: at the preset's
+# alpha of 35 the solve stays at zero flow (1e-4 px), where a wrong log
+# kernel would pass unseen; at 1e-3 the log term recovers the shift.
+LOG_ALPHA = 1e-3
+# The true-shift EPE the JAX package itself reaches on the 584x388 textured
+# pair, full schedule (tpuflow.compute_flow on a CPU): full_model() 0.4876,
+# xray_log(alpha=LOG_ALPHA) 0.0254 px. The bounds are max(0.3, 1.5x that),
+# well below the 1.458 px of zero flow.
+SHIFT_BOUNDS = {"grey": 0.3, "gradient": max(0.3, 1.5 * 0.4875621199607849),
+                "log": max(0.3, 1.5 * 0.025402741506695747)}
+# At 3840x2160 there is no JAX measurement to scale (a full-size solve is
+# too large for a CPU); the check there is that the flow beats zero flow,
+# whose EPE is |shift|.
+ZERO_FLOW_EPE = float(np.hypot(1.25, -0.75))
 # Kernel vs plain on the card. Both sides round every operation as IEEE
 # float32 in the same association (no FMA contraction in the kernels), so
 # these bounds are loose; warp's taps gather differently-rounded weights.
-BOUNDS = {"warp": 1e-4, "level_derivs": 1e-5, "outer_prologue": 1e-5,
-          "jacobi_sweep": 1e-5, "add_median": 0.0}
+# level_derivs and outer_prologue are bounded elementwise relative; the
+# tensor kernels relative to max|plain| over the whole field, because the
+# card's log1pf and torch.log1p are not bitwise equal.
+BOUNDS = {"warp": 1e-4, "level_derivs": 1e-5, "level_tensor": 1e-5, "outer_prologue": 1e-5,
+          "outer_prologue_tensor": 1e-5, "jacobi_sweep": 1e-5, "add_median": 0.0}
+ELEMENTWISE_RELATIVE = ("level_derivs", "outer_prologue")
+FIELD_RELATIVE = ("level_tensor_gradient", "level_tensor_log", "outer_prologue_tensor")
+RELAX = ("tpuflow/ops/pallas/relax_bucket.py:400; tpuflow/ops/pallas/relax_bucket.py:176; "
+         "tpuflow/ops/pallas/relax_du.py:457; tpuflow/ops/pallas/relax_du.py:874; "
+         "tpuflow/ops/pallas/relax_du.py:241")
 REPLACES = {
     "warp": "tpuflow/ops/pallas/level_fused.py:179 (_warp_shift_sum in "
             "level_fused_whole); tpuflow/solver/bucketed.py:266",
     "level_derivs": "tpuflow/ops/pallas/level_fused.py:526 (level_fused_whole, "
                     "phase A :285); tpuflow/ops/pallas/level_fused.py:472",
+    "level_tensor": "tpuflow/ops/pallas/level_fused.py:526 and :472 (the grad/log tensor "
+                    ":291-322); tpuflow/solver/bucketed.py:422 (the tensor= input of "
+                    "relax_bucket.py:400,176 and relax_du.py:457,874,241)",
     "outer_prologue": "tpuflow/ops/pallas/level_fused.py:526; "
-                      "tpuflow/ops/pallas/relax_bucket.py:400; "
-                      "tpuflow/ops/pallas/relax_du.py:457",
+                      "tpuflow/ops/pallas/level_fused.py:472; " + RELAX,
+    "outer_prologue_tensor": "tpuflow/ops/pallas/level_fused.py:526 and :472 (the prologue "
+                             "with the tensor, :379-392); with tensor=: " + RELAX,
     "jacobi_sweep": "tpuflow/ops/pallas/level_fused.py:526; "
-                    "tpuflow/ops/pallas/level_fused.py:472; "
-                    "tpuflow/ops/pallas/relax_bucket.py:400; "
-                    "tpuflow/ops/pallas/relax_du.py:457",
+                    "tpuflow/ops/pallas/level_fused.py:472; " + RELAX,
     "add_median": "tpuflow/ops/pallas/level_fused.py:526 (phase C :432); "
                   "tpuflow/ops/pallas/level_fused.py:472",
 }
@@ -65,26 +102,6 @@ REPLACES = {
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def textured_pair(w: int, h: int, shift=SHIFT, seed: int = 0, corr: float = 2.5):
-    """Gaussian-filtered noise scaled to 0-255 and its copy translated by
-    ``shift`` (band-limited, periodic, so the translation is exact)."""
-    rng = np.random.default_rng(seed)
-    ky = np.fft.fftfreq(h)[:, None]
-    kx = np.fft.fftfreq(w)[None, :]
-    spec = np.fft.fft2(rng.standard_normal((h, w)))
-    spec *= np.exp(-2.0 * (np.pi * corr) ** 2 * (kx ** 2 + ky ** 2))
-    t0 = np.real(np.fft.ifft2(spec))
-    t1 = np.real(np.fft.ifft2(spec * np.exp(-2j * np.pi * (kx * shift[0] + ky * shift[1]))))
-    lo, hi = t0.min(), t0.max()
-    scale = lambda t: ((t - lo) / (hi - lo) * 255.0).astype(np.float32)  # noqa: E731
-    return scale(t0), scale(t1)
-
-
-def shift_epe(u, v, shift=SHIFT, margin=MARGIN) -> float:
-    m = (slice(margin, -margin), slice(margin, -margin))
-    return float(np.mean(np.hypot(u[m] - shift[0], v[m] - shift[1])))
 
 
 def card_line() -> str:
@@ -112,14 +129,20 @@ def cuda_ms(fn, reps: int) -> float:
 
 def kernel_inputs(w: int, h: int, seed: int = 1):
     """Seeded level fields at (h, w) on the card: frames, a flow with a few
-    out-of-bounds and NaN pixels, an iterate, derivatives and hoists."""
+    out-of-bounds and NaN pixels, an iterate, derivatives, the gradient
+    tensor and hoists."""
     import torch
 
-    from tpuflow_torch.ops.level import level_derivs_plain, outer_prologue_plain
+    from tpuflow_torch.ops.level import (
+        level_derivs_plain, level_tensor_plain, outer_prologue_plain,
+    )
     from tpuflow_torch.solver.level import LevelScalars
+    from tpuflow_torch.synthetic import textured_pair
 
     rng = np.random.default_rng(seed)
-    f0, f1 = textured_pair(w, h, seed=seed)
+    # Intensities of an image, 0-255: the shifted copy's band-limited values
+    # overshoot a little, and log1p is NaN below -1.
+    f0, f1 = (np.clip(f, 0.0, 255.0) for f in textured_pair(w, h, seed=seed))
     uv = (rng.standard_normal((2, h, w)) * 2.0).astype(np.float32)
     uv[0, :, :3] = -40.0          # out of bounds: copies f0
     uv[1, 5, 7] = np.nan          # NaN target: copies f0
@@ -132,143 +155,233 @@ def kernel_inputs(w: int, h: int, seed: int = 1):
     sc = LevelScalars.make(w, h, 1.0, 1.0, 35.0)
     e2 = float(np.float32(0.001) * np.float32(0.001))
     fxyz = level_derivs_plain(f0, f1, sc.div4hx, sc.div4hy)
+    J = level_tensor_plain(f0, f1, fxyz, sc, False)
     pro = (sc.div2hx, sc.div2hy, sc.alpha_hx2, sc.alpha_hy2, e2, e2)
     hoist = outer_prologue_plain(T, uv_finite, fxyz, *pro)
-    return dict(f0=f0, f1=f1, uv=uv, uvf=uv_finite, T=T, fxyz=fxyz, hoist=hoist,
+    return dict(f0=f0, f1=f1, uv=uv, uvf=uv_finite, T=T, fxyz=fxyz, J=J, hoist=hoist,
                 sc=sc, pro=pro)
 
 
-def phase_kernels():
-    """Each kernel vs its plain version at both finest-level shapes; times
-    at the 1920x1080 shape. Returns {name: {max_abs_err, ms, plain_ms}}."""
-    import torch
-
+def kernel_pairs(x: dict) -> dict:
+    """{row name: (kernel call, plain call)} on the inputs ``x``."""
     from tpuflow_torch.ops import level as L
     from tpuflow_torch.ops.warp import warp, warp_plain
 
+    sc, pro = x["sc"], x["pro"]
+    pairs = {
+        "warp": (lambda: warp(x["f0"], x["f1"], x["uv"], sc.inv_hx, sc.inv_hy),
+                 lambda: warp_plain(x["f0"], x["f1"], x["uv"], sc.inv_hx, sc.inv_hy)),
+        "level_derivs": (lambda: L.level_derivs(x["f0"], x["f1"], sc.div4hx, sc.div4hy),
+                         lambda: L.level_derivs_plain(x["f0"], x["f1"], sc.div4hx, sc.div4hy)),
+        "outer_prologue": (lambda: L.outer_prologue(x["T"], x["uvf"], x["fxyz"], *pro),
+                           lambda: L.outer_prologue_plain(x["T"], x["uvf"], x["fxyz"], *pro)),
+        "jacobi_sweep": (lambda: L.jacobi_sweep(x["T"], x["uvf"], x["hoist"]),
+                         lambda: L.jacobi_sweep_plain(x["T"], x["uvf"], x["hoist"])),
+        "add_median": (lambda: L.add_median(x["T"], x["uvf"], 5),
+                       lambda: L.add_median_plain(x["T"], x["uvf"], 5)),
+    }
+    for log in (False, True):
+        pairs["level_tensor_" + ("log" if log else "gradient")] = (
+            lambda log=log: L.level_tensor(x["f0"], x["f1"], x["fxyz"], sc, log),
+            lambda log=log: L.level_tensor_plain(x["f0"], x["f1"], x["fxyz"], sc, log))
+    pairs["outer_prologue_tensor"] = (
+        lambda: L.outer_prologue(x["T"], x["uvf"], x["fxyz"], *pro, J=x["J"]),
+        lambda: L.outer_prologue_plain(x["T"], x["uvf"], x["fxyz"], *pro, J=x["J"]))
+    return pairs
+
+
+def phase_kernels(shapes=(SIZES[0], SIZES[1], SIZE_4K), timed=(SIZES[1], SIZE_4K)):
+    """Each kernel vs its plain version at ``shapes``, timed at ``timed``.
+    Returns {row name: {max_abs_err, ms, plain_ms, ms_4k, plain_ms_4k}}:
+    the times at 1920x1080 and 3840x2160, the largest error over the shapes."""
+    import torch
+
     table = {}
-    for w, h in SIZES:
+    for w, h in shapes:
         x = kernel_inputs(w, h)
-        sc, pro = x["sc"], x["pro"]
-        pairs = {
-            "warp": (lambda: warp(x["f0"], x["f1"], x["uv"], sc.inv_hx, sc.inv_hy),
-                     lambda: warp_plain(x["f0"], x["f1"], x["uv"], sc.inv_hx, sc.inv_hy)),
-            "level_derivs": (lambda: L.level_derivs(x["f0"], x["f1"], sc.div4hx, sc.div4hy),
-                             lambda: L.level_derivs_plain(x["f0"], x["f1"], sc.div4hx, sc.div4hy)),
-            "outer_prologue": (lambda: L.outer_prologue(x["T"], x["uvf"], x["fxyz"], *pro),
-                               lambda: L.outer_prologue_plain(x["T"], x["uvf"], x["fxyz"], *pro)),
-            "jacobi_sweep": (lambda: L.jacobi_sweep(x["T"], x["uvf"], x["hoist"]),
-                             lambda: L.jacobi_sweep_plain(x["T"], x["uvf"], x["hoist"])),
-            "add_median": (lambda: L.add_median(x["T"], x["uvf"], 5),
-                           lambda: L.add_median_plain(x["T"], x["uvf"], 5)),
-        }
-        for name, (kern, plain) in pairs.items():
+        for name, (kern, plain) in kernel_pairs(x).items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{name} at {w}x{h}: non-finite output")
             err = float((got - want).abs().max())
-            if name in ("level_derivs", "outer_prologue"):
-                # relative: |got - want| <= rtol * |want| elementwise
-                rel = (got - want).abs() / want.abs().clamp_min(1e-30)
-                check = float(rel.max())
+            if name in ELEMENTWISE_RELATIVE:
+                # |got - want| <= rtol * |want| elementwise
+                check = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+            elif name in FIELD_RELATIVE:
+                check = err / max(float(want.abs().max()), 1e-30)
             else:
                 check = err
-            ok = check <= BOUNDS[name]
-            row = {"phase": "kernel", "name": name, "shape": [h, w],
-                   "max_abs_err": err, "checked": check, "bound": BOUNDS[name], "ok": ok}
-            if (w, h) == SIZES[-1]:
-                row["ms"] = cuda_ms(kern, 20)
-                row["plain_ms"] = cuda_ms(plain, 5)
-                table[name] = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms")}
-            else:
-                table[name] = {"max_abs_err": err}
+            bound = BOUNDS[name if name in BOUNDS else "level_tensor"]
+            row = {"phase": "kernel", "name": name, "shape": [h, w], "max_abs_err": err,
+                   "checked": check, "bound": bound, "ok": check <= bound}
+            entry = table.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if (w, h) in timed:
+                suffix = "" if (w, h) == SIZES[1] else "_4k"
+                row["ms"] = entry["ms" + suffix] = cuda_ms(kern, 20)
+                row["plain_ms"] = entry["plain_ms" + suffix] = cuda_ms(plain, 5)
             emit(row)
-            if not ok:
-                raise AssertionError(f"{name} at {w}x{h}: {check} > {BOUNDS[name]}")
+            if not row["ok"]:
+                raise AssertionError(f"{name} at {w}x{h}: {check} > {bound}")
+        del x
+        torch.cuda.empty_cache()
     return table
 
 
 def expected_launches(w: int, h: int, cfg) -> dict:
+    from tpuflow_torch.config import DataConstancy
     from tpuflow_torch.pyramid import level_schedule
 
     n = len(level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor))
     outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
-    return {"warp": n, "level_derivs": n, "outer_prologue": n * outer,
+    tensor = cfg.data_constancy != DataConstancy.GREY
+    return {"warp": n, "level_derivs": n, "level_tensor": n if tensor else 0,
+            "outer_prologue": 0 if tensor else n * outer,
+            "outer_prologue_tensor": n * outer if tensor else 0,
             "jacobi_sweep": n * outer * inner, "add_median": n, "levels": n}
 
 
-def phase_e2e(w: int, h: int, counts_total: dict):
-    """The main path at (w, h) with FlowConfig(); checks it and returns the
-    pair for the timing phase."""
+def phase_e2e(w: int, h: int, preset: str, counts_total: dict, oracle: bool = False,
+              shift_bound: float | None = None, **preset_kw):
+    """The main path at (w, h) with ``models.<preset>(**preset_kw)``; checks
+    it against the plain path, the true shift (within ``shift_bound``, by
+    default SHIFT_BOUNDS of the constancy) and (``oracle``) the NumPy oracle
+    on the reduced schedule at the preset's alpha. Returns the pair for the
+    timing phase."""
     import torch
 
-    from tpuflow_torch import FlowConfig, compute_flow, endpoint_error
+    from tpuflow_torch import FlowConfig, compute_flow, endpoint_error, models
     from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
     from tpuflow_torch.solver.level import PLAIN_STEPS, solve
+    from tpuflow_torch.synthetic import shift_epe, textured_pair
 
-    cfg = FlowConfig()
+    cfg = getattr(models, preset)(**preset_kw)
+    label = f"models.{preset}({', '.join(f'{k}={v}' for k, v in preset_kw.items())})"
+    constancy = cfg.data_constancy.value
+    shift_bound = SHIFT_BOUNDS[constancy] if shift_bound is None else shift_bound
     f0, f1 = textured_pair(w, h)
 
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     res = compute_flow(f0, f1, cfg, device="cuda")
     counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     want = expected_launches(w, h, cfg)
-    emit({"phase": "launches", "shape": [h, w], "levels": want["levels"],
-          "counts": counts, "expected": {k: want[k] for k in counts}})
+    emit({"phase": "launches", "shape": [h, w], "config": label,
+          "levels": want["levels"], "counts": counts,
+          "expected": {k: want[k] for k in counts}})
     for name, n in counts.items():
-        if n == 0 or n != want[name]:
+        if n != want[name]:
             raise AssertionError(f"{name}: {n} launches at {w}x{h}, expected {want[name]}")
         counts_total[name] = counts_total.get(name, 0) + n
 
     if res.u.shape != (h, w) or not (np.isfinite(res.u).all() and np.isfinite(res.v).all()):
         raise AssertionError(f"bad output at {w}x{h}: shape {res.u.shape}, or non-finite")
+    t0 = time.perf_counter()
     with torch.cuda.device(0):
         uv = solve(torch.from_numpy(f0).cuda(), torch.from_numpy(f1).cuda(), cfg,
                    _steps=PLAIN_STEPS).cpu().numpy()
+    plain_s = time.perf_counter() - t0
     epe_plain = endpoint_error(res.u, res.v, uv[0], uv[1])
     epe_shift = shift_epe(res.u, res.v)
-    row = {"phase": "e2e", "shape": [h, w], "config": "FlowConfig()",
-           "epe_kernel_vs_plain": epe_plain, "epe_vs_true_shift": epe_shift,
+    row = {"phase": "e2e", "shape": [h, w], "config": label,
+           "constancy": constancy, "epe_kernel_vs_plain": epe_plain,
+           "epe_vs_true_shift": epe_shift, "true_shift_bound": shift_bound,
+           "kernel_wall_s": res.seconds, "plain_wall_s": plain_s,
+           "max_memory_allocated_bytes": peak,
            "mean_u": float(res.u.mean()), "mean_v": float(res.v.mean())}
-    checks = [("kernel_vs_plain", epe_plain, 1e-3), ("true_shift", epe_shift, 0.3)]
-    if (w, h) == SIZES[0]:
+    checks = [("kernel_vs_plain", epe_plain, 1e-3),
+              ("true_shift", epe_shift, shift_bound)]
+    if oracle:
         from tpuflow_torch import oracle_np
 
+        kw = dict(ORACLE_KW, equation_alpha=cfg.equation_alpha)
         t0 = time.perf_counter()
-        ou, ov = oracle_np.compute_flow(f0, f1, **ORACLE_KW)
+        ou, ov = oracle_np.compute_flow(f0, f1, data_constancy=constancy, **kw)
         row["oracle_seconds"] = time.perf_counter() - t0
-        red = compute_flow(f0, f1, FlowConfig(**ORACLE_KW), device="cuda")
+        red = compute_flow(f0, f1, FlowConfig(data_constancy=cfg.data_constancy, **kw),
+                           device="cuda")
         row["epe_vs_oracle_reduced"] = endpoint_error(red.u, red.v, ou, ov)
         checks.append(("oracle_reduced", row["epe_vs_oracle_reduced"], 0.05))
     row["ok"] = all(v <= b for _, v, b in checks)
     emit(row)
     for name, v, b in checks:
         if not v <= b:
-            raise AssertionError(f"{name} at {w}x{h}: {v} > {b}")
+            raise AssertionError(f"{name} at {w}x{h}, {preset}: {v} > {b}")
     return f0, f1
 
 
-def phase_times(w: int, h: int, f0, f1, card: str):
+def phase_cli(w: int = 584, h: int = 388):
+    """The CLI on the card in a subprocess at xray_log(alpha=LOG_ALPHA),
+    against compute_flow in this one and against the true shift."""
+    from tpuflow_torch import compute_flow, models
+    from tpuflow_torch.io import read_frame, read_raw_f32, write_raw_u8
+    from tpuflow_torch.synthetic import shift_epe, textured_pair
+
+    f0, f1 = textured_pair(w, h)
+    cfg = models.xray_log(alpha=LOG_ALPHA)
+    sweep = [str(cfg.equation_alpha), str(cfg.gaussian_sigma)]
+    prefix = f"alpha{sweep[0]}_sigma{sweep[1]}_"   # the CLI's names for a sweep run
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ("f1.raw", "f2.raw")]
+        write_raw_u8(paths[0], f0)
+        write_raw_u8(paths[1], f1)
+        out = os.path.join(tmp, "out")
+        # A sweep run takes a counter too, and names its outputs by the sweep.
+        cmd = [sys.executable, "-m", "tpuflow_torch.cli", *paths, str(w), str(h), "0", out,
+               *sweep, "--constancy", "log"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        header = len(f"P6 \n{w} {h} \n255\n")
+        flow = {c: f"{prefix}flow-{c}-{w}-{h}.raw" for c in "uv"}
+        sizes = {flow["u"]: w * h * 4, flow["v"]: w * h * 4,
+                 f"{prefix}res.pgm": header + w * h * 3, f"{prefix}amp-{w}-{h}.raw": w * h * 4}
+        got_sizes = {n: os.path.getsize(os.path.join(out, n))
+                     for n in sizes if os.path.exists(os.path.join(out, n))}
+        if got_sizes != sizes:
+            raise AssertionError(f"cli outputs wrong: {got_sizes}, expected {sizes}")
+        res = compute_flow(read_frame(paths[0], w, h), read_frame(paths[1], w, h), cfg,
+                           device="cuda")
+        same = {c: open(os.path.join(out, flow[c]), "rb").read()
+                == np.asarray(getattr(res, c), "<f4").tobytes() for c in "uv"}
+        epe_shift = shift_epe(*(read_raw_f32(os.path.join(out, flow[c]), w, h) for c in "uv"))
+    row = {"phase": "cli", "shape": [h, w], "argv": cmd[3:], "seconds": cli_s,
+           "stdout": proc.stdout.strip().splitlines(), "sizes": got_sizes,
+           "flow_bytewise_equal": same, "epe_vs_true_shift": epe_shift,
+           "true_shift_bound": SHIFT_BOUNDS["log"]}
+    row["ok"] = same == {"u": True, "v": True} and epe_shift <= SHIFT_BOUNDS["log"]
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"cli outputs wrong: bytewise {same}, shift EPE {epe_shift}")
+
+
+def phase_times(w: int, h: int, f0, f1, card: str, preset: str, reps: dict):
+    """Median ms per pair by CUDA events after one warm-up pair, for the
+    paths named in ``reps`` ({"kernel": n, "plain": n})."""
     import torch
 
-    from tpuflow_torch import FlowConfig, compute_flow
+    from tpuflow_torch import compute_flow, models
     from tpuflow_torch.solver.level import PLAIN_STEPS, solve
 
-    cfg = FlowConfig()
+    cfg = getattr(models, preset)()
     t0, t1 = torch.from_numpy(f0).cuda(), torch.from_numpy(f1).cuda()
+    paths = {"kernel": lambda: compute_flow(f0, f1, cfg, device="cuda"),
+             "plain": lambda: solve(t0, t1, cfg, _steps=PLAIN_STEPS).cpu()}
 
-    def kernel_pair():
-        compute_flow(f0, f1, cfg, device="cuda")
-
-    def plain_pair():
-        solve(t0, t1, cfg, _steps=PLAIN_STEPS).cpu()
-
-    row = {"phase": "times", "shape": [h, w], "card": card, "config": "FlowConfig()"}
-    for label, fn, reps in (("kernel", kernel_pair, 5), ("plain", plain_pair, 3)):
+    row = {"phase": "times", "shape": [h, w], "card": card, "config": f"models.{preset}()",
+           "constancy": cfg.data_constancy.value}
+    for label, n in reps.items():
+        fn = paths[label]
         fn()  # warm-up pair
         ms = []
-        for _ in range(reps):
+        for _ in range(n):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -307,6 +420,7 @@ def main() -> int:
     torch.cuda.set_device(0)
 
     from tpuflow_torch.ops.cuda_lib import load_library
+    from tpuflow_torch.synthetic import textured_pair
 
     lib = load_library()
     ptxas = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln or "spill" in ln]
@@ -316,17 +430,38 @@ def main() -> int:
     table = phase_kernels()
     counts, pairs = {}, {}
     for w, h in SIZES:
-        pairs[(w, h)] = phase_e2e(w, h, counts)
+        pairs[(w, h, "reference_default")] = phase_e2e(w, h, "reference_default", counts,
+                                                       oracle=(w, h) == SIZES[0])
+    pairs[SIZES[0] + ("full_model",)] = phase_e2e(*SIZES[0], "full_model", counts, oracle=True)
+    phase_e2e(*SIZES[0], "xray_log", counts, oracle=True, alpha=LOG_ALPHA)
+    pairs[SIZE_4K + ("full_model",)] = phase_e2e(*SIZE_4K, "full_model", counts,
+                                                 shift_bound=ZERO_FLOW_EPE)
     emit({"phase": "launch_totals", "counts": counts})
-    for w, h in SIZES:
-        phase_times(w, h, *pairs[(w, h)], card)
+    missing = [name for name in BOUNDS if counts.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    phase_cli()
 
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": "tpuflow_torch/csrc/level.cu",
-         "replaces": REPLACES[name], "launches": counts[name],
-         "max_abs_err": table[name]["max_abs_err"], "ms": table[name]["ms"],
-         "plain_ms": table[name]["plain_ms"]}
-        for name in BOUNDS]})
+    for w, h in SIZES:
+        phase_times(w, h, *pairs[(w, h, "reference_default")], card, "reference_default",
+                    {"kernel": 5, "plain": 3})
+    phase_times(*SIZES[0], *pairs[SIZES[0] + ("full_model",)], card, "full_model",
+                {"kernel": 5, "plain": 3})
+    phase_times(*SIZES[1], *textured_pair(*SIZES[1]), card, "full_model", {"kernel": 5})
+    phase_times(*SIZE_4K, *pairs[SIZE_4K + ("full_model",)], card, "full_model",
+                {"kernel": 3})
+
+    rows = []
+    for name in BOUNDS:
+        if name == "level_tensor":
+            grad, log = table["level_tensor_gradient"], table["level_tensor_log"]
+            t = dict(grad, max_abs_err=max(grad["max_abs_err"], log["max_abs_err"]),
+                     **{"log_" + k: v for k, v in log.items() if "ms" in k})
+        else:
+            t = table[name]
+        rows.append({"name": name, "route": "cuda", "source": "tpuflow_torch/csrc/level.cu",
+                     "replaces": REPLACES[name], "launches": counts[name], **t})
+    emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""tpuflow_torch's configuration, schedule, level constants and oracle copy,
-held exactly equal to the JAX package's; and the port imports no JAX."""
+"""tpuflow_torch's configuration, settings.xml reader, schedule, level
+constants and oracle copy, held exactly equal to the JAX package's; and the
+port imports no JAX."""
 
 import dataclasses
 import subprocess
@@ -13,18 +14,22 @@ import tpuflow.models as jmodels
 import tpuflow.oracle as joracle
 from tpuflow.config import DataConstancy as JDataConstancy
 from tpuflow.config import FlowConfig as JFlowConfig
+from tpuflow.config import IOConfig as JIOConfig
+from tpuflow.config import load_settings_xml as jload_settings_xml
 from tpuflow.pyramid import level_schedule as jlevel_schedule
 from tpuflow.solver.bucketed import LevelScalars as JLevelScalars
 
 import tpuflow_torch.models as tmodels
 from tpuflow_torch import oracle_np
-from tpuflow_torch.config import DataConstancy, FlowConfig, from_jax_config
+from tpuflow_torch.config import (
+    DataConstancy, FlowConfig, IOConfig, from_jax_config, load_settings_xml,
+)
 from tpuflow_torch.pyramid import level_schedule
 from tpuflow_torch.solver.level import LevelScalars
 
 torch.set_num_threads(2)
 
-SIZES = [(584, 388, 47), (1920, 1080, 50)]
+SIZES = [(584, 388, 47), (1920, 1080, 50), (3840, 2160, 50)]
 
 
 def _fields(cfg):
@@ -101,10 +106,64 @@ def test_level_scalars_equal_jax(w, h, n_levels):
         prev = s
 
 
+# A reference-schema settings.xml with every field off its default.
+SETTINGS_XML = """<?xml version="1.0"?>
+<OpticalFlow>
+  <Input>
+    <Path inputPath="/data/in/"/>
+    <Mode Nx="640" Ny="480" imageType="8-bit">
+      <Files file1="f_001.raw" file2="f_002.raw"/>
+    </Mode>
+  </Input>
+  <Parameters>
+    <Method mode="2d" run="flow" key="{key}"/>
+    <Solver>
+      <Iterations inner="7" outer="12"/>
+      <Warping levels="20" scaling="0.8" medianRadius="3"/>
+      <Model sigma="1.2" alpha="20.5" e_smooth="0.002" e_data="0.0005"/>
+    </Solver>
+  </Parameters>
+  <Output>
+    <Path outputPath="/data/out/"/>
+  </Output>
+</OpticalFlow>
+"""
+
+
+def test_io_config_defaults_equal_jax():
+    assert dataclasses.asdict(IOConfig()) == dataclasses.asdict(JIOConfig())
+
+
+@pytest.mark.parametrize("key", ["0", "1"])
+def test_load_settings_xml_equals_jax(tmp_path, key):
+    path = tmp_path / "settings.xml"
+    path.write_text(SETTINGS_XML.format(key=key))
+    flow, io = load_settings_xml(str(path))
+    jflow, jio = jload_settings_xml(str(path))
+    assert _fields(flow) == _fields(jflow)
+    assert dataclasses.asdict(io) == dataclasses.asdict(jio)
+    assert (io.width, io.height, io.file_name2, io.press_key) == (640, 480, "f_002.raw",
+                                                                  key == "1")
+    assert flow.warp_levels_count == 20 and flow.equation_data == 0.0005
+
+
+@pytest.mark.parametrize("drop", ["<Output>", "<Solver>"])
+def test_load_settings_xml_missing_element_raises(tmp_path, drop):
+    text = SETTINGS_XML.format(key="0")
+    tag = drop.strip("<>")
+    start, end = text.index(drop), text.index(f"</{tag}>") + len(f"</{tag}>")
+    path = tmp_path / "settings.xml"
+    path.write_text(text[:start] + text[end:])
+    with pytest.raises(ValueError, match="missing element"):
+        jload_settings_xml(str(path))
+    with pytest.raises(ValueError, match="missing element"):
+        load_settings_xml(str(path))
+
+
 def test_import_loads_no_jax():
     code = (
         "import sys, tpuflow_torch, tpuflow_torch.solver.level, tpuflow_torch.oracle_np, "
-        "tpuflow_torch.models\n"
+        "tpuflow_torch.models, tpuflow_torch.cli, tpuflow_torch.io\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpuflow' or m.startswith('tpuflow.')]\n"
         "assert not bad, bad\n"

@@ -4,12 +4,19 @@ Pallas interpret mode on the same seeded numpy inputs:
 
   * the whole level vs ``bucketed_level_step_trim`` (``level_fused_whole``);
   * the level tail without the warp vs ``level_fused``;
-  * the relaxation (du, dv) vs ``_relax_bucket_full`` and ``_relax_du_chunked``.
+  * the relaxation (du, dv) vs all five relaxation kernels:
+    ``_relax_bucket_full``, ``_relax_bucket_chunked``, ``_relax_du_full``,
+    ``_relax_du_chunked`` and ``_relax_du_streamed``;
+
+for grey constancy, and for the gradient and log constancies, whose
+second-order tensor the TPU kernels build in-kernel (level_fused.py:291-322)
+or take through ``tensor=``.
 
 Bounds: 1 outer x 1 inner agrees to max abs 1e-4 (the class of
 tests/test_level_fused.py:205); more iterations are bounded on mean EPE
 1e-3, because the lagged nonlinearity amplifies cross-program ulp noise at
-phi-sensitive pixels (tests/test_level_fused.py:228).
+phi-sensitive pixels (tests/test_level_fused.py:228), most of all for the
+gradient tensor (tests/test_relax_du.py:38-42).
 """
 
 import numpy as np
@@ -18,6 +25,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tpuflow.config import DataConstancy as JDataConstancy
 from tpuflow.config import FlowConfig as JFlowConfig
 from tpuflow.ops.pallas.level_fused import level_fused
 from tpuflow.ops.pallas.relax_bucket import relax_bucket_fused
@@ -27,8 +35,8 @@ from tpuflow.solver.bucketed import (
     level_constants, maintain_mirror1, maintain_mirror2,
 )
 
-from tpuflow_torch.config import FlowConfig
-from tpuflow_torch.ops.level import level_derivs
+from tpuflow_torch.config import DataConstancy, FlowConfig
+from tpuflow_torch.ops.level import level_derivs, level_tensor
 from tpuflow_torch.ops.resample import resample
 from tpuflow_torch.solver.level import LevelScalars, level_step, level_tail, relax
 
@@ -37,8 +45,12 @@ torch.set_num_threads(2)
 T = torch.from_numpy
 
 
-def cfgs(**kw):
-    return JFlowConfig(**kw), FlowConfig(**kw)
+def cfgs(constancy="grey", **kw):
+    return (JFlowConfig(data_constancy=JDataConstancy(constancy), **kw),
+            FlowConfig(data_constancy=DataConstancy(constancy), **kw))
+
+
+TENSOR = ["gradient", "log"]
 
 
 def max_abs(got_uv, want_u, want_v, ch, cw):
@@ -116,6 +128,26 @@ def test_whole_level_finest_identity():
     assert mean_epe(got, wu, wv, s["ch"], s["cw"]) <= 1e-3
 
 
+@pytest.mark.parametrize("constancy", TENSOR)
+@pytest.mark.parametrize("flow_scale", [0.4, 24.0])
+def test_whole_level_tensor_single_sweep(constancy, flow_scale):
+    s = whole_setup(flow_scale=flow_scale)
+    jcfg, tcfg = cfgs(constancy, outer_iterations_count=1, inner_iterations_count=1,
+                      median_radius=5)
+    got, wu, wv = run_whole(s, jcfg, tcfg)
+    assert np.isfinite(got).all()
+    assert max_abs(got, wu, wv, s["ch"], s["cw"]) <= 1e-4
+
+
+@pytest.mark.parametrize("constancy", TENSOR)
+def test_whole_level_tensor_multi_iteration(constancy):
+    s = whole_setup()
+    jcfg, tcfg = cfgs(constancy, outer_iterations_count=3, inner_iterations_count=5,
+                      median_radius=5)
+    got, wu, wv = run_whole(s, jcfg, tcfg)
+    assert mean_epe(got, wu, wv, s["ch"], s["cw"]) <= 1e-3
+
+
 # ---------------------------------------------------------------------------
 # Level tail (no warp) vs level_fused
 # ---------------------------------------------------------------------------
@@ -164,6 +196,23 @@ def test_level_tail_multi_iteration():
     assert mean_epe(got, wu, wv, CH, CW) <= 1e-3
 
 
+@pytest.mark.parametrize("constancy", TENSOR)
+@pytest.mark.parametrize("radius", [3, 5])
+def test_level_tail_tensor_single_sweep(constancy, radius):
+    jcfg, tcfg = cfgs(constancy, outer_iterations_count=1, inner_iterations_count=1,
+                      median_radius=radius)
+    got, wu, wv = run_tail(jcfg, tcfg)
+    assert max_abs(got, wu, wv, CH, CW) <= 1e-4
+
+
+@pytest.mark.parametrize("constancy", TENSOR)
+def test_level_tail_tensor_multi_iteration(constancy):
+    jcfg, tcfg = cfgs(constancy, outer_iterations_count=3, inner_iterations_count=5,
+                      median_radius=5)
+    got, wu, wv = run_tail(jcfg, tcfg)
+    assert mean_epe(got, wu, wv, CH, CW) <= 1e-3
+
+
 # ---------------------------------------------------------------------------
 # Relaxation (du, dv) vs _relax_bucket_full and _relax_du_chunked
 # ---------------------------------------------------------------------------
@@ -182,31 +231,56 @@ def relax_inputs(seed=0):
             maintain_mirror2(u, RCW, RCH), maintain_mirror2(v, RCW, RCH))
 
 
+# The five TPU relaxation kernels: (entry point, force_mode) by test kind.
+RELAX_KINDS = {
+    "full": (relax_bucket_fused, "full"),             # _relax_bucket_full
+    "chunked": (relax_bucket_fused, "chunked"),       # _relax_bucket_chunked
+    "du_full": (relax_du_fused, "full"),              # _relax_du_full
+    "du_chunked": (relax_du_fused, "chunked"),        # _relax_du_chunked
+    "du_streamed": (relax_du_fused, "streamed"),      # _relax_du_streamed
+}
+
+
 def run_relax(kind, jcfg, tcfg):
     f0, f1, u, v = relax_inputs()
     jsc = JLevelScalars.make(RCW, RCH, 1.3, 1.2, 35.0, 120, 60, 90, 48).tree()
-    fx, fy, ft, _ = level_constants(f0, f1, jsc, jcfg)
-    fused = relax_bucket_fused if kind == "full" else relax_du_fused
-    want_du, want_dv = fused(fx, fy, ft, u, v, jsc, jcfg, interpret=True,
-                             force_mode="full" if kind == "full" else "chunked")
+    fx, fy, ft, J = level_constants(f0, f1, jsc, jcfg)
+    grey = tcfg.data_constancy == DataConstancy.GREY
+    fused, mode = RELAX_KINDS[kind]
+    want_du, want_dv = fused(fx, fy, ft, u, v, jsc, jcfg, tensor=None if grey else J,
+                             interpret=True, force_mode=mode)
     valid = lambda a: T(np.ascontiguousarray(np.asarray(a)[:RCH, :RCW]))  # noqa: E731
     sc = LevelScalars.make(RCW, RCH, 1.3, 1.2, 35.0)
     uv = torch.stack([valid(u), valid(v)])
     fxyz = level_derivs(valid(f0), valid(f1), sc.div4hx, sc.div4hy)
-    got = (relax(fxyz, uv, sc, tcfg) - uv).numpy()
+    J_t = None if grey else level_tensor(
+        valid(f0), valid(f1), fxyz, sc, tcfg.data_constancy == DataConstancy.LOG_DERIVATIVES)
+    got = (relax(fxyz, uv, sc, tcfg, J=J_t) - uv).numpy()
     return got, want_du, want_dv
 
 
-@pytest.mark.parametrize("kind", ["full", "du_chunked"])
+@pytest.mark.parametrize("kind", ["full", "du_chunked", "chunked", "du_full", "du_streamed"])
 def test_relax_single_sweep(kind):
     jcfg, tcfg = cfgs(outer_iterations_count=1, inner_iterations_count=1)
     got, wdu, wdv = run_relax(kind, jcfg, tcfg)
     assert max_abs(got, wdu, wdv, RCH, RCW) <= 1e-4
 
 
-@pytest.mark.parametrize("kind", ["full", "du_chunked"])
+@pytest.mark.parametrize("kind", ["full", "du_chunked", "chunked", "du_full", "du_streamed"])
 @pytest.mark.parametrize("outer,inner", [(3, 2), (2, 3)])
 def test_relax_multi_iteration(kind, outer, inner):
     jcfg, tcfg = cfgs(outer_iterations_count=outer, inner_iterations_count=inner)
+    got, wdu, wdv = run_relax(kind, jcfg, tcfg)
+    assert mean_epe(got, wdu, wdv, RCH, RCW) <= 1e-3
+
+
+# Grey is already held against full and du_chunked above.
+CONSTANCY_KINDS = [("grey", k) for k in ("chunked", "du_full", "du_streamed")] + [
+    (c, k) for c in TENSOR for k in RELAX_KINDS]
+
+
+@pytest.mark.parametrize("constancy,kind", CONSTANCY_KINDS)
+def test_relax_constancy_multi_iteration(constancy, kind):
+    jcfg, tcfg = cfgs(constancy, outer_iterations_count=3, inner_iterations_count=2)
     got, wdu, wdv = run_relax(kind, jcfg, tcfg)
     assert mean_epe(got, wdu, wdv, RCH, RCW) <= 1e-3

@@ -5,11 +5,16 @@ smoothness terms, lagged-nonlinearity Jacobi relaxation, median filtering)
 with the same semantics as the JAX package ``tpuflow``, which stays the
 reference. Plain tensor code is PyTorch; every kernel the JAX package
 wrote in Pallas for the TPU is a CUDA kernel for ``sm_90a`` here
-(``tpuflow_torch/csrc``), built with nvcc at first use. Importing this
+(``tpuflow_torch/csrc``), built with nvcc at first use. All three data
+constancies (grey, gradient, log-derivative) run; ``python -m
+tpuflow_torch.cli`` is the reference-compatible command line, and
+``tpuflow_torch.io`` reads and writes its RAW and PPM files. Importing this
 package imports neither JAX nor ``tpuflow``.
 """
 
 __version__ = "0.1.0"
 
-from tpuflow_torch.config import DataConstancy, FlowConfig, from_jax_config  # noqa: F401
+from tpuflow_torch.config import (  # noqa: F401
+    DataConstancy, FlowConfig, IOConfig, from_jax_config, load_settings_xml,
+)
 from tpuflow_torch.solver.flow2d import FlowResult, compute_flow, endpoint_error  # noqa: F401

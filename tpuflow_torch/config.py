@@ -2,8 +2,10 @@
 
 ``FlowConfig`` and ``DataConstancy`` carry the same fields, defaults and
 validation as the JAX package (tpuflow/config.py:18-77), so a
-configuration means the same solve in both. ``from_jax_config`` carries a
-``tpuflow.FlowConfig`` (or its ``dataclasses.asdict``) across without
+configuration means the same solve in both. ``IOConfig`` and
+``load_settings_xml`` read a reference-format ``settings.xml`` with the
+same field mapping (tpuflow/config.py:80-139). ``from_jax_config`` carries
+a ``tpuflow.FlowConfig`` (or its ``dataclasses.asdict``) across without
 importing the JAX package.
 """
 
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import xml.etree.ElementTree as ET
 from typing import Any, Mapping
 
 
@@ -79,3 +82,65 @@ def from_jax_config(obj_or_dict: Any) -> FlowConfig:
         dc = fields["data_constancy"]
         fields["data_constancy"] = DataConstancy(getattr(dc, "value", dc))
     return FlowConfig(**fields)
+
+
+@dataclasses.dataclass(frozen=True)
+class IOConfig:
+    """Input/output file description (paths, size, filenames)."""
+
+    width: int = 584
+    height: int = 388
+    input_path: str = "./data/"
+    output_path: str = "./data/output/"
+    file_name1: str = "rub1.raw"
+    file_name2: str = "rub2.raw"
+    counter: str = ""
+    press_key: bool = False  # parsed but ignored, as in the reference
+
+
+def load_settings_xml(path: str) -> tuple[FlowConfig, IOConfig]:
+    """Parse a reference-format ``settings.xml``.
+
+    The field mapping follows the reference parser
+    (reference: src/utils/settings.cpp:93-137): ``Input/Path@inputPath``,
+    ``Input/Mode@Nx,Ny``, ``Input/Mode/Files@file1,file2``,
+    ``Parameters/Method@key``, ``Parameters/Solver/Iterations@inner,outer``,
+    ``Parameters/Solver/Warping@levels,scaling,medianRadius``,
+    ``Parameters/Solver/Model@sigma,alpha,e_smooth,e_data``,
+    ``Output/Path@outputPath``.
+    """
+    root = ET.parse(path).getroot()
+
+    def el(xpath: str) -> ET.Element:
+        node = root.find(xpath)
+        if node is None:
+            raise ValueError(f"settings file {path!r} missing element {xpath!r}")
+        return node
+
+    mode = el("Input/Mode")
+    files = el("Input/Mode/Files")
+    iters = el("Parameters/Solver/Iterations")
+    warping = el("Parameters/Solver/Warping")
+    model = el("Parameters/Solver/Model")
+
+    flow = FlowConfig(
+        warp_levels_count=int(warping.get("levels")),
+        warp_scale_factor=float(warping.get("scaling")),
+        outer_iterations_count=int(iters.get("outer")),
+        inner_iterations_count=int(iters.get("inner")),
+        equation_alpha=float(model.get("alpha")),
+        equation_smoothness=float(model.get("e_smooth")),
+        equation_data=float(model.get("e_data")),
+        median_radius=int(warping.get("medianRadius")),
+        gaussian_sigma=float(model.get("sigma")),
+    )
+    io = IOConfig(
+        width=int(mode.get("Nx")),
+        height=int(mode.get("Ny")),
+        input_path=el("Input/Path").get("inputPath"),
+        output_path=el("Output/Path").get("outputPath"),
+        file_name1=files.get("file1"),
+        file_name2=files.get("file2"),
+        press_key=bool(int(el("Parameters/Method").get("key", "0"))),
+    )
+    return flow, io

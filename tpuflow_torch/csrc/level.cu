@@ -1,35 +1,51 @@
-// Hopper (sm_90a) kernels for one pyramid level of the grey-constancy solve.
+// Hopper (sm_90a) kernels for one pyramid level of the flow solve, for all
+// three data constancies (grey, gradient, log-derivative).
 //
-// They replace the TPU's four level kernels, which all compute one function
-// and differ only in where the TPU kept each field:
-//   level_fused_whole   tpuflow/ops/pallas/level_fused.py:526  (body :246, warp :179)
-//   level_fused         tpuflow/ops/pallas/level_fused.py:472
-//   _relax_bucket_full  tpuflow/ops/pallas/relax_bucket.py:400
-//   _relax_du_chunked   tpuflow/ops/pallas/relax_du.py:457
+// They replace the TPU's level kernels, which all compute one function and
+// differ only in where the TPU kept each field:
+//   level_fused_whole      tpuflow/ops/pallas/level_fused.py:526  (body :246, warp :179)
+//   level_fused            tpuflow/ops/pallas/level_fused.py:472
+//   _relax_bucket_full     tpuflow/ops/pallas/relax_bucket.py:400
+//   _relax_bucket_chunked  tpuflow/ops/pallas/relax_bucket.py:176
+//   _relax_du_full         tpuflow/ops/pallas/relax_du.py:241
+//   _relax_du_chunked      tpuflow/ops/pallas/relax_du.py:457
+//   _relax_du_streamed     tpuflow/ops/pallas/relax_du.py:874
+// For the gradient and log constancies the first two build a second-order
+// motion tensor in-kernel (level_fused.py:291-322) and their prologue reads
+// it (:379-392); the other five take it through their tensor= argument
+// (tpuflow/solver/bucketed.py:422-444,476-530). tf_level_tensor replaces
+// that tensor, and tf_outer_prologue_tensor the prologue that reads it.
 // On this card a level does not fit one core's fast memory, so the level is
 // a short sequence of launches over fields in device memory:
-//   tf_warp           once per level   backward bilinear warp
-//   tf_level_derivs   once per level   fx, fy, ft
-//   tf_outer_prologue once per outer   phi/ksi and the per-outer hoists
-//   tf_jacobi_sweep   outer x inner    one coupled T-form sweep
-//   tf_add_median     once per level   u + (T - u), then the window median
+//   tf_warp                   once per level  backward bilinear warp
+//   tf_level_derivs           once per level  fx, fy, ft
+//   tf_level_tensor           once per level  J11..J23 (gradient and log only)
+//   tf_outer_prologue         once per outer  phi/ksi and the per-outer hoists
+//   tf_outer_prologue_tensor  once per outer  the same, the hoists from J
+//   tf_jacobi_sweep           outer x inner   one coupled T-form sweep
+//   tf_add_median             once per level  u + (T - u), then the window median
 //
 // Every field is a contiguous float32 (h, w) plane at the level's exact
 // size; stacks are planes back to back. The mirror boundary is reflect
 // indexing (neighbour -1 reads 1, neighbour n reads n-2), which is what the
 // TPU's ghost rows held in the valid region (tpuflow/ops/solver_ops.py:228-235).
+// The one exception is the second-order tensor's stencil over derivative
+// fields, which replicates (clamp: neighbour -1 reads 0, n reads n-1).
 //
 // All kernels are one thread per pixel over 32x8 blocks. Each reads a few
 // neighbouring floats and does ~1 FLOP per byte, so device-memory bandwidth
 // bounds them at fine levels and launch latency at coarse ones; neighbour
 // reuse comes from L1/L2, not shared memory. Shared-memory k-sweep blocking
-// is later work.
+// is later work. Pixel indices are int (a 3840x2160 level has 8.3 M
+// pixels); plane offsets are size_t.
 //
 // Numerics: the expressions keep the association order of the JAX
 // kernels term for term. The library is built without fast math and with
 // --fmad=false, so sqrtf and '/' round as IEEE and no multiply-add is
 // contracted: the kernels then agree with their plain PyTorch versions to
-// the last bit in practice, and the bounds in the tests have room to spare.
+// the last bit in practice (on an H100 even log1pf matches torch.log1p,
+// though nothing promises it), and the bounds in the tests have room to
+// spare.
 //
 // Each C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise.
@@ -44,6 +60,11 @@ constexpr int BY = 8;
 __device__ __forceinline__ int refl(int i, int n) {
   // Reference mirror: x < 0 -> -x, x >= n -> 2n - x - 2 (solve_2d.cu:75-76).
   return i < 0 ? -i : (i >= n ? 2 * n - i - 2 : i);
+}
+
+__device__ __forceinline__ int clamp_idx(int i, int n) {
+  // Replicate boundary of the derivative fields (solve_2d.cu:813-841).
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
 dim3 grid_for(int h, int w) { return dim3((w + BX - 1) / BX, (h + BY - 1) / BY); }
@@ -109,6 +130,65 @@ __global__ void level_derivs_kernel(const float* __restrict__ f0, const float* _
   fxyz[2 * n + c] = f1[c] - f0[c];
 }
 
+// ---------------------------------------------------------------------------
+// level_tensor: the second-order motion tensor of the gradient (LOG=false)
+// and log-derivative (LOG=true) data terms, once per level
+// (level_fused.py:291-322, bucketed.py:422-444, reference solve_2d.cu:798-884).
+// The first-derivative fields g = (gx, gy, gt) are the grey fxyz for
+// gradient; for log they are the same reflect stencil over log1pf of the
+// frames, recomputed here at each of the four clamped neighbours. The
+// second differences multiply by the host-rounded hx_1 = f32(1/(2h)).
+// Bound: gradient reads 10 neighbouring floats of fxyz, log 4 x 6 frame
+// values through log1pf; 5 planes written. Once per level: never the
+// bottleneck next to 240 sweeps and prologues.
+// ---------------------------------------------------------------------------
+template <bool LOG>
+__device__ __forceinline__ void derivs_at(const float* __restrict__ f0,
+                                          const float* __restrict__ f1,
+                                          const float* __restrict__ fxyz, size_t n, int y,
+                                          int x, int h, int w, float div4hx, float div4hy,
+                                          float g[3]) {
+  const int c = y * w + x;
+  if constexpr (LOG) {
+    const int xp = y * w + refl(x + 1, w), xm = y * w + refl(x - 1, w);
+    const int yp = refl(y + 1, h) * w + x, ym = refl(y - 1, h) * w + x;
+    g[0] = (log1pf(f0[xp]) - log1pf(f0[xm]) + log1pf(f1[xp]) - log1pf(f1[xm])) / div4hx;
+    g[1] = (log1pf(f0[yp]) - log1pf(f0[ym]) + log1pf(f1[yp]) - log1pf(f1[ym])) / div4hy;
+    g[2] = log1pf(f1[c]) - log1pf(f0[c]);
+  } else {
+    g[0] = fxyz[c];
+    g[1] = fxyz[n + c];
+    g[2] = fxyz[2 * n + c];
+  }
+}
+
+template <bool LOG>
+__global__ void level_tensor_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
+                                    const float* __restrict__ fxyz, float* __restrict__ J,
+                                    int h, int w, float div4hx, float div4hy, float hx_1,
+                                    float hy_1) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t n = (size_t)h * w;
+  const int c = y * w + x;
+  float g_xp[3], g_xm[3], g_yp[3], g_ym[3];
+  derivs_at<LOG>(f0, f1, fxyz, n, y, clamp_idx(x + 1, w), h, w, div4hx, div4hy, g_xp);
+  derivs_at<LOG>(f0, f1, fxyz, n, y, clamp_idx(x - 1, w), h, w, div4hx, div4hy, g_xm);
+  derivs_at<LOG>(f0, f1, fxyz, n, clamp_idx(y + 1, h), x, h, w, div4hx, div4hy, g_yp);
+  derivs_at<LOG>(f0, f1, fxyz, n, clamp_idx(y - 1, h), x, h, w, div4hx, div4hy, g_ym);
+  const float fxx = (g_xp[0] - g_xm[0]) * hx_1;
+  const float fxy = (g_yp[0] - g_ym[0]) * hy_1;
+  const float fyy = (g_yp[1] - g_ym[1]) * hy_1;
+  const float fxt = (g_xp[2] - g_xm[2]) * hx_1;
+  const float fyt = (g_yp[2] - g_ym[2]) * hy_1;
+  J[c] = fxx * fxx + fxy * fxy;          // J11
+  J[n + c] = fxy * fxy + fyy * fyy;      // J22
+  J[2 * n + c] = fxx * fxy + fxy * fyy;  // J12
+  J[3 * n + c] = fxx * fxt + fxy * fyt;  // J13
+  J[4 * n + c] = fxy * fxt + fyy * fyt;  // J23
+}
+
 // phi = 1 / (2 sqrt(|grad T|^2 + e_s^2)) at (y, x), from the T iterate
 // (level_fused.py:348-353).
 __device__ __forceinline__ float phi_at(const float* __restrict__ tu,
@@ -130,12 +210,17 @@ __device__ __forceinline__ float phi_at(const float* __restrict__ tu,
 // level_fused.py:343-393. Each thread computes phi at its pixel and its four
 // (reflected) neighbours, so one launch does what the TPU did with a
 // maintained phi field. hoist planes: pw_xp, pw_xm, pw_yp, pw_ym, a12, a13,
-// a23, dnu, dnv.
+// a23, dnu, dnv. With TENSOR (gradient and log) the a12/a13/a23/dnu/dnv
+// hoists take J from level_tensor (level_fused.py:379-392); ksi stays grey.
+// Without it J is never read, and the code is the grey kernel's.
 // Bound: 7 planes read (T x2 over a radius-2 stencil, u, v, fx, fy, ft),
-// 9 written; the 5x recomputed phi is arithmetic the card has to spare.
+// plus 5 of J with TENSOR, 9 written; the 5x recomputed phi is arithmetic
+// the card has to spare.
 // ---------------------------------------------------------------------------
+template <bool TENSOR>
 __global__ void outer_prologue_kernel(const float* __restrict__ T, const float* __restrict__ uv,
-                                      const float* __restrict__ fxyz, float* __restrict__ hoist,
+                                      const float* __restrict__ fxyz,
+                                      const float* __restrict__ J, float* __restrict__ hoist,
                                       int h, int w, float div2hx, float div2hy,
                                       float alpha_hx2, float alpha_hy2, float e_s2,
                                       float e_d2) {
@@ -177,15 +262,21 @@ __global__ void outer_prologue_kernel(const float* __restrict__ T, const float* 
   const float sq0 = sq < 0.0f ? 0.0f : sq;  // max(sq, 0), NaN passes through
   const float ksi = 1.0f / (2.0f * sqrtf(sq0 + e_d2));
 
+  const float J11 = TENSOR ? J[c] : fx * fx;
+  const float J22 = TENSOR ? J[n + c] : fy * fy;
+  const float J12 = TENSOR ? J[2 * n + c] : fx * fy;
+  const float J13 = TENSOR ? J[3 * n + c] : fx * ft;
+  const float J23 = TENSOR ? J[4 * n + c] : fy * ft;
+
   hoist[c] = pw_xp;
   hoist[n + c] = pw_xm;
   hoist[2 * n + c] = pw_yp;
   hoist[3 * n + c] = pw_ym;
-  hoist[4 * n + c] = ksi * (fx * fy);            // a12
-  hoist[5 * n + c] = ksi * (fx * ft);            // a13
-  hoist[6 * n + c] = ksi * (fy * ft);            // a23
-  hoist[7 * n + c] = ksi * (fx * fx) + sum_h;    // dnu
-  hoist[8 * n + c] = ksi * (fy * fy) + sum_h;    // dnv
+  hoist[4 * n + c] = ksi * J12;            // a12
+  hoist[5 * n + c] = ksi * J13;            // a13
+  hoist[6 * n + c] = ksi * J23;            // a23
+  hoist[7 * n + c] = ksi * J11 + sum_h;    // dnu
+  hoist[8 * n + c] = ksi * J22 + sum_h;    // dnv
 }
 
 // ---------------------------------------------------------------------------
@@ -297,11 +388,35 @@ int tf_level_derivs(const float* f0, const float* f1, float* fxyz, int h, int w,
   return (int)cudaGetLastError();
 }
 
+// log: 0 for the gradient tensor (reads fxyz), 1 for the log-derivative one.
+int tf_level_tensor(const float* f0, const float* f1, const float* fxyz, float* J, int h,
+                    int w, float div4hx, float div4hy, float hx_1, float hy_1, int log,
+                    void* stream) {
+  const dim3 grid = grid_for(h, w), block(BX, BY);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (log)
+    level_tensor_kernel<true><<<grid, block, 0, s>>>(f0, f1, fxyz, J, h, w, div4hx, div4hy,
+                                                     hx_1, hy_1);
+  else
+    level_tensor_kernel<false><<<grid, block, 0, s>>>(f0, f1, fxyz, J, h, w, div4hx, div4hy,
+                                                      hx_1, hy_1);
+  return (int)cudaGetLastError();
+}
+
 int tf_outer_prologue(const float* T, const float* uv, const float* fxyz, float* hoist,
                       int h, int w, float div2hx, float div2hy, float alpha_hx2,
                       float alpha_hy2, float e_s2, float e_d2, void* stream) {
-  outer_prologue_kernel<<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      T, uv, fxyz, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
+  outer_prologue_kernel<false><<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      T, uv, fxyz, nullptr, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
+  return (int)cudaGetLastError();
+}
+
+int tf_outer_prologue_tensor(const float* T, const float* uv, const float* fxyz,
+                             const float* J, float* hoist, int h, int w, float div2hx,
+                             float div2hy, float alpha_hx2, float alpha_hy2, float e_s2,
+                             float e_d2, void* stream) {
+  outer_prologue_kernel<true><<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      T, uv, fxyz, J, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
   return (int)cudaGetLastError();
 }
 

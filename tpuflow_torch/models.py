@@ -14,9 +14,8 @@ BASELINE.json benchmark configs:
   * X-ray / log: log-derivative constancy for multiplicative illumination
     robustness (synchrotron radiography, reference README.md:30-38).
 
-The same presets as tpuflow/models/__init__.py. The port's solver runs
-grey constancy only so far (``horn_schunck``, ``reference_default`` and
-the grey variants of the others); the rest raise NotImplementedError.
+The same presets as tpuflow/models/__init__.py; the port's solver runs
+all of them.
 """
 
 from __future__ import annotations

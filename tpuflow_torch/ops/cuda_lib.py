@@ -38,7 +38,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tf_warp": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
     "tf_level_derivs": (_P, _P, _P, _I, _I, _F, _F, _P),
+    "tf_level_tensor": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
     "tf_outer_prologue": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
+    "tf_outer_prologue_tensor": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
     "tf_jacobi_sweep": (_P, _P, _P, _P, _I, _I, _P),
     "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
 }

@@ -1,23 +1,28 @@
-"""The level kernels: derivatives, the per-outer prologue, the coupled
-Jacobi sweep, and add + median — each a CUDA kernel (csrc/level.cu) with
-its plain PyTorch version beside it.
+"""The level kernels: derivatives, the motion tensor of the gradient and
+log constancies, the per-outer prologue, the coupled Jacobi sweep, and
+add + median. Each is a CUDA kernel (csrc/level.cu) with its plain PyTorch
+version beside it.
 
-Together with the warp (ops/warp.py) they compute one pyramid level, the
-function of the TPU's four level kernels:
+Together with the warp (ops/warp.py) they compute one pyramid level, for
+all three data constancies: the function of the TPU's five level kernels
 
   * ``level_fused_whole`` (tpuflow/ops/pallas/level_fused.py:526) and
-    ``level_fused`` (:472): warp, derivatives, outer x (phi/ksi + inner
-    sweeps), add, median;
-  * ``_relax_bucket_full`` (tpuflow/ops/pallas/relax_bucket.py:400) and
-    ``_relax_du_chunked`` (tpuflow/ops/pallas/relax_du.py:457): the
-    outer x inner relaxation alone.
+    ``level_fused`` (:472): warp, derivatives, the gradient/log tensor
+    (:291-322), outer x (phi/ksi + inner sweeps), add, median;
+  * ``_relax_bucket_full`` (tpuflow/ops/pallas/relax_bucket.py:400),
+    ``_relax_bucket_chunked`` (:176), ``_relax_du_full``
+    (tpuflow/ops/pallas/relax_du.py:241), ``_relax_du_chunked`` (:457) and
+    ``_relax_du_streamed`` (:874): the outer x inner relaxation alone, with
+    the tensor through their ``tensor=`` argument.
 
 A wrapper runs its plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Each wrapper counts its launches in a plain
-integer attribute, ``<wrapper>.launches``.
+integer attribute, ``<wrapper>.launches``; ``outer_prologue`` with a tensor
+counts under ``outer_prologue_tensor``.
 
 Packed layouts (contiguous float32 stacks of (h, w) planes):
-  fxyz  (3, h, w)  fx, fy, ft
+  fxyz  (3, h, w)  fx, fy, ft (grey, always: ksi comes from them)
+  J     (5, h, w)  J11, J22, J12, J13, J23 of the gradient or log tensor
   T     (2, h, w)  the combined iterates Tu = u + du, Tv = v + dv
   uv    (2, h, w)  the flow the level started from
   hoist (9, h, w)  pw_xp, pw_xm, pw_yp, pw_ym, a12, a13, a23, dnu, dnv
@@ -30,12 +35,13 @@ import torch
 from tpuflow_torch.ops.cuda_lib import launch, on_cuda
 from tpuflow_torch.ops.median import effective_radius, median_plain
 from tpuflow_torch.ops.solver_ops import (
-    div_scalar, edge_weights, ksi_grey, phi_from_T, shifts,
+    derivative_tensor, edge_weights, first_derivs, ksi_grey, phi_from_T, shifts,
 )
 from tpuflow_torch.ops.sweep_core import sweep_update_T
 from tpuflow_torch.ops.warp import warp
 
 N_HOIST = 9
+N_TENSOR = 5
 
 
 def _check_planes(h: int, w: int, **stacks: tuple) -> None:
@@ -50,12 +56,7 @@ def _check_planes(h: int, w: int, **stacks: tuple) -> None:
 # ---------------------------------------------------------------------------
 
 
-def level_derivs_plain(f0, f1w, div4hx: float, div4hy: float) -> torch.Tensor:
-    f0_c, f0_xp, f0_xm, f0_yp, f0_ym = shifts(f0)
-    f1_c, f1_xp, f1_xm, f1_yp, f1_ym = shifts(f1w)
-    fx = div_scalar(f0_xp - f0_xm + f1_xp - f1_xm, div4hx)
-    fy = div_scalar(f0_yp - f0_ym + f1_yp - f1_ym, div4hy)
-    return torch.stack([fx, fy, f1_c - f0_c])
+level_derivs_plain = first_derivs
 
 
 def level_derivs(f0, f1w, div4hx: float, div4hy: float) -> torch.Tensor:
@@ -73,12 +74,39 @@ def level_derivs(f0, f1w, div4hx: float, div4hy: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# level_tensor: the gradient/log motion tensor once per level
+# (level_fused.py:291-322, bucketed.py:422-444)
+# ---------------------------------------------------------------------------
+
+
+level_tensor_plain = derivative_tensor
+
+
+def level_tensor(f0_l, f1_w, fxyz, sc, log: bool) -> torch.Tensor:
+    """(5, h, w) J11, J22, J12, J13, J23 of the gradient (``log=False``,
+    from the grey ``fxyz``) or log-derivative (``log=True``, from log1p of
+    the frames) data term. ``sc`` is the level's ``LevelScalars``."""
+    h, w = f0_l.shape
+    if f1_w.shape != (h, w):
+        raise ValueError(f"shape mismatch: {f0_l.shape} {f1_w.shape}")
+    _check_planes(h, w, fxyz=(fxyz, 3))
+    if not on_cuda(f0_l, f1_w, fxyz):
+        return level_tensor_plain(f0_l, f1_w, fxyz, sc, log)
+    J = torch.empty((N_TENSOR, h, w), dtype=torch.float32, device=f0_l.device)
+    launch("tf_level_tensor", f0_l.data_ptr(), f1_w.data_ptr(), fxyz.data_ptr(),
+           J.data_ptr(), h, w, float(sc.div4hx), float(sc.div4hy), float(sc.hx_1),
+           float(sc.hy_1), int(log))
+    level_tensor.launches += 1
+    return J
+
+
+# ---------------------------------------------------------------------------
 # outer_prologue: phi/ksi + per-outer hoists (level_fused.py:343-393)
 # ---------------------------------------------------------------------------
 
 
 def outer_prologue_plain(T, uv, fxyz, div2hx, div2hy, alpha_hx2, alpha_hy2,
-                         e_s2, e_d2) -> torch.Tensor:
+                         e_s2, e_d2, J=None) -> torch.Tensor:
     _, h, w = T.shape
     tu, tv = T[0], T[1]
     phi = phi_from_T(tu, tv, div2hx, div2hy, e_s2)
@@ -90,26 +118,39 @@ def outer_prologue_plain(T, uv, fxyz, div2hx, div2hy, alpha_hx2, alpha_hy2,
     pw_ym = (phi_ym + phi_c) * 0.5 * ym_w
     sum_h = pw_xp + pw_xm + pw_yp + pw_ym
     fx, fy, ft = fxyz[0], fxyz[1], fxyz[2]
+    # ksi is grey for every constancy (reference quirk: bucketed.py:393-396).
     ksi = ksi_grey(fx, fy, ft, tu - uv[0], tv - uv[1], e_d2)
+    if J is None:
+        J11, J22, J12, J13, J23 = fx * fx, fy * fy, fx * fy, fx * ft, fy * ft
+    else:
+        J11, J22, J12, J13, J23 = J[0], J[1], J[2], J[3], J[4]
     return torch.stack([
         pw_xp, pw_xm, pw_yp, pw_ym,
-        ksi * (fx * fy), ksi * (fx * ft), ksi * (fy * ft),
-        ksi * (fx * fx) + sum_h, ksi * (fy * fy) + sum_h,
+        ksi * J12, ksi * J13, ksi * J23,
+        ksi * J11 + sum_h, ksi * J22 + sum_h,
     ])
 
 
 def outer_prologue(T, uv, fxyz, div2hx, div2hy, alpha_hx2, alpha_hy2,
-                   e_s2, e_d2) -> torch.Tensor:
-    """(9, h, w) per-outer hoists from the current iterate T."""
+                   e_s2, e_d2, J=None) -> torch.Tensor:
+    """(9, h, w) per-outer hoists from the current iterate T; with the
+    gradient/log tensor ``J`` (5, h, w), the tensor hoists read it."""
     _, h, w = T.shape
     _check_planes(h, w, T=(T, 2), uv=(uv, 2), fxyz=(fxyz, 3))
     args = (div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2)
-    if not on_cuda(T, uv, fxyz):
-        return outer_prologue_plain(T, uv, fxyz, *args)
+    if J is not None:
+        _check_planes(h, w, J=(J, N_TENSOR))
+    if not on_cuda(T, uv, fxyz, *(() if J is None else (J,))):
+        return outer_prologue_plain(T, uv, fxyz, *args, J=J)
     hoist = torch.empty((N_HOIST, h, w), dtype=torch.float32, device=T.device)
-    launch("tf_outer_prologue", T.data_ptr(), uv.data_ptr(), fxyz.data_ptr(),
-           hoist.data_ptr(), h, w, *map(float, args))
-    outer_prologue.launches += 1
+    if J is None:
+        launch("tf_outer_prologue", T.data_ptr(), uv.data_ptr(), fxyz.data_ptr(),
+               hoist.data_ptr(), h, w, *map(float, args))
+        outer_prologue.launches += 1
+    else:
+        launch("tf_outer_prologue_tensor", T.data_ptr(), uv.data_ptr(), fxyz.data_ptr(),
+               J.data_ptr(), hoist.data_ptr(), h, w, *map(float, args))
+        outer_prologue.tensor_launches += 1
     return hoist
 
 
@@ -166,23 +207,26 @@ def add_median(T, uv, radius: int) -> torch.Tensor:
     return out
 
 
-for _fn in (level_derivs, outer_prologue, jacobi_sweep, add_median):
+for _fn in (level_derivs, level_tensor, outer_prologue, jacobi_sweep, add_median):
     _fn.launches = 0
+outer_prologue.tensor_launches = 0
 
-# Every kernel wrapper of the level path, by kernel name.
+# Every kernel of the level path by name, as (wrapper, its counter attribute).
 KERNELS = {
-    "warp": warp,
-    "level_derivs": level_derivs,
-    "outer_prologue": outer_prologue,
-    "jacobi_sweep": jacobi_sweep,
-    "add_median": add_median,
+    "warp": (warp, "launches"),
+    "level_derivs": (level_derivs, "launches"),
+    "level_tensor": (level_tensor, "launches"),
+    "outer_prologue": (outer_prologue, "launches"),
+    "outer_prologue_tensor": (outer_prologue, "tensor_launches"),
+    "jacobi_sweep": (jacobi_sweep, "launches"),
+    "add_median": (add_median, "launches"),
 }
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}

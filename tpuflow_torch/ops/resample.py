@@ -14,6 +14,7 @@ import math
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 F = np.float32
 
@@ -52,6 +53,7 @@ def resample(img: torch.Tensor, out_w: int, out_h: int) -> torch.Tensor:
     in_h, in_w = img.shape[-2:]
     if (in_h, in_w) == (out_h, out_w):
         return img
-    wx = _device_weights(in_w, out_w, img.device)  # (out_w, in_w)
-    wy = _device_weights(in_h, out_h, img.device)  # (out_h, in_h)
-    return torch.matmul(wy, torch.matmul(img, wx.T)).contiguous()
+    with record_function("resample"):  # the layer's range in a profile
+        wx = _device_weights(in_w, out_w, img.device)  # (out_w, in_w)
+        wy = _device_weights(in_h, out_h, img.device)  # (out_h, in_h)
+        return torch.matmul(wy, torch.matmul(img, wx.T)).contiguous()

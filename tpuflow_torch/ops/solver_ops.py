@@ -1,15 +1,20 @@
 """Stencil pieces of the solver in plain PyTorch: mirror shifts, the
-free-boundary edge weights (tpuflow/ops/solver_ops.py:178-191) and phi/ksi
+free-boundary edge weights (tpuflow/ops/solver_ops.py:178-191), phi/ksi
 (tpuflow/ops/solver_ops.py:194-224, in the T-iterate form the level kernels
-use, tpuflow/ops/pallas/level_fused.py:343-393).
+use, tpuflow/ops/pallas/level_fused.py:343-393) and the motion tensors of
+the three data constancies (tpuflow/solver/bucketed.py:389-445).
 
-Fields are exact-size (..., h, w) tensors; the mirror boundary is reflect
-indexing, so neighbour -1 reads index 1 and neighbour n reads n-2.
+Fields are exact-size (..., h, w) tensors. The mirror boundary is reflect
+indexing, so neighbour -1 reads index 1 and neighbour n reads n-2; only the
+second-order tensor's stencil over derivative fields replicates instead
+(neighbour -1 reads 0, neighbour n reads n-1).
 """
 
 from __future__ import annotations
 
 import torch
+
+from tpuflow_torch.config import DataConstancy
 
 
 def shifts(a: torch.Tensor):
@@ -19,6 +24,16 @@ def shifts(a: torch.Tensor):
     yp = torch.cat([a[..., 1:, :], a[..., -2:-1, :]], dim=-2)
     ym = torch.cat([a[..., 1:2, :], a[..., :-1, :]], dim=-2)
     return a, xp, xm, yp, ym
+
+
+def shifts_edge(a: torch.Tensor):
+    """(x+1, x-1, y+1, y-1) of the last two dims, replicate boundary
+    (tpuflow/ops/solver_ops.py:46-52)."""
+    xp = torch.cat([a[..., :, 1:], a[..., :, -1:]], dim=-1)
+    xm = torch.cat([a[..., :, :1], a[..., :, :-1]], dim=-1)
+    yp = torch.cat([a[..., 1:, :], a[..., -1:, :]], dim=-2)
+    ym = torch.cat([a[..., :1, :], a[..., :-1, :]], dim=-2)
+    return xp, xm, yp, ym
 
 
 def div_scalar(a: torch.Tensor, s: float) -> torch.Tensor:
@@ -70,3 +85,56 @@ def ksi_grey(fx, fy, ft, du_c, dv_c, e_d2: float):
         + (fx * ft * du_c + fy * ft * dv_c + ft * ft)
     )
     return recip_twice_sqrt(torch.clamp_min(sq, 0.0) + e_d2)
+
+
+def first_derivs(a, b, div4hx: float, div4hy: float) -> torch.Tensor:
+    """(3, h, w) fx, fy, ft of a frame pair: x and y differences averaged
+    over both frames (/4h), ft = b - a (tpuflow/solver/bucketed.py:406-412)."""
+    a_c, a_xp, a_xm, a_yp, a_ym = shifts(a)
+    b_c, b_xp, b_xm, b_yp, b_ym = shifts(b)
+    fx = div_scalar(a_xp - a_xm + b_xp - b_xm, div4hx)
+    fy = div_scalar(a_yp - a_ym + b_yp - b_ym, div4hy)
+    return torch.stack([fx, fy, b_c - a_c])
+
+
+def second_order_tensor(gx, gy, gt, hx_1: float, hy_1: float) -> torch.Tensor:
+    """(5, h, w) J11, J22, J12, J13, J23 of the gradient-constancy data term
+    from first-derivative fields (tpuflow/ops/solver_ops.py:122-144). The
+    stencil replicates at the border, and multiplies by the host-rounded
+    ``hx_1 = f32(1/(2h))`` (bucketed.py:431-444); it never divides."""
+    gx_xp, gx_xm, gx_yp, gx_ym = shifts_edge(gx)
+    gy_xp, gy_xm, gy_yp, gy_ym = shifts_edge(gy)
+    gt_xp, gt_xm, gt_yp, gt_ym = shifts_edge(gt)
+    fxx = (gx_xp - gx_xm) * hx_1
+    fxy = (gx_yp - gx_ym) * hy_1
+    fyy = (gy_yp - gy_ym) * hy_1
+    fxt = (gt_xp - gt_xm) * hx_1
+    fyt = (gt_yp - gt_ym) * hy_1
+    return torch.stack([
+        fxx * fxx + fxy * fxy,
+        fxy * fxy + fyy * fyy,
+        fxx * fxy + fxy * fyy,
+        fxx * fxt + fxy * fyt,
+        fxy * fxt + fyy * fyt,
+    ])
+
+
+def derivative_tensor(f0_l, f1_w, fxyz, sc, log: bool) -> torch.Tensor:
+    """The gradient (``log=False``) or log-derivative (``log=True``) motion
+    tensor (5, h, w) of a level. Gradient takes the grey derivatives
+    ``fxyz``; log takes those of ``log1p`` of the frames, with the same
+    reflect stencil (reference: solve_2d.cu:508-524)."""
+    g = first_derivs(torch.log1p(f0_l), torch.log1p(f1_w), sc.div4hx, sc.div4hy) if log else fxyz
+    return second_order_tensor(g[0], g[1], g[2], sc.hx_1, sc.hy_1)
+
+
+def motion_tensor(f0_l, f1_w, sc, constancy: DataConstancy):
+    """(fxyz, J): the grey first derivatives (3, h, w), from which ksi always
+    comes, and the motion tensor J (5, h, w) of ``constancy`` that the solve
+    update uses. The plain counterpart of ``bucketed.level_constants``."""
+    fxyz = first_derivs(f0_l, f1_w, sc.div4hx, sc.div4hy)
+    if constancy == DataConstancy.GREY:
+        fx, fy, ft = fxyz
+        return fxyz, torch.stack([fx * fx, fy * fy, fx * fy, fx * ft, fy * ft])
+    return fxyz, derivative_tensor(f0_l, f1_w, fxyz, sc,
+                                   constancy == DataConstancy.LOG_DERIVATIVES)

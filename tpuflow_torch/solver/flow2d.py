@@ -1,9 +1,11 @@
 """The public front door: ``compute_flow``, ``FlowResult``, ``endpoint_error``
 (the port of tpuflow/solver/flow2d.py:44-60, :99, :354).
 
-One grey-constancy pair per call. The device is explicit: ``device="cuda"``
-runs the CUDA kernels and raises on a machine without CUDA; it never falls
-back to the CPU. ``device="cpu"`` runs the kernels' plain PyTorch versions.
+One pair per call, with the data constancy of ``cfg.data_constancy``
+(grey, gradient or log-derivative). The device is explicit:
+``device="cuda"`` runs the CUDA kernels and raises on a machine without
+CUDA; it never falls back to the CPU. ``device="cpu"`` runs the kernels'
+plain PyTorch versions.
 """
 
 from __future__ import annotations

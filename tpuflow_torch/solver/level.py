@@ -8,18 +8,21 @@ are no buckets, trims, ghost rows or VMEM gates, and no host
 synchronisation inside the loop. A level is
 
     resample (frames from the full-resolution smoothed pair, flow from the
-    previous level) -> warp -> derivatives -> outer x (prologue +
-    inner x sweep) -> add + median
+    previous level) -> warp -> derivatives [-> gradient/log tensor] ->
+    outer x (prologue + inner x sweep) -> add + median
 
 where every step after the resample is a kernel wrapper from
-``tpuflow_torch.ops``. Level 0 uses the smoothed frames directly
-(oracle.py:591-595); the flow stays in original-pixel units.
+``tpuflow_torch.ops``. The data constancy changes only the tensor the
+prologue's hoists read: grey takes the products of the grey derivatives,
+gradient and log the second-order tensor of ``level_tensor``. Level 0 uses
+the smoothed frames directly (oracle.py:591-595); the flow stays in
+original-pixel units.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,7 +31,8 @@ from tpuflow_torch.config import DataConstancy, FlowConfig
 from tpuflow_torch.ops.gaussian import gaussian_smooth
 from tpuflow_torch.ops.level import (
     add_median, add_median_plain, jacobi_sweep, jacobi_sweep_plain,
-    level_derivs, level_derivs_plain, outer_prologue, outer_prologue_plain,
+    level_derivs, level_derivs_plain, level_tensor, level_tensor_plain,
+    outer_prologue, outer_prologue_plain,
 )
 from tpuflow_torch.ops.resample import resample
 from tpuflow_torch.ops.warp import warp, warp_plain
@@ -41,7 +45,9 @@ F = np.float32
 class LevelScalars:
     """Host-rounded float32 level constants, rounded exactly as
     ``LevelScalars.make`` does (tpuflow/solver/bucketed.py:141-168); only
-    the fields the grey path reads."""
+    the fields the port reads. ``hx_1``/``hy_1`` are f32(1/(2h)) rounded
+    once from float64, not the float32 reciprocal of ``div2hx``: the
+    gradient/log tensor multiplies by them."""
 
     cw: int
     ch: int
@@ -53,6 +59,8 @@ class LevelScalars:
     div4hy: np.float32
     alpha_hx2: np.float32
     alpha_hy2: np.float32
+    hx_1: np.float32
+    hy_1: np.float32
 
     @staticmethod
     def make(cw: int, ch: int, hx: float, hy: float, alpha: float) -> "LevelScalars":
@@ -67,6 +75,8 @@ class LevelScalars:
             div4hy=F(4.0 * hy),
             alpha_hx2=F(float(alpha) / (float(hx) * float(hx))),
             alpha_hy2=F(float(alpha) / (float(hy) * float(hy))),
+            hx_1=F(1.0 / (2.0 * hx)),
+            hy_1=F(1.0 / (2.0 * hy)),
         )
 
 
@@ -75,28 +85,32 @@ class Steps(NamedTuple):
 
     warp: Callable
     level_derivs: Callable
+    level_tensor: Callable
     outer_prologue: Callable
     jacobi_sweep: Callable
     add_median: Callable
 
 
 # The kernel wrappers (their plain versions on CPU tensors): the main path.
-KERNEL_STEPS = Steps(warp, level_derivs, outer_prologue, jacobi_sweep, add_median)
+KERNEL_STEPS = Steps(warp, level_derivs, level_tensor, outer_prologue, jacobi_sweep,
+                     add_median)
 # The plain PyTorch versions on any device, to compare the kernels against.
-PLAIN_STEPS = Steps(warp_plain, level_derivs_plain, outer_prologue_plain,
-                    jacobi_sweep_plain, add_median_plain)
+PLAIN_STEPS = Steps(warp_plain, level_derivs_plain, level_tensor_plain,
+                    outer_prologue_plain, jacobi_sweep_plain, add_median_plain)
 
 
 def relax(fxyz: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
-          cfg: FlowConfig, _steps: Steps = KERNEL_STEPS) -> torch.Tensor:
+          cfg: FlowConfig, _steps: Steps = KERNEL_STEPS,
+          J: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The iterate T = uv + d (2, h, w) after outer x inner relaxation from
-    d = 0; ``T - uv`` is the (du, dv) the TPU relaxation kernels return."""
+    d = 0; ``T - uv`` is the (du, dv) the TPU relaxation kernels return.
+    ``J`` is the gradient/log tensor (None for grey), their ``tensor=``."""
     e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
     e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
     T = uv.clone()
     for _ in range(cfg.outer_iterations_count):
         hoist = _steps.outer_prologue(T, uv, fxyz, sc.div2hx, sc.div2hy,
-                                      sc.alpha_hx2, sc.alpha_hy2, e_s2, e_d2)
+                                      sc.alpha_hx2, sc.alpha_hy2, e_s2, e_d2, J)
         for _ in range(cfg.inner_iterations_count):
             T = _steps.jacobi_sweep(T, uv, hoist)
     return T
@@ -108,7 +122,11 @@ def level_tail(f0_l: torch.Tensor, f1_w: torch.Tensor, uv: torch.Tensor,
     """Derivatives + relaxation + add + median on an already warped level
     (what ``level_fused`` computes); returns the level's flow (2, h, w)."""
     fxyz = _steps.level_derivs(f0_l, f1_w, sc.div4hx, sc.div4hy)
-    T = relax(fxyz, uv, sc, cfg, _steps)
+    J = None
+    if cfg.data_constancy != DataConstancy.GREY:
+        J = _steps.level_tensor(f0_l, f1_w, fxyz, sc,
+                                cfg.data_constancy == DataConstancy.LOG_DERIVATIVES)
+    T = relax(fxyz, uv, sc, cfg, _steps, J)
     return _steps.add_median(T, uv, cfg.median_radius)
 
 
@@ -128,9 +146,6 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
     ``_steps`` is for comparing the kernels with their plain versions
     end to end; callers leave it alone.
     """
-    if cfg.data_constancy != DataConstancy.GREY:
-        raise NotImplementedError(
-            f"only grey constancy is ported so far, got {cfg.data_constancy.value}")
     h0, w0 = f0.shape
     if min(h0, w0) < 4:
         raise ValueError(f"frames must be at least 4x4, got {h0}x{w0}")
