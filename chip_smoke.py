@@ -26,12 +26,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   8. times    ms per pair and Mpix/s by CUDA events: grey kernel and plain
               paths at 584x388 and 1920x1080; the gradient kernel path at
               584x388, 1920x1080 and 3840x2160, its plain path at 584x388
+  9. probes   the measurement path (tpuflow_torch.tools): roofline_micro,
+              all six bodies, against its plain fold at 16 passes, and the
+              shared-memory loads of its pass loop in the SASS; probe_matmul
+              against its plain sum and torch.matmul; then roofline.measure()
+              (component rates, surcharges, the production sweep by
+              differencing at 584x388 and 3840x2160 against its prediction)
+              and probe_kernel_matmul.run(), with their launch counts
+ 10. bounds   each level kernel's bytes, operations and bound
+              (roofline.kernel_work) at 1920x1080 and 3840x2160 beside its
+              time from phase 3, and the library call where one exists
+ 11. trace    compute_flow(full_model(), collect_trace=True) at 3840x2160:
+              the per-level ms against the per-level bound, the flow bit for
+              bit against an untraced run; profiling.trace at 584x388
 
-Each main-path run of phases 4-6 sets every launch count to 0 just before
-it and reads the counts just after. Then come the kernels table as one JSON
-line, the done line with the total seconds, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Without CUDA, or run outside a checkout
-of the repo, it exits 1 and prints no result.
+Each main-path run of phases 4-6 and 11, and the measurement path of phase
+9, sets every launch count to 0 just before it and reads the counts just
+after. Then come the kernels table as one JSON line, the done line with the
+total seconds, the nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``. Without CUDA, or run outside a checkout of the repo, it exits 1
+and prints no result.
 """
 
 from __future__ import annotations
@@ -97,34 +111,23 @@ REPLACES = {
                     "tpuflow/ops/pallas/level_fused.py:472; " + RELAX,
     "add_median": "tpuflow/ops/pallas/level_fused.py:526 (phase C :432); "
                   "tpuflow/ops/pallas/level_fused.py:472",
+    "roofline_micro": "tools/roofline.py:88 (microkernel; pl.pallas_call :104)",
+    "probe_matmul": "tools/probe_kernel_matmul.py:26 (in_kernel; pl.pallas_call :27)",
 }
+# The probes against their plain versions: roofline_micro at 16 passes,
+# where every body stays finite, is bitwise (both round each operation as
+# IEEE float32); probe_matmul sums in k order with fused multiply-adds where
+# the plain version rounds each product, so relative to max |plain|.
+PROBE_PASSES_CHECK = 2          # loop trips: 16 passes
+MATMUL_REL_BOUND = 1e-5
+# The library call each level kernel's function has, if any. None computes
+# the same function; warp's near twin uses another boundary rule.
+WARP_TWIN = ("torch.nn.functional.grid_sample, bilinear, align_corners, border padding "
+             "(a near twin: out-of-range targets clamp instead of copying f0)")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device ms per call of ``fn`` over ``reps`` back-to-back calls."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def kernel_inputs(w: int, h: int, seed: int = 1):
@@ -190,11 +193,29 @@ def kernel_pairs(x: dict) -> dict:
     return pairs
 
 
+def warp_twin(x: dict):
+    """One grid_sample call on the warp's inputs: its near twin, timed as a
+    yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    f1, uv, sc = x["f1"], x["uvf"], x["sc"]
+    h, w = f1.shape
+    xs = torch.arange(w, dtype=torch.float32, device=f1.device)[None, :] + uv[0] * sc.inv_hx
+    ys = torch.arange(h, dtype=torch.float32, device=f1.device)[:, None] + uv[1] * sc.inv_hy
+    grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], dim=-1)[None]
+    return lambda: F.grid_sample(f1[None, None], grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+
+
 def phase_kernels(shapes=(SIZES[0], SIZES[1], SIZE_4K), timed=(SIZES[1], SIZE_4K)):
     """Each kernel vs its plain version at ``shapes``, timed at ``timed``.
     Returns {row name: {max_abs_err, ms, plain_ms, ms_4k, plain_ms_4k}}:
-    the times at 1920x1080 and 3840x2160, the largest error over the shapes."""
+    the times at 1920x1080 and 3840x2160, the largest error over the shapes;
+    for warp also its near twin's (``near_twin_ms``)."""
     import torch
+
+    from tpuflow_torch.tools.roofline import cuda_ms
 
     table = {}
     for w, h in shapes:
@@ -221,6 +242,9 @@ def phase_kernels(shapes=(SIZES[0], SIZES[1], SIZE_4K), timed=(SIZES[1], SIZE_4K
                 suffix = "" if (w, h) == SIZES[1] else "_4k"
                 row["ms"] = entry["ms" + suffix] = cuda_ms(kern, 20)
                 row["plain_ms"] = entry["plain_ms" + suffix] = cuda_ms(plain, 5)
+                if name == "warp":
+                    row["near_twin_ms"] = entry["near_twin_ms" + suffix] = cuda_ms(
+                        warp_twin(x), 20)
             emit(row)
             if not row["ok"]:
                 raise AssertionError(f"{name} at {w}x{h}: {check} > {bound}")
@@ -369,6 +393,7 @@ def phase_times(w: int, h: int, f0, f1, card: str, preset: str, reps: dict):
 
     from tpuflow_torch import compute_flow, models
     from tpuflow_torch.solver.level import PLAIN_STEPS, solve
+    from tpuflow_torch.tools.roofline import cuda_ms
 
     cfg = getattr(models, preset)()
     t0, t1 = torch.from_numpy(f0).cuda(), torch.from_numpy(f1).cuda()
@@ -380,20 +405,187 @@ def phase_times(w: int, h: int, f0, f1, card: str, preset: str, reps: dict):
     for label, n in reps.items():
         fn = paths[label]
         fn()  # warm-up pair
-        ms = []
-        for _ in range(n):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            ms.append(start.elapsed_time(end))
+        ms = [cuda_ms(fn, 1, warmup=False) for _ in range(n)]
         med = statistics.median(ms)
         row[f"{label}_ms_median"] = med
         row[f"{label}_ms_all"] = ms
         row[f"{label}_mpix_per_s"] = w * h / (med * 1e-3) / 1e6
     emit(row)
+
+
+def sass_loads_in_loop(lib_path) -> dict:
+    """{body: ld.shared instructions in roofline_micro_kernel<body>'s SASS}."""
+    from tpuflow_torch.tools.roofline import BODIES, sass_counts
+
+    counts = sass_counts(lib_path)
+    return {name: sum(c.get("LDS", 0) for fn, c in counts.items()
+                      if f"roofline_micro_kernelILi{i}E" in fn)
+            for i, name in enumerate(BODIES)}
+
+
+def phase_probes(lib_path) -> dict:
+    """The probe kernels against their plain versions, then the measurement
+    path with its launch counts. Returns the kernels-line rows of both."""
+    import torch
+
+    from tpuflow_torch.tools import probe_kernel_matmul as P
+    from tpuflow_torch.tools import roofline as R
+
+    # --- each kernel against its plain version (launches not counted below)
+    rng = np.random.default_rng(0)
+    ins = torch.from_numpy(rng.random((R.N_IN, R.HB, R.WB), np.float32) + 0.5).cuda()
+    loads = sass_loads_in_loop(lib_path)
+    micro_err = 0.0
+    for name in R.BODIES:
+        got = R.roofline_micro(name, ins[0], ins[1:], PROBE_PASSES_CHECK)
+        want = R.roofline_micro_plain(name, ins[0], ins[1:], PROBE_PASSES_CHECK)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        micro_err = max(micro_err, err)
+        # one ld.shared per pixel per pass: UNROLL x BAND in the loop body
+        row = {"phase": "probe_kernel", "name": f"roofline_micro_{name}",
+               "passes": PROBE_PASSES_CHECK * R.UNROLL, "max_abs_err": err, "bound": 0.0,
+               "finite": bool(torch.isfinite(got).all()), "sass_lds": loads[name],
+               "sass_lds_needed": R.UNROLL * R.BAND}
+        row["ok"] = err <= 0.0 and row["finite"] and loads[name] >= R.UNROLL * R.BAND
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"roofline_micro {name}: {row}")
+    a_np, b_np = P.probe_inputs()
+    a, b = torch.from_numpy(a_np).cuda(), torch.from_numpy(b_np).cuda()
+    got, plain = P.probe_matmul(a, b), P.probe_matmul_plain(a, b)
+    mm_err = float((got - plain).abs().max())
+    rel = mm_err / float(plain.abs().max())
+    row = {"phase": "probe_kernel", "name": "probe_matmul", "max_abs_err": mm_err,
+           "checked": rel, "bound": MATMUL_REL_BOUND, "ok": rel <= MATMUL_REL_BOUND,
+           "vs_torch_matmul": P.compare(got.cpu().numpy(), torch.matmul(a, b).cpu().numpy())}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"probe_matmul: {rel} > {MATMUL_REL_BOUND}")
+
+    # --- the measurement path: counts 0 just before, read just after
+    R.roofline_micro.launches = P.probe_matmul.launches = 0
+    roof = R.measure(log=lambda line: emit({"phase": "roofline_log", "line": line}))
+    probe = P.run()
+    launches = {"roofline_micro": R.roofline_micro.launches,
+                "probe_matmul": P.probe_matmul.launches}
+    emit({"phase": "roofline", **roof})
+    emit({"phase": "probe_matmul", **probe})
+    emit({"phase": "probe_launches", "counts": launches})
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a probe kernel was never launched on its path: {launches}")
+
+    # --- times for the kernels line (not counted)
+    micro_ms = {name: R.cuda_ms(
+        lambda n=name: R.roofline_micro(n, ins[0], ins[1:], R.T_LOOP), 5) for name in R.BODIES}
+    micro_plain_ms = {name: R.cuda_ms(
+        lambda n=name: R.roofline_micro_plain(n, ins[0], ins[1:], R.T_LOOP), 1)
+        for name in ("stream", "phi")}
+    body_work = {n: R.kernel_work(f"roofline_micro_{n}", R.HB, R.WB) for n in R.BODIES}
+    work = body_work["stream"]
+    mm_work = R.kernel_work("probe_matmul", P.HB, P.W0)
+    return {
+        "roofline_micro": {
+            "source": "tpuflow_torch/csrc/probes.cu", "launches": launches["roofline_micro"],
+            "max_abs_err": micro_err, "shape": [R.HB, R.WB], "passes": R.PASSES,
+            "ms": micro_ms["stream"], "plain_ms": micro_plain_ms["stream"],
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+            "resource": work["resource"], "share": work["bound_ms"] / micro_ms["stream"],
+            "library_ms": None, "library": "none", "body": "stream", "ms_by_body": micro_ms,
+            "phi_plain_ms": micro_plain_ms["phi"],
+            "bound_by_body": {n: {k: v[k] for k in ("bound_ms", "resource")}
+                              for n, v in body_work.items()},
+            "share_by_body": {n: body_work[n]["bound_ms"] / micro_ms[n] for n in R.BODIES}},
+        "probe_matmul": {
+            "source": "tpuflow_torch/csrc/probes.cu", "launches": launches["probe_matmul"],
+            "max_abs_err": mm_err, "shape": [[P.HB, P.H0], [P.H0, P.W0]], "ms": probe["ms"],
+            "plain_ms": R.cuda_ms(lambda: P.probe_matmul_plain(a, b), 3),
+            "bound_ms": mm_work["bound_ms"], "bound_by": mm_work["bound_by"],
+            "resource": mm_work["resource"], "share": mm_work["bound_ms"] / probe["ms"],
+            "library_ms": probe["library_ms"], "library": probe["library"]},
+    }
+
+
+LEVEL_WORK = ("warp", "level_derivs", "level_tensor_gradient", "level_tensor_log",
+              "outer_prologue", "outer_prologue_tensor", "jacobi_sweep", "add_median")
+
+
+def phase_bounds(table: dict) -> dict:
+    """Each level kernel's work and bound at 1920x1080 and 3840x2160 beside
+    its measured ms; returns {name: bound row at 3840x2160}."""
+    from tpuflow_torch.tools.roofline import kernel_work
+
+    at_4k = {}
+    for (w, h), suffix in ((SIZES[1], ""), (SIZE_4K, "_4k")):
+        for name in LEVEL_WORK:
+            work = kernel_work(name, h, w)
+            ms = table[name]["ms" + suffix]
+            row = {"phase": "bound", "name": name, "shape": [h, w], **work, "ms": ms,
+                   "share": work["bound_ms"] / ms, "library_ms": None, "library": "none"}
+            if name == "warp":
+                row["near_twin_ms"] = table[name]["near_twin_ms" + suffix]
+                row["near_twin"] = WARP_TWIN
+            emit(row)
+            if suffix:
+                at_4k[name] = row
+    return at_4k
+
+
+def phase_trace(w: int, h: int, bounds: dict):
+    """compute_flow(full_model(), collect_trace=True): one record per level,
+    the flow bit for bit equal to an untraced run, the per-level ms beside
+    the per-level sum of bound x launches of the level kernels."""
+    import torch
+
+    from tpuflow_torch import compute_flow, models
+    from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
+    from tpuflow_torch.synthetic import textured_pair
+    from tpuflow_torch.tools.roofline import kernel_work
+    from tpuflow_torch.utils import profiling
+    from tpuflow_torch.utils.timing import format_level_table
+
+    cfg = models.full_model()
+    f0, f1 = textured_pair(w, h)
+    plain = compute_flow(f0, f1, cfg, device="cuda")
+    reset_launch_counts()
+    traced = compute_flow(f0, f1, cfg, collect_trace=True, device="cuda")
+    counts = launch_counts()
+    want = expected_launches(w, h, cfg)
+    if any(counts[k] != want[k] for k in counts):
+        raise AssertionError(f"traced run launches {counts}, expected {want}")
+    per_level = {"warp": 1, "level_derivs": 1, "level_tensor_gradient": 1,
+                 "outer_prologue_tensor": cfg.outer_iterations_count,
+                 "jacobi_sweep": cfg.outer_iterations_count * cfg.inner_iterations_count,
+                 "add_median": 1}
+    levels = []
+    for t in traced.levels:
+        bound = sum(kernel_work(k, t.height, t.width)["bound_ms"] * n
+                    for k, n in per_level.items())
+        levels.append({"level": t.level, "width": t.width, "height": t.height,
+                       "ms": t.seconds * 1e3, "bound_ms": bound})
+    same = (traced.u.tobytes() == plain.u.tobytes() and traced.v.tobytes() == plain.v.tobytes())
+    sum_ms = sum(lv["ms"] for lv in levels)
+    row = {"phase": "trace", "shape": [h, w], "config": "models.full_model()",
+           "records": len(levels), "expected_records": want["levels"],
+           "flow_bitwise_equal_to_untraced": same, "sum_level_ms": sum_ms,
+           "pair_ms": traced.seconds * 1e3, "untraced_pair_ms": plain.seconds * 1e3,
+           "sum_level_bound_ms": sum(lv["bound_ms"] for lv in levels), "levels": levels,
+           "bound_4k_by_kernel": {k: bounds[k]["bound_ms"] for k in bounds}}
+    with tempfile.TemporaryDirectory() as tmp:
+        small = textured_pair(*SIZES[0])
+        with profiling.trace(tmp):
+            compute_flow(*small, cfg, device="cuda")
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, profiling.TRACE_FILE)) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    row["profiling_trace_kernel_events"] = sum(1 for e in events if e.get("cat") == "kernel")
+    row["ok"] = (same and len(levels) == want["levels"]
+                 and row["profiling_trace_kernel_events"] > 0)
+    emit(row)
+    print(format_level_table(traced.levels), file=sys.stderr, flush=True)
+    if not row["ok"]:
+        raise AssertionError(f"trace at {w}x{h}: records {len(levels)}, bitwise {same}, "
+                             f"profiler kernels {row['profiling_trace_kernel_events']}")
 
 
 def main() -> int:
@@ -413,7 +605,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
 
-    card = card_line()
+    from tpuflow_torch.tools.roofline import device_info
+
+    card = device_info()["nvidia_smi"]
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
@@ -450,17 +644,34 @@ def main() -> int:
     phase_times(*SIZES[1], *textured_pair(*SIZES[1]), card, "full_model", {"kernel": 5})
     phase_times(*SIZE_4K, *pairs[SIZE_4K + ("full_model",)], card, "full_model",
                 {"kernel": 3})
+    # The measurement path after the main path's times, which it must not disturb.
+    probes = phase_probes(lib.path)
+    bounds = phase_bounds(table)
+    phase_trace(*SIZE_4K, bounds)
 
+    # The kernels line: times and bounds at 3840x2160 (1920x1080 beside them).
     rows = []
     for name in BOUNDS:
+        t = table["level_tensor_gradient" if name == "level_tensor" else name]
+        b = bounds["level_tensor_gradient" if name == "level_tensor" else name]
+        row = {"name": name, "route": "cuda", "source": "tpuflow_torch/csrc/level.cu",
+               "replaces": REPLACES[name], "launches": counts[name],
+               "max_abs_err": t["max_abs_err"], "shape": list(SIZE_4K[::-1]),
+               "ms": t["ms_4k"], "plain_ms": t["plain_ms_4k"], "bound_ms": b["bound_ms"],
+               "bound_by": b["bound_by"], "resource": b["resource"], "share": b["share"],
+               "library_ms": None, "library": "none", "ms_1080p": t["ms"],
+               "plain_ms_1080p": t["plain_ms"]}
+        if name == "warp":
+            row.update(near_twin=WARP_TWIN, near_twin_ms=t["near_twin_ms_4k"])
         if name == "level_tensor":
-            grad, log = table["level_tensor_gradient"], table["level_tensor_log"]
-            t = dict(grad, max_abs_err=max(grad["max_abs_err"], log["max_abs_err"]),
-                     **{"log_" + k: v for k, v in log.items() if "ms" in k})
-        else:
-            t = table[name]
-        rows.append({"name": name, "route": "cuda", "source": "tpuflow_torch/csrc/level.cu",
-                     "replaces": REPLACES[name], "launches": counts[name], **t})
+            log, blog = table["level_tensor_log"], bounds["level_tensor_log"]
+            row.update(max_abs_err=max(t["max_abs_err"], log["max_abs_err"]),
+                       log_ms=log["ms_4k"], log_plain_ms=log["plain_ms_4k"],
+                       log_bound_ms=blog["bound_ms"], log_bound_by=blog["bound_by"],
+                       log_resource=blog["resource"], log_share=blog["share"])
+        rows.append(row)
+    for name, p in probes.items():
+        rows.append({"name": name, "route": "cuda", "replaces": REPLACES[name], **p})
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -155,9 +155,11 @@ def test_unported_flags_exit(tmp_path, flags):
     assert not out.exists()
 
 
-@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the machine without CUDA")
 @pytest.mark.parametrize("device_flag", [[], ["--device", "cuda"]])
 def test_cuda_device_raises_without_cuda(tmp_path, device_flag):
+    # Decided here, not at import: every xdist worker must collect the same tests.
+    if torch.cuda.is_available():
+        pytest.skip("checks the machine without CUDA")
     settings, _, _ = settings_file(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([str(settings), "--quiet", *device_flag])

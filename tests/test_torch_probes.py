@@ -1,0 +1,214 @@
+"""The port's two measurement probes and its work counts, on the CPU:
+
+  * ``tpuflow_torch.tools.roofline.microkernel(name)`` (the plain fold of
+    ``roofline_micro``) against ``tools/roofline.microkernel(name)`` run in
+    Pallas interpret mode, for all six bodies, at the probe's (392, 640)
+    field and 2 x 8 passes, chained twice;
+  * ``probe_kernel_matmul.probe_matmul`` (its plain k-ordered sum) against
+    ``tools/probe_kernel_matmul.in_kernel`` (interpret mode) and ``in_xla``
+    on the probe's seeded inputs;
+  * ``kernel_work``'s plane counts and bounds for every kernel;
+  * the measurement entry points raise without a card.
+
+Bounds: the chained step ``x + 1e-4 * y`` may be contracted into one fused
+multiply-add by XLA, so the folds agree to 1 ulp, not bitwise: rtol 1e-6.
+The matmuls sum 9 non-zero products per output in different orders: rel
+(max abs diff over max |value|) 1e-6.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from tpuflow_torch.tools import probe_kernel_matmul as P
+from tpuflow_torch.tools import roofline as R
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def jax_roofline(monkeypatch, tmp_path):
+    """tools/roofline.py, imported with its jit cache in ``tmp_path``; the
+    jax cache settings its import changes are put back afterwards."""
+    monkeypatch.setenv("TPUFLOW_JIT_CACHE", str(tmp_path / "jit_cache"))
+    if "JAX_COMPILATION_CACHE_DIR" in os.environ:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", os.environ["JAX_COMPILATION_CACHE_DIR"])
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    monkeypatch.syspath_prepend(REPO)
+    import tools.roofline as jr
+
+    for k, v in saved.items():
+        jax.config.update(k, v)
+    monkeypatch.setattr(jr, "T_LOOP", 2)
+    monkeypatch.setattr(R, "T_LOOP", 2)
+    return jr
+
+
+@pytest.mark.parametrize("name", list(R.BODIES))
+def test_microkernel_matches_tpu_probe(jax_roofline, name):
+    jr = jax_roofline
+    assert (jr.HB, jr.WB, jr.N_IN, jr.UNROLL) == (R.HB, R.WB, R.N_IN, R.UNROLL)
+    ins = np.random.default_rng(0).random((R.N_IN, R.HB, R.WB), np.float32) + 0.5
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jr.microkernel(name)(tuple(jnp.asarray(a) for a in ins), 2))
+    got = R.microkernel(name)(torch.from_numpy(ins), 2).numpy()
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("name", list(R.BODIES))
+def test_roofline_micro_plain_is_the_fold(name):
+    # 3 x 8 passes by hand, the edge rule of the shifts included: the last
+    # column (row) reads the second-to-last, a mirror.
+    rng = np.random.default_rng(1)
+    ins = torch.from_numpy(rng.random((R.N_IN, 5, 6), np.float32) + 0.5)
+    body = R.BODIES[name][0]
+    x = ins[0] * 0.5
+    for _ in range(3):
+        for j in range(R.UNROLL):
+            x = body(x, ins[j])
+    got = R.roofline_micro(name, ins[0], ins[1:], 3)
+    assert torch.equal(got, x)
+    a = ins[3]
+    if name == "shift_x":
+        assert torch.equal(R._shift_xp(a)[:, -1], a[:, -2])
+    if name == "shift_y":
+        assert torch.equal(R._shift_yp(a)[-1], a[-2])
+
+
+def test_roofline_micro_rejects_bad_shapes():
+    x = torch.ones(4, 6)
+    with pytest.raises(ValueError, match="rest"):
+        R.roofline_micro("stream", x, torch.ones(6, 4, 6), 1)
+    with pytest.raises(ValueError, match="wide"):
+        R.roofline_micro("stream", torch.ones(2, R.MAX_WIDTH + 1),
+                         torch.ones(7, 2, R.MAX_WIDTH + 1), 1)
+    with pytest.raises(KeyError):
+        R.microkernel("nope")
+
+
+def test_matmul_probe_matches_tpu_probe(monkeypatch):
+    monkeypatch.syspath_prepend(REPO)
+    import tools.probe_kernel_matmul as jp
+
+    a, b = P.probe_inputs()
+    assert a.shape == (jp.HB, jp.H0) and b.shape == (jp.H0, jp.W0)
+    got = P.probe_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        in_kernel = np.asarray(jp.in_kernel(jnp.asarray(a), jnp.asarray(b)))
+    in_xla = np.asarray(jp.in_xla(jnp.asarray(a), jnp.asarray(b)))
+    for want in (in_kernel, in_xla):
+        res = P.compare(got, want)
+        assert res["rel"] <= 1e-6, res
+    assert (np.count_nonzero(a, axis=1) == 9).all()
+
+
+def test_matmul_probe_plain_sums_in_k_order():
+    rng = np.random.default_rng(2)
+    a = rng.random((5, 7), np.float32)
+    b = rng.random((7, 3), np.float32)
+    got = P.probe_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    want = np.zeros((5, 3), np.float32)
+    for k in range(7):
+        want = want + a[:, k:k + 1] * b[k:k + 1, :]
+    assert (got == want).all()
+    with pytest.raises(ValueError, match="shape"):
+        P.probe_matmul(torch.ones(2, 3), torch.ones(4, 2))
+
+
+# planes read + written, from each kernel's source in csrc/level.cu
+PLANES = {"warp": 5, "level_derivs": 5, "level_tensor_gradient": 8, "level_tensor_log": 7,
+          "outer_prologue": 16, "outer_prologue_tensor": 21, "jacobi_sweep": 17,
+          "add_median": 6}
+
+
+@pytest.mark.parametrize("name", list(PLANES))
+def test_kernel_work_planes_and_bound(name):
+    h, w = 2160, 3840
+    work = R.kernel_work(name, h, w)
+    assert work["bytes"] == PLANES[name] * h * w * 4 and work["shared_bytes"] == 0
+    t_bytes = work["bytes"] / R.PEAK_BYTES_PER_S * 1e3
+    t_ops = work["instructions"] / R.F32_ISSUE_PER_S * 1e3
+    assert work["bound_ms"] == max(t_bytes, t_ops)
+    assert work["bound_by"] == ("bytes" if t_bytes >= t_ops else "operations")
+    # an instruction is at most 2 flops (an FFMA), and the issue rate is half the flop rate
+    assert work["instructions"] <= work["flops"] <= 2 * work["instructions"]
+    assert t_ops >= work["flops"] / R.PEAK_FLOPS * 1e3
+
+
+def test_kernel_work_what_binds():
+    by = {n: R.kernel_work(n, 2160, 3840)["bound_by"] for n in PLANES}
+    assert set(by.values()) == {"bytes", "operations"}
+    # the 5x5 median: u + (T - u) once and 99 compare-exchanges per plane,
+    # a min and a max each, at the issue rate
+    assert by["add_median"] == "operations"
+    assert R.kernel_work("add_median", 10, 10)["instructions"] == 100 * 2 * (2 + 2 * 99)
+    assert R.kernel_work("add_median", 10, 10, radius=3)["instructions"] == 100 * 2 * (2 + 2 * 19)
+    with pytest.raises(KeyError, match="7x7"):
+        R.kernel_work("add_median", 10, 10, radius=7)
+    # the log tensor needs 2 log1pf per pixel, not the kernel's 32: bytes bind
+    log = R.kernel_work("level_tensor_log", 1, 1)
+    grad = R.kernel_work("level_tensor_gradient", 1, 1)
+    assert log["instructions"] == grad["instructions"] + 7 + 2 * 7 + 2 * 18
+    assert by["level_tensor_log"] == "bytes" and by["level_tensor_gradient"] == "bytes"
+    assert by["jacobi_sweep"] == "bytes" and by["outer_prologue_tensor"] == "bytes"
+    # phi once per pixel, and the prologues differ by the grey J's 5 products
+    pro, pro_t = R.kernel_work("outer_prologue", 1, 1), R.kernel_work("outer_prologue_tensor", 1, 1)
+    assert pro["instructions"] - pro_t["instructions"] == 5
+    sweep = R.kernel_work("jacobi_sweep", 1, 1)
+    assert sweep["instructions"] == R.SWEEP_COUNTS["flops"] + 2 * R.LIBRARY_OPS["div"][0]
+    assert sweep["flops"] == R.SWEEP_COUNTS["flops"] + 2 * R.LIBRARY_OPS["div"][1]
+    assert R.SWEEP_COUNTS["loads"] + R.SWEEP_COUNTS["stores"] == 22
+
+
+def test_kernel_work_probes():
+    npix, passes = R.HB * R.WB, R.PASSES
+    micro = R.kernel_work("roofline_micro_stream", R.HB, R.WB)
+    assert micro["bytes"] == (R.N_IN + 1) * R.FIELD_BYTES
+    assert micro["instructions"] == micro["flops"] == passes * npix
+    # one shared-memory load per pass binds the add bodies, not their adds
+    assert micro["shared_bytes"] == passes * R.FIELD_BYTES
+    assert micro["resource"] == "shared memory" and micro["bound_by"] == "bytes"
+    assert micro["bound_ms"] == micro["shared_bytes"] / R.SHARED_BYTES_PER_S * 1e3
+    assert R.kernel_work("roofline_micro_fma", R.HB, R.WB)["resource"] == "shared memory"
+    phi = R.kernel_work("roofline_micro_phi", R.HB, R.WB)
+    sqrt, rcp = R.LIBRARY_OPS["sqrt"], R.LIBRARY_OPS["rcp"]
+    assert phi["instructions"] == passes * npix * (3 + sqrt[0] + rcp[0])
+    assert phi["flops"] == passes * npix * (3 + sqrt[1] + rcp[1])
+    assert phi["resource"] == "float32 issue" and phi["bound_by"] == "operations"
+    mm = R.kernel_work("probe_matmul", P.HB, P.W0)
+    assert mm["flops"] == 2 * mm["instructions"] == 2 * P.HB * P.H0 * P.W0
+    assert mm["bytes"] == 4 * (P.HB * P.H0 + P.H0 * P.W0 + P.HB * P.W0)
+    with pytest.raises(KeyError):
+        R.kernel_work("nope", 4, 4)
+
+
+def test_measurements_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        R.measure()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.run()
+
+
+def test_probe_modules_import_no_jax():
+    code = (
+        "import sys, tpuflow_torch.tools.roofline, tpuflow_torch.tools.probe_kernel_matmul\n"
+        "import tpuflow_torch.utils.timing, tpuflow_torch.utils.profiling\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuflow', 'tools')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=REPO)

@@ -17,4 +17,6 @@ __version__ = "0.1.0"
 from tpuflow_torch.config import (  # noqa: F401
     DataConstancy, FlowConfig, IOConfig, from_jax_config, load_settings_xml,
 )
-from tpuflow_torch.solver.flow2d import FlowResult, compute_flow, endpoint_error  # noqa: F401
+from tpuflow_torch.solver.flow2d import (  # noqa: F401
+    FlowResult, LevelTrace, compute_flow, endpoint_error,
+)

@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("level.cu",)
+SOURCES = ("level.cu", "probes.cu")
 # No fast math: sqrtf and '/' must round as IEEE. --fmad=false keeps every
 # multiply and add rounded on its own, as the JAX kernels associate them.
 NVCC_FLAGS = (
@@ -43,6 +43,8 @@ SIGNATURES = {
     "tf_outer_prologue_tensor": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
     "tf_jacobi_sweep": (_P, _P, _P, _P, _I, _I, _P),
     "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
+    "tf_roofline_micro": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "tf_probe_matmul": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -1,5 +1,5 @@
-"""The public front door: ``compute_flow``, ``FlowResult``, ``endpoint_error``
-(the port of tpuflow/solver/flow2d.py:44-60, :99, :354).
+"""The public front door: ``compute_flow``, ``FlowResult``, ``LevelTrace``,
+``endpoint_error`` (the port of tpuflow/solver/flow2d.py:33-60, :99, :354).
 
 One pair per call, with the data constancy of ``cfg.data_constancy``
 (grey, gradient or log-derivative). The device is explicit:
@@ -12,24 +12,37 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.solver.level import solve
+from tpuflow_torch.utils.timing import Timer
+
+
+@dataclasses.dataclass
+class LevelTrace:
+    """One pyramid level's record of ``compute_flow(..., collect_trace=True)``:
+    its index, size and seconds (resample and level step)."""
+
+    level: int
+    width: int
+    height: int
+    seconds: float
 
 
 @dataclasses.dataclass
 class FlowResult:
     """Final flow in original-pixel units, on the host (numpy).
-    ``seconds`` covers upload, the solve and the download."""
+    ``seconds`` covers upload, the solve and the download; ``levels`` holds
+    the per-level records when a trace was asked for."""
 
     u: np.ndarray
     v: np.ndarray
     seconds: float
+    levels: List[LevelTrace] = dataclasses.field(default_factory=list)
 
     @property
     def megapixels_per_second(self) -> float:
@@ -38,9 +51,13 @@ class FlowResult:
 
 
 def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
-                 device="cuda") -> FlowResult:
+                 collect_trace: bool = False, device="cuda") -> FlowResult:
     """Dense 2D optical flow from frame_0 to frame_1, two (H, W) frames of
     any real dtype; computation is float32 on ``device``.
+
+    ``collect_trace`` fills ``FlowResult.levels`` with one ``LevelTrace``
+    per level, timed by CUDA events on the card and by the host clock on
+    the CPU; the flow is the same with or without it.
 
     It switches TF32 off for matmuls and cuDNN (a process-wide PyTorch
     setting): the smoothing and resample matmuls must be full float32, as
@@ -57,11 +74,13 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     guard = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-    t0 = time.perf_counter()
-    with guard:
-        uv = solve(torch.from_numpy(f0).to(device), torch.from_numpy(f1).to(device), cfg)
+    trace = [] if collect_trace else None
+    with guard, Timer() as timer:
+        uv = solve(torch.from_numpy(f0).to(device), torch.from_numpy(f1).to(device), cfg,
+                   trace=trace)
         uv = uv.cpu().numpy()
-    return FlowResult(u=uv[0], v=uv[1], seconds=time.perf_counter() - t0)
+    return FlowResult(u=uv[0], v=uv[1], seconds=timer.seconds,
+                      levels=[LevelTrace(*t) for t in trace or ()])
 
 
 def endpoint_error(u_a, v_a, u_b, v_b) -> float:

@@ -22,6 +22,7 @@ original-pixel units.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -139,10 +140,31 @@ def level_step(frames_l: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
     return level_tail(frames_l[0], f1_w, uv, sc, cfg, _steps)
 
 
+def _clock(device: torch.device):
+    """A point in time on ``device``'s clock: a recorded CUDA event on the
+    card, the host clock on the CPU (whose ops run synchronously)."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _seconds(start, end) -> float:
+    """Seconds between two points of ``_clock``."""
+    if isinstance(start, float):
+        return end - start
+    return start.elapsed_time(end) * 1e-3
+
+
 def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
-          _steps: Steps = KERNEL_STEPS) -> torch.Tensor:
+          _steps: Steps = KERNEL_STEPS, trace: Optional[list] = None) -> torch.Tensor:
     """The coarse-to-fine solve on f0's device; returns (u, v) as (2, h, w).
 
+    With a list ``trace``, appends one ``(level, width, height, seconds)``
+    per level, the resample included. On the card each level is timed by
+    CUDA events, read once after the last level, so the trace adds no host
+    synchronisation inside the solve and leaves the flow unchanged.
     ``_steps`` is for comparing the kernels with their plain versions
     end to end; callers leave it alone.
     """
@@ -151,7 +173,9 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
         raise ValueError(f"frames must be at least 4x4, got {h0}x{w0}")
     frames = gaussian_smooth(torch.stack([f0, f1]), cfg.gaussian_sigma)
     uv = None
-    for spec in level_schedule(w0, h0, cfg.warp_levels_count, cfg.warp_scale_factor):
+    specs = level_schedule(w0, h0, cfg.warp_levels_count, cfg.warp_scale_factor)
+    marks = [_clock(f0.device)] if trace is not None else None
+    for spec in specs:
         cw, ch = spec.width, spec.height
         sc = LevelScalars.make(cw, ch, spec.hx, spec.hy, cfg.equation_alpha)
         # Frames always come from the full-resolution smoothed pair
@@ -162,4 +186,11 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
         else:
             uv = resample(uv, cw, ch)
         uv = level_step(frames_l, uv, sc, cfg, _steps)
+        if marks is not None:
+            marks.append(_clock(f0.device))
+    if marks is not None:
+        if f0.device.type == "cuda":
+            marks[-1].synchronize()
+        trace.extend((spec.level, spec.width, spec.height, _seconds(a, b))
+                     for spec, a, b in zip(specs, marks, marks[1:]))
     return uv

@@ -1,0 +1,473 @@
+"""Roofline accounting for the production relaxation sweep on one H100.
+
+    python -m tpuflow_torch.tools.roofline [K_lo K_hi rounds]   # on a CUDA card; raises without one
+
+The port of tools/roofline.py. It decomposes what bounds the sweep:
+
+1. Component microkernels on a (392, 640) field: the per-pass cost of a
+   streaming add, an x-shifted add, a y-shifted add, a multiply-add, a
+   divide and the phi transcendental 1/(2 sqrt). Each is one launch of
+   ``roofline_micro`` (csrc/probes.cu), which keeps 8 read-only fields in
+   shared memory and carries x in registers through ``PASSES`` passes, so
+   the rates are those of shared-memory loads and of the arithmetic, the
+   on-chip store a k-sweep relaxation would run from. Times are the slope
+   over K chained calls, by CUDA events.
+2. The production T-form sweep, measured by differencing: the port's own
+   ``solver/level.py::relax`` on exact-size fields at inner = 5 and inner =
+   2 gives 3 x outer extra sweeps; the slope is the per-sweep device cost
+   with the prologue and launch costs cancelled. It runs at 584x388 and
+   3840x2160. At 584x388 a sweep is a few microseconds of device time
+   against tens of host microseconds per launch, so each chain is captured
+   in a CUDA graph and replayed: the events then time the device.
+3. A sweep time predicted from the component rates and the sweep kernel's
+   per-pixel operand counts (``SWEEP_COUNTS``, counted from
+   ``jacobi_sweep_kernel``), printed against the measurement.
+
+``kernel_work`` gives every kernel of the port its bytes, operations and
+bound on this card. Prints the component lines and one final JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+from collections import Counter
+from typing import Callable
+
+import numpy as np
+import torch
+
+from tpuflow_torch.ops.cuda_lib import launch, on_cuda
+
+HB, WB = 392, 640          # the probe's field (the TPU's 584x388 bucket)
+N_IN = 8                   # input fields cycled by the bodies
+UNROLL = 8
+T_LOOP = 1024              # loop trips -> 8192 passes per call
+PASSES = T_LOOP * UNROLL
+FIELD_BYTES = HB * WB * 4
+MAX_WIDTH = 1024           # one thread per column in the kernel's blocks
+BAND = 3                   # rows per block of roofline_micro_kernel (csrc/probes.cu)
+
+# The card's published peaks (H100 SXM, 700 W): device memory, float32
+# outside the tensor cores. 67 TFLOP/s counts an FFMA as 2; every float32
+# instruction, an add or a min as much as an FFMA, takes one of half as many
+# issue slots (132 SMs x 128 lanes x 1.98 GHz). Shared memory moves 128 B
+# per SM per clock.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = 67e12
+F32_ISSUE_PER_S = PEAK_FLOPS / 2
+SHARED_BYTES_PER_S = 132 * 128 * 1.98e9
+
+
+def _shift_xp(a: torch.Tensor) -> torch.Tensor:
+    return torch.cat([a[:, 1:], a[:, -2:-1]], dim=1)
+
+
+def _shift_yp(a: torch.Tensor) -> torch.Tensor:
+    return torch.cat([a[1:, :], a[-2:-1, :]], dim=0)
+
+
+# name -> (body(x, a_j), accounting dict). Accounting is per pass per pixel
+# of the Hopper kernel: shared-memory loads and stores, plain flops, shifted
+# reads, divides, sqrts. The carry x lives in a register, so a pass loads
+# one value (a_j) and stores none; the TPU kernel loaded x and a_j from VMEM
+# and stored x.
+BODIES = {
+    "stream": (lambda x, a: x + a,
+               dict(loads=1, stores=0, flops=1, rot=0, div=0, sqrt=0)),
+    "shift_x": (lambda x, a: x + _shift_xp(a),
+                dict(loads=1, stores=0, flops=1, rot=1, div=0, sqrt=0)),
+    "shift_y": (lambda x, a: x + _shift_yp(a),
+                dict(loads=1, stores=0, flops=1, rot=1, div=0, sqrt=0)),
+    "fma": (lambda x, a: x * a + 1.25,
+            dict(loads=1, stores=0, flops=2, rot=0, div=0, sqrt=0)),
+    "div": (lambda x, a: a / (x + 1.0),
+            dict(loads=1, stores=0, flops=1, rot=0, div=1, sqrt=0)),
+    "phi": (lambda x, a: 1.0 / (2.0 * torch.sqrt(x * x + a)),
+            dict(loads=1, stores=0, flops=2, rot=0, div=1, sqrt=1)),
+}
+
+# The production T-form sweep's per-pixel operand counts, from
+# jacobi_sweep_kernel (csrc/level.cu): 8 shifted reads (tu, tv at 4
+# neighbours) + 1 centre (tv) + 11 plain reads (u, v, 9 hoists), 2 writes;
+# 33 flops besides the 2 divides. The TPU's kernel read both centres.
+SWEEP_COUNTS = dict(loads=20, stores=2, flops=33, rot=8, div=2, sqrt=0)
+
+
+# ---------------------------------------------------------------------------
+# The roofline microkernel (tools/roofline.py:88) and its plain version
+# ---------------------------------------------------------------------------
+
+
+def roofline_micro_plain(name: str, x0: torch.Tensor, rest: torch.Tensor,
+                         t_loop: int) -> torch.Tensor:
+    """``t_loop * UNROLL`` passes x = body(x, a_j) from x = a_0 * 0.5, where
+    a_0 = x0 and a_1..a_7 = rest; pass j of each group reads a_j."""
+    body = BODIES[name][0]
+    ins = [x0, *rest]
+    x = x0 * 0.5
+    for _ in range(t_loop):
+        for j in range(UNROLL):
+            x = body(x, ins[j])
+    return x
+
+
+def roofline_micro(name: str, x0: torch.Tensor, rest: torch.Tensor,
+                   t_loop: int) -> torch.Tensor:
+    """The (h, w) result of ``t_loop * UNROLL`` passes of body ``name``: the
+    kernel on CUDA tensors, the plain version on CPU tensors. x0 is (h, w),
+    rest (N_IN - 1, h, w)."""
+    h, w = x0.shape
+    if rest.shape != (N_IN - 1, h, w):
+        raise ValueError(f"rest: expected {(N_IN - 1, h, w)}, got {tuple(rest.shape)}")
+    if not 2 <= h or not 2 <= w <= MAX_WIDTH:
+        raise ValueError(f"field must be at least 2x2 and at most {MAX_WIDTH} wide, got {h}x{w}")
+    if t_loop < 0:
+        raise ValueError(f"t_loop must be >= 0, got {t_loop}")
+    if not on_cuda(x0, rest):
+        return roofline_micro_plain(name, x0, rest, t_loop)
+    out = torch.empty_like(x0)
+    launch("tf_roofline_micro", x0.data_ptr(), rest.data_ptr(), out.data_ptr(), h, w,
+           int(t_loop), list(BODIES).index(name))
+    roofline_micro.launches += 1
+    return out
+
+
+roofline_micro.launches = 0
+
+
+def microkernel(name: str) -> Callable:
+    """``chained(ins, k)``: k chained calls of body ``name`` over ``ins``
+    (N_IN, h, w), each feeding the next, data-dependent to defeat reuse
+    (tools/roofline.py:113-124). Reads ``T_LOOP`` when called."""
+    if name not in BODIES:
+        raise KeyError(f"unknown body {name!r}; one of {list(BODIES)}")
+
+    def chained(ins: torch.Tensor, k: int) -> torch.Tensor:
+        x, rest = ins[0], ins[1:]
+        for _ in range(k):
+            y = roofline_micro(name, x, rest, T_LOOP)
+            x = x + 0.0001 * y
+        return x
+
+    return chained
+
+
+# ---------------------------------------------------------------------------
+# Work and bound of every kernel
+# ---------------------------------------------------------------------------
+
+# Float32 (instructions, flops) of one call of the library routines as the
+# kernels use them (IEEE, no fast math): the arithmetic of their common
+# path in the kernels' sm_90a code (``sass_counts``; nvcc of CUDA 12.8), an
+# FFMA one instruction and 2 flops. A divide is MUFU.RCP, 5 FFMA and FCHK;
+# 1/x is MUFU.RCP, 2 FFMA and FADD; sqrtf MUFU.RSQ, 2 FMUL and 2 FFMA;
+# log1pf 11 FFMA and 7 other instructions.
+LIBRARY_OPS = {"div": (7, 12), "rcp": (4, 6), "sqrt": (5, 7), "log1p": (18, 29)}
+
+# The work each function needs, per pixel: its arithmetic as the kernel's
+# source in csrc/level.cu writes it (no multiply-add is contracted, so
+# "plain" operations are one instruction and one flop each), except where
+# a kernel recomputes a value that a neighbour's thread also computes: phi
+# and log1pf count once per pixel, and the median is one selection network.
+# phi: 4 differences (sub, divide), |grad|^2 (4 mul, 4 add), 1/(2 sqrt)
+_PHI = Counter(plain=4 + 8 + 1, div=4, sqrt=1, rcp=1)
+# outer_prologue: phi, 4 edge weights, 4 pw (add, 2 mul), their sum, du
+# and dv, the ksi quadratic (25), max, ksi (add, sqrt, mul, 1/x),
+# a12/a13/a23, dnu/dnv (mul, add)
+_PROLOGUE = _PHI + Counter(plain=4 + 12 + 3 + 2 + 25 + 1 + 2 + 3 + 4, sqrt=1, rcp=1)
+# name -> (planes read, planes written, operations per pixel)
+_LEVEL_WORK = {
+    # 2 coordinates (mul, add), 4 bounds tests, 2 floors, 2 fractions,
+    # 2 complements, 4 weights, 4 taps summed
+    "warp": (4, 1, Counter(plain=4 + 4 + 2 + 2 + 2 + 4 + 7)),
+    # fx, fy: 3 adds and a divide each; ft: 1
+    "level_derivs": (2, 3, Counter(plain=7, div=2)),
+    # 5 second differences (sub, mul), 5 products of two terms
+    "level_tensor_gradient": (3, 5, Counter(plain=10 + 15)),
+    # the same over the level_derivs stencil of log1pf of the two frames:
+    # 2 log1pf per pixel (the kernel evaluates 32, at the 4 clamped
+    # neighbours)
+    "level_tensor_log": (2, 5, Counter(plain=10 + 15 + 7, div=2, log1p=2)),
+    # T x2, u, v, fxyz read, 9 hoists written; the grey J (5 mul)
+    "outer_prologue": (7, 9, _PROLOGUE + Counter(plain=5)),
+    # the same reading J (5 planes) instead of forming the grey products
+    "outer_prologue_tensor": (12, 9, _PROLOGUE),
+    # T x2, u, v, 9 hoists read, T' x2 written
+    "jacobi_sweep": (15, 2, Counter(plain=SWEEP_COUNTS["flops"], div=SWEEP_COUNTS["div"])),
+}
+# Compare-exchanges of the smallest known median network over N values
+# (Paeth's 3x3, Devillard's 5x5); the kernel runs a full odd-even
+# transposition sort, N(N-1)/2.
+MEDIAN_NETWORK = {1: 0, 9: 19, 25: 99}
+# roofline_micro per pass per pixel, from each body's expression
+_BODY_OPS = {"stream": Counter(plain=1), "shift_x": Counter(plain=1),
+             "shift_y": Counter(plain=1), "fma": Counter(plain=2),
+             "div": Counter(plain=1, div=1), "phi": Counter(plain=3, sqrt=1, rcp=1)}
+
+
+def _median_work(radius: int) -> tuple:
+    """add_median<R>: T and u read, the 2 planes written; per plane the sum
+    u + (T - u) once (sub, add) and the median network (a min and a max per
+    compare-exchange)."""
+    n = radius * radius
+    if n not in MEDIAN_NETWORK:
+        raise KeyError(f"no median network counted for a {radius}x{radius} window")
+    return 4, 2, Counter(plain=2 * (2 + 2 * MEDIAN_NETWORK[n]))
+
+
+def _instructions_and_flops(ops: Counter) -> tuple:
+    instr = ops["plain"] + sum(ops[k] * n for k, (n, _) in LIBRARY_OPS.items())
+    flops = ops["plain"] + sum(ops[k] * f for k, (_, f) in LIBRARY_OPS.items())
+    return instr, flops
+
+
+def kernel_work(name: str, h: int, w: int, radius: int = 5) -> dict:
+    """What one launch of kernel ``name`` on an (h, w) level needs, and its
+    bound on this card: the largest of device-memory bytes over the memory
+    rate (each input byte read once, each output byte written once),
+    shared-memory bytes over the shared-memory rate, and float32
+    instructions over the issue rate, in ms. ``bound_by`` is "bytes" for
+    either memory, "operations" for the issue rate; ``resource`` names it.
+
+    Names: the keys of ``_LEVEL_WORK``, ``add_median`` (window side
+    ``radius``), ``roofline_micro_<body>`` (one call of ``PASSES`` passes on
+    an (h, w) field, one shared-memory load per pass by the probe's design)
+    and ``probe_matmul`` ((h, H0) @ (H0, w), one FFMA per product)."""
+    npix = h * w
+    shared = 0
+    if name in _LEVEL_WORK or name == "add_median":
+        planes_in, planes_out, ops = (_LEVEL_WORK[name] if name in _LEVEL_WORK
+                                      else _median_work(radius))
+        nbytes = (planes_in + planes_out) * npix * 4
+        instr, flops = (npix * n for n in _instructions_and_flops(ops))
+    elif name.startswith("roofline_micro_"):
+        body = name[len("roofline_micro_"):]
+        nbytes = (N_IN + 1) * npix * 4
+        shared = PASSES * npix * BODIES[body][1]["loads"] * 4
+        instr, flops = (PASSES * npix * n for n in _instructions_and_flops(_BODY_OPS[body]))
+    elif name == "probe_matmul":
+        from tpuflow_torch.tools.probe_kernel_matmul import H0
+
+        nbytes = (h * H0 + H0 * w + h * w) * 4
+        instr, flops = h * w * H0, 2 * h * w * H0
+    else:
+        raise KeyError(f"no work count for kernel {name!r}")
+    times = {"device memory": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "shared memory": shared / SHARED_BYTES_PER_S * 1e3,
+             "float32 issue": instr / F32_ISSUE_PER_S * 1e3}
+    resource = max(times, key=times.get)
+    return {"bytes": nbytes, "shared_bytes": shared, "instructions": instr, "flops": flops,
+            "bound_ms": times[resource], "resource": resource,
+            "bound_by": "operations" if resource == "float32 issue" else "bytes"}
+
+
+# ---------------------------------------------------------------------------
+# Measurement helpers (CUDA only)
+# ---------------------------------------------------------------------------
+
+
+def device_info() -> dict:
+    """The card's name and power limit; ``nvidia_smi`` is the line as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    line = out.stdout.strip().splitlines()[0]
+    name, power = (s.strip() for s in line.split(","))
+    return {"name": name, "power_limit": power, "torch_name": torch.cuda.get_device_name(0),
+            "nvidia_smi": line}
+
+
+def cuda_ms(fn: Callable, reps: int, warmup: bool = True) -> float:
+    """Mean device ms per call of ``fn`` over ``reps`` back-to-back calls
+    between two CUDA events, after one warm-up call unless ``warmup`` is
+    false."""
+    if warmup:
+        fn()
+        torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def slope_time(call: Callable, k_lo: int, k_hi: int, rounds: int, arg) -> float:
+    """Per-unit seconds from the K-slope, (t(k_hi) - t(k_lo)) / (k_hi - k_lo),
+    of the medians of interleaved rounds, each timed by CUDA events."""
+    ts = {k_lo: [], k_hi: []}
+    for _ in range(rounds):
+        for k in (k_lo, k_hi):
+            ts[k].append(cuda_ms(lambda k=k: call(arg, k), 1, warmup=False) * 1e-3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in ts.items()}
+    return (med[k_hi] - med[k_lo]) / (k_hi - k_lo)
+
+
+def _graph(fn: Callable) -> torch.cuda.CUDAGraph:
+    """``fn()`` captured in a CUDA graph, after one warm-up run on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def level_chain_seconds(w: int, h: int, inner: int, k_lo: int, k_hi: int, rounds: int,
+                        seed: int = 0) -> float:
+    """Device seconds of one 40 x ``inner`` relaxation (``solver.level.relax``,
+    grey) on seeded (h, w) fields: the slope over chains of k relaxations,
+    u += 0.001 du between them, each chain a replayed CUDA graph."""
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.ops.level import level_derivs
+    from tpuflow_torch.solver.level import LevelScalars, relax
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    f0 = torch.from_numpy(rng.random((h, w), np.float32) * 200).to(dev)
+    f1 = torch.from_numpy(rng.random((h, w), np.float32) * 200).to(dev)
+    uv0 = torch.from_numpy((rng.random((2, h, w), np.float32) - 0.5) * 2).to(dev)
+    cfg = FlowConfig(inner_iterations_count=inner)
+    sc = LevelScalars.make(w, h, 1.0, 1.0, cfg.equation_alpha)
+    fxyz = level_derivs(f0, f1, sc.div4hx, sc.div4hy)
+
+    def chain(k: int) -> torch.Tensor:
+        uv = uv0
+        for _ in range(k):
+            uv = uv + 0.001 * (relax(fxyz, uv, sc, cfg) - uv)
+        return uv
+
+    graphs = {k: _graph(lambda k=k: chain(k)) for k in (k_lo, k_hi)}
+    seconds = slope_time(lambda _, k: graphs[k].replay(), k_lo, k_hi, rounds, None)
+    del graphs
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{kernel symbol: Counter of SASS opcodes} of the built library, from
+    ``cuobjdump -sass``: the check that the microkernel's pass loop still
+    holds its shared-memory loads, and the instruction counts behind
+    LIBRARY_OPS."""
+    from tpuflow_torch.ops.cuda_lib import _nvcc
+
+    cuobjdump = _nvcc()[:-len("nvcc")] + "cuobjdump"
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    counts, fn = {}, None
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = Counter()
+        elif fn is not None and (m := op.search(line)):
+            counts[fn][m.group(1)] += 1
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The measurement
+# ---------------------------------------------------------------------------
+
+
+def measure(k_lo: int = 4, k_hi: int = 16, rounds: int = 5, log=print) -> dict:
+    """Component rates, surcharges, the measured and predicted sweep; the
+    final JSON object. ``log`` takes the human-readable lines."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the roofline tool measures a CUDA card, and none is available")
+    rng = np.random.default_rng(0)
+    ins = torch.from_numpy(rng.random((N_IN, HB, WB), np.float32) + 0.5).cuda()
+
+    # ---- component rates -------------------------------------------
+    comp_us, gbs = {}, {}
+    for name, (_, acc) in BODIES.items():
+        per_call = slope_time(microkernel(name), k_lo, k_hi, rounds, ins)
+        comp_us[name] = per_call / PASSES * 1e6
+        gbs[name] = (acc["loads"] + acc["stores"]) * FIELD_BYTES / (per_call / PASSES) / 1e9
+        log(f"{name:8s} {comp_us[name]:7.4f} us/pass  "
+            f"({gbs[name]:8.1f} GB/s of shared-memory loads at its op mix)")
+
+    # Per-resource surcharges from the component mix:
+    #   stream  = base (1 shared load + 1 flop)
+    #   shift_* = base + shifted read     -> c_rot
+    #   fma     = base + 1 flop           -> c_flop
+    #   div     = base + divide           -> c_div
+    #   phi     = base + div + sqrt + 1f  -> c_sqrt
+    base = comp_us["stream"]
+    c_rot = max(0.0, (comp_us["shift_x"] + comp_us["shift_y"]) / 2 - base)
+    c_flop = max(0.0, comp_us["fma"] - base)
+    c_div = max(0.0, comp_us["div"] - base)
+    c_sqrt = max(0.0, comp_us["phi"] - comp_us["div"] - c_flop)
+    c_access = base / 2  # base = 1 load + 1 flop ~ 2 issue slots
+
+    # ---- measured production sweep (config differencing) ------------
+    outer = 40
+    sizes = {(584, 388): (k_lo, k_hi, rounds), (3840, 2160): (1, 3, 3)}
+    lvl_s, sweep_us = {}, {}
+    for (w, h), (lo, hi, rr) in sizes.items():
+        key = f"{w}x{h}"
+        lvl_s[key] = {inner: level_chain_seconds(w, h, inner, lo, hi, rr) for inner in (2, 5)}
+        for inner, s in lvl_s[key].items():
+            log(f"{key} level inner={inner}: {s * 1e3:8.3f} ms per 40x{inner} relaxation")
+        sweep_us[key] = (lvl_s[key][5] - lvl_s[key][2]) / (outer * 3) * 1e6
+
+    # ---- predicted sweep from components (per 392x640 field) ---------
+    c = SWEEP_COUNTS
+    parts = {
+        "access": (c["loads"] + c["stores"]) * c_access,
+        "flops": c["flops"] * c_flop,
+        "rotates": c["rot"] * c_rot,
+        "divides": c["div"] * c_div,
+        "sqrts": c["sqrt"] * c_sqrt,
+    }
+    pred = sum(parts.values())
+    pred_by_size = {f"{w}x{h}": pred * (w * h) / (HB * WB) for w, h in sizes}
+    for key, meas in sweep_us.items():
+        log(f"\n{key}: measured sweep {meas:.3f} us   predicted from components "
+            f"{pred_by_size[key]:.3f} us")
+    for k, v in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"  {k:8s} {v:7.4f} us ({v / pred * 100 if pred else 0.0:4.1f}% of prediction)")
+    per_outer_fixed_us = lvl_s["584x388"][5] / outer * 1e6 - 5 * sweep_us["584x388"]
+    log(f"per-outer fixed at 584x388 (prologue and the sweeps' overlap): "
+        f"{per_outer_fixed_us:.2f} us")
+
+    return {
+        "component_us_per_pass": comp_us,
+        "shared_gb_per_s": gbs,
+        "surcharges_us": {"access": c_access, "flop": c_flop, "rotate": c_rot,
+                          "divide": c_div, "sqrt": c_sqrt},
+        "sweep_measured_us": sweep_us["584x388"],
+        "sweep_predicted_us": pred_by_size["584x388"],
+        "sweep_measured_us_by_size": sweep_us,
+        "sweep_predicted_us_by_size": pred_by_size,
+        "prediction_parts_us": parts,
+        "level_ms": {str(k): v * 1e3 for k, v in lvl_s["584x388"].items()},
+        "level_ms_by_size": {s: {str(k): v * 1e3 for k, v in d.items()}
+                             for s, d in lvl_s.items()},
+        "bucket": [HB, WB],
+        "passes_per_call": PASSES,
+        "timing": "CUDA events; components: K-chained launches; sweep: replayed CUDA graphs",
+        "device": device_info(),
+    }
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    k_lo = int(argv[0]) if len(argv) > 0 else 4
+    k_hi = int(argv[1]) if len(argv) > 1 else 16
+    rounds = int(argv[2]) if len(argv) > 2 else 5
+    print(json.dumps(measure(k_lo, k_hi, rounds)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
