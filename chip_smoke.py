@@ -39,10 +39,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
  11. trace    compute_flow(full_model(), collect_trace=True) at 3840x2160:
               the per-level ms against the per-level bound, the flow bit for
               bit against an untraced run; profiling.trace at 584x388
+ 12. sharded  the row-sharded relaxation kernel (csrc/sharded.cu) against its
+              plain version and against the unsharded kernels at 584x388,
+              1920x1080 and 3840x2160 (4 shards, k = 1; 3 shards, k = 2;
+              grey, and gradient at 1920x1080); its ms at 1, 2 and 4 shards
+              on the level-0 shapes of 1920x1080 and 3840x2160 beside its
+              bound, the bytes it streams, and the unsharded relax;
+              compute_flow_sharded(full_model()) at
+              1920x1080 on 4 shards and on 1 against compute_flow, the shift
+              and the launch counts, timed in turns with compute_flow; grey
+              584x388 on 4 shards against the oracle (reduced schedule)
 
-Each main-path run of phases 4-6 and 11, and the measurement path of phase
-9, sets every launch count to 0 just before it and reads the counts just
-after. Then come the kernels table as one JSON line, the done line with the
+Each main-path run of phases 4-6, 11 and 12, and the measurement path of
+phase 9, sets every launch count to 0 just before it and reads the counts
+just after. Then come the kernels table as one JSON line, the done line with the
 total seconds, the nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``. Without CUDA, or run outside a checkout of the repo, it exits 1
 and prints no result.
@@ -388,7 +398,7 @@ def phase_cli(w: int = 584, h: int = 388):
 
 def phase_times(w: int, h: int, f0, f1, card: str, preset: str, reps: dict):
     """Median ms per pair by CUDA events after one warm-up pair, for the
-    paths named in ``reps`` ({"kernel": n, "plain": n})."""
+    paths named in ``reps`` ({"kernel": n, "plain": n}); returns the row."""
     import torch
 
     from tpuflow_torch import compute_flow, models
@@ -411,6 +421,7 @@ def phase_times(w: int, h: int, f0, f1, card: str, preset: str, reps: dict):
         row[f"{label}_ms_all"] = ms
         row[f"{label}_mpix_per_s"] = w * h / (med * 1e-3) / 1e6
     emit(row)
+    return row
 
 
 def sass_loads_in_loop(lib_path) -> dict:
@@ -588,6 +599,225 @@ def phase_trace(w: int, h: int, bounds: dict):
                              f"profiler kernels {row['profiling_trace_kernel_events']}")
 
 
+# Phase 12: (width, height, shards, k, constancy) of the kernel-vs-plain
+# checks, all at the default 40 x 5.
+SHARDED_CHECKS = ((584, 388, 4, 1, "grey"), (1920, 1080, 4, 1, "grey"),
+                  (1920, 1080, 3, 2, "grey"), (1920, 1080, 4, 1, "gradient"),
+                  (3840, 2160, 4, 1, "grey"))
+SHARDED_TIMED_N_Y = (1, 2, 4)
+SHARDED_REPLACES = "tpuflow/parallel/halo_kernel.py:100 (relax_sharded_kernel; pl.pallas_call :384)"
+
+
+def expected_sharded_launches(w: int, h: int, cfg, n_y: int) -> dict:
+    """Launch counts of compute_flow_sharded at k = 1: the admitted levels
+    make one relax_sharded launch each, the others outer prologues and
+    outer x inner sweeps."""
+    from tpuflow_torch.parallel import kernel_halo_applicable
+    from tpuflow_torch.pyramid import level_schedule
+
+    levels = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    sharded = sum(1 for s in levels if kernel_halo_applicable(s.height, n_y, cfg))
+    want = expected_launches(w, h, cfg)
+    outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
+    unsharded = len(levels) - sharded
+    prologue = "outer_prologue" if want["outer_prologue"] else "outer_prologue_tensor"
+    want.update({prologue: unsharded * outer, "jacobi_sweep": unsharded * outer * inner,
+                 "relax_sharded": sharded})
+    return want
+
+
+def phase_sharded_kernel(card: str) -> dict:
+    """relax_sharded_kernel against its plain version and against the
+    unsharded kernels (launches not counted on the main path), and the
+    kernel's times. Returns the kernels-line row without ``launches``."""
+    import torch
+
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.models import full_model
+    from tpuflow_torch.parallel import make_mesh, relax_sharded, relax_sharded_kernel
+    from tpuflow_torch.solver.level import relax
+    from tpuflow_torch.tools.roofline import PEAK_BYTES_PER_S, cuda_ms, kernel_work
+
+    bound = BOUNDS["jacobi_sweep"]
+    max_err, inputs = 0.0, {}
+    for w, h, n_y, k, constancy in SHARDED_CHECKS:
+        if (w, h) not in inputs:
+            inputs.clear()
+            torch.cuda.empty_cache()
+            inputs[(w, h)] = kernel_inputs(w, h)
+        x = inputs[(w, h)]
+        cfg = full_model() if constancy == "gradient" else FlowConfig()
+        J = x["J"] if constancy == "gradient" else None
+        mesh = make_mesh(n_y)
+        args = (x["fxyz"], x["uvf"], x["sc"], cfg, mesh, k)
+        got = relax_sharded_kernel(*args, J=J)
+        plain = relax_sharded(*args, J=J)
+        unsharded = relax(x["fxyz"], x["uvf"], x["sc"], cfg, J=J)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        vs_relax = float((got - unsharded).abs().max())
+        max_err = max(max_err, err)
+        row = {"phase": "sharded_kernel", "shape": [h, w], "n_y": n_y, "k": k,
+               "constancy": constancy, "max_abs_err": err, "bound": bound,
+               "bitwise_plain": bool(torch.equal(got, plain)),
+               "max_abs_vs_unsharded_kernels": vs_relax,
+               "finite": bool(torch.isfinite(got).all())}
+        row["ok"] = row["finite"] and err <= bound and vs_relax <= bound
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"relax_sharded at {w}x{h}, {n_y} shards, k={k}: {row}")
+
+    # Times on the level-0 shapes (grey, k = 1), beside the bound, the share
+    # of the device-memory rate that the bytes the kernel streams reach
+    # (``design_share``), and the unsharded relax (40 prologue and 200 sweep
+    # launches).
+    cfg, times = FlowConfig(), {}
+    for w, h in (SIZES[1], SIZE_4K):
+        inputs.clear()
+        torch.cuda.empty_cache()
+        x = kernel_inputs(w, h)
+        relax_ms = cuda_ms(lambda: relax(x["fxyz"], x["uvf"], x["sc"], cfg), 3)
+        for n_y in SHARDED_TIMED_N_Y:
+            args = (x["fxyz"], x["uvf"], x["sc"], cfg, make_mesh(n_y))
+            work = kernel_work("relax_sharded", h, w, n_y=n_y)
+            ms = cuda_ms(lambda: relax_sharded_kernel(*args), 3)
+            row = {"phase": "sharded_time", "shape": [h, w], "n_y": n_y, "k": 1, "card": card,
+                   "ms": ms, "plain_ms": cuda_ms(lambda: relax_sharded(*args), 1, warmup=False),
+                   "unsharded_relax_ms": relax_ms, **work, "share": work["bound_ms"] / ms,
+                   "design_share": work["design_bytes"] / PEAK_BYTES_PER_S * 1e3 / ms}
+            times[(w, h, n_y)] = row
+            emit(row)
+        if (w, h) == SIZES[1]:
+            pair = sharded_pair_levels(x, card)
+    del x
+    torch.cuda.empty_cache()
+    at_4k, at_1080p = times[SIZE_4K + (4,)], times[SIZES[1] + (4,)]
+    return {"name": "relax_sharded", "route": "cuda", "source": "tpuflow_torch/csrc/sharded.cu",
+            "replaces": SHARDED_REPLACES, "max_abs_err": max_err, "shape": list(SIZE_4K[::-1]),
+            "n_y": 4, "k": 1, "ms": at_4k["ms"], "plain_ms": at_4k["plain_ms"],
+            "bound_ms": at_4k["bound_ms"], "bound_by": at_4k["bound_by"],
+            "resource": at_4k["resource"], "share": at_4k["share"],
+            "design_bytes": at_4k["design_bytes"], "design_share": at_4k["design_share"],
+            "library_ms": None,
+            "library": "none", "ms_1080p": at_1080p["ms"], "plain_ms_1080p": at_1080p["plain_ms"],
+            "unsharded_relax_ms": at_4k["unsharded_relax_ms"],
+            "ms_by_n_y": {f"{w}x{h}": {n: times[(w, h, n)]["ms"] for n in SHARDED_TIMED_N_Y}
+                          for w, h in (SIZES[1], SIZE_4K)},
+            "pair_ms_sum": pair["ms_sum"], "pair_bound_ms_sum": pair["bound_ms_sum"]}
+
+
+def sharded_pair_levels(x: dict, card: str) -> dict:
+    """relax_sharded_kernel under full_model() on 4 shards at each level
+    shape that compute_flow_sharded shards at 1920x1080, on the top-left
+    corner of the level-0 fields ``x``: ms by CUDA events and the bound,
+    summed over the pair's launches."""
+    from tpuflow_torch.models import full_model
+    from tpuflow_torch.parallel import kernel_halo_applicable, make_mesh, relax_sharded_kernel
+    from tpuflow_torch.pyramid import level_schedule
+    from tpuflow_torch.solver.level import LevelScalars
+    from tpuflow_torch.tools.roofline import cuda_ms, kernel_work
+
+    cfg, mesh = full_model(), make_mesh(4)
+    levels = [s for s in level_schedule(*SIZES[1], cfg.warp_levels_count, cfg.warp_scale_factor)
+              if kernel_halo_applicable(s.height, mesh.n_y, cfg)]
+    ms = bound = 0.0
+    for s in levels:
+        h, w = s.height, s.width
+        fields = [x[key][:, :h, :w].contiguous() for key in ("fxyz", "uvf", "J")]
+        sc = LevelScalars.make(w, h, 1.0, 1.0, cfg.equation_alpha)
+        ms += cuda_ms(lambda: relax_sharded_kernel(fields[0], fields[1], sc, cfg, mesh,
+                                                   J=fields[2]), 3)
+        bound += kernel_work("relax_sharded", h, w, n_y=mesh.n_y, cfg=cfg)["bound_ms"]
+    row = {"phase": "sharded_pair_levels", "shape": list(SIZES[1][::-1]), "card": card,
+           "config": "models.full_model()", "n_y": mesh.n_y, "sharded_levels": len(levels),
+           "ms_sum": ms, "bound_ms_sum": bound, "share": bound / ms}
+    emit(row)
+    return row
+
+
+def phase_sharded_e2e(card: str, unsharded_times: dict) -> int:
+    """compute_flow_sharded(full_model()) at 1920x1080 on 4 shards and on 1
+    (main path: counts 0 just before, read just after) against compute_flow,
+    the true shift and the expected launch counts; the three timed in turns;
+    then grey 584x388 on 4 shards against the oracle. Returns the 4-shard
+    run's relax_sharded launches."""
+    import torch
+
+    from tpuflow_torch import (
+        FlowConfig, compute_flow, compute_flow_sharded, endpoint_error, make_mesh, models,
+    )
+    from tpuflow_torch.solver import sharded
+    from tpuflow_torch.synthetic import shift_epe, textured_pair
+    from tpuflow_torch.tools.roofline import cuda_ms
+
+    w, h = SIZES[1]
+    cfg = models.full_model()
+    f0, f1 = textured_pair(w, h)
+    base = compute_flow(f0, f1, cfg, device="cuda")
+    runs, launches = {}, 0
+    for n_y in (4, 1):
+        mesh = make_mesh(n_y)
+        sharded.reset_launch_counts()
+        res = compute_flow_sharded(f0, f1, cfg, mesh=mesh, device="cuda")
+        counts = sharded.launch_counts()
+        want = expected_sharded_launches(w, h, cfg, n_y)
+        epe = endpoint_error(res.u, res.v, base.u, base.v)
+        row = {"phase": "sharded_e2e", "shape": [h, w], "config": "models.full_model()",
+               "n_y": n_y, "counts": counts, "expected": {k: want[k] for k in counts},
+               "epe_vs_compute_flow": epe,
+               "bitwise_equal_to_compute_flow": (res.u.tobytes() == base.u.tobytes()
+                                                 and res.v.tobytes() == base.v.tobytes()),
+               "epe_vs_true_shift": shift_epe(res.u, res.v), "zero_flow_epe": ZERO_FLOW_EPE}
+        row["ok"] = bool(counts == row["expected"] and epe <= 1e-5
+                         and row["epe_vs_true_shift"] < ZERO_FLOW_EPE
+                         and np.isfinite(res.u).all() and np.isfinite(res.v).all())
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"compute_flow_sharded at {w}x{h} on {n_y} shards: {row}")
+        if n_y == 4:
+            launches = counts["relax_sharded"]
+        runs[n_y] = mesh
+
+    # Pairs timed in turns: unsharded, 4 shards, 1 shard, three rounds.
+    paths = {"unsharded": lambda: compute_flow(f0, f1, cfg, device="cuda")}
+    for n_y, mesh in runs.items():
+        paths[f"sharded_{n_y}"] = lambda m=mesh: compute_flow_sharded(f0, f1, cfg, mesh=m,
+                                                                      device="cuda")
+    for fn in paths.values():
+        fn()  # warm-up pair
+    ms = {name: [] for name in paths}
+    for _ in range(3):
+        for name, fn in paths.items():
+            ms[name].append(cuda_ms(fn, 1, warmup=False))
+    row = {"phase": "sharded_times", "shape": [h, w], "card": card,
+           "config": "models.full_model()",
+           "phase8_unsharded_ms_median": unsharded_times["kernel_ms_median"]}
+    for name, v in ms.items():
+        row[f"{name}_ms_median"] = statistics.median(v)
+        row[f"{name}_ms_all"] = v
+    emit(row)
+
+    # Grey 584x388, reduced schedule, 4 shards, against the oracle.
+    from tpuflow_torch import oracle_np
+
+    w, h = SIZES[0]
+    f0, f1 = textured_pair(w, h)
+    ou, ov = oracle_np.compute_flow(f0, f1, data_constancy="grey", **ORACLE_KW)
+    red_cfg = FlowConfig(**ORACLE_KW)
+    res = compute_flow_sharded(f0, f1, red_cfg, mesh=make_mesh(4), device="cuda")
+    plain = compute_flow(f0, f1, red_cfg, device="cuda")
+    row = {"phase": "sharded_oracle", "shape": [h, w], "config": "FlowConfig(reduced)", "n_y": 4,
+           "sharded_levels": expected_sharded_launches(w, h, red_cfg, 4)["relax_sharded"],
+           "epe_vs_oracle_reduced": endpoint_error(res.u, res.v, ou, ov),
+           "epe_vs_compute_flow": endpoint_error(res.u, res.v, plain.u, plain.v)}
+    row["ok"] = row["epe_vs_oracle_reduced"] <= 0.05 and row["epe_vs_compute_flow"] <= 1e-5
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"compute_flow_sharded at {w}x{h} vs the oracle: {row}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -641,13 +871,20 @@ def main() -> int:
                     {"kernel": 5, "plain": 3})
     phase_times(*SIZES[0], *pairs[SIZES[0] + ("full_model",)], card, "full_model",
                 {"kernel": 5, "plain": 3})
-    phase_times(*SIZES[1], *textured_pair(*SIZES[1]), card, "full_model", {"kernel": 5})
+    times_1080p = phase_times(*SIZES[1], *textured_pair(*SIZES[1]), card, "full_model",
+                              {"kernel": 5})
     phase_times(*SIZE_4K, *pairs[SIZE_4K + ("full_model",)], card, "full_model",
                 {"kernel": 3})
     # The measurement path after the main path's times, which it must not disturb.
     probes = phase_probes(lib.path)
     bounds = phase_bounds(table)
     phase_trace(*SIZE_4K, bounds)
+    t_sharded = time.perf_counter()
+    sharded_row = phase_sharded_kernel(card)
+    sharded_row["launches"] = phase_sharded_e2e(card, times_1080p)
+    emit({"phase": "sharded_done", "seconds": time.perf_counter() - t_sharded})
+    if sharded_row["launches"] == 0:
+        raise AssertionError("relax_sharded was never launched on the sharded path")
 
     # The kernels line: times and bounds at 3840x2160 (1920x1080 beside them).
     rows = []
@@ -672,6 +909,7 @@ def main() -> int:
         rows.append(row)
     for name, p in probes.items():
         rows.append({"name": name, "route": "cuda", "replaces": REPLACES[name], **p})
+    rows.append(sharded_row)
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

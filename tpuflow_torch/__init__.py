@@ -8,8 +8,10 @@ wrote in Pallas for the TPU is a CUDA kernel for ``sm_90a`` here
 (``tpuflow_torch/csrc``), built with nvcc at first use. All three data
 constancies (grey, gradient, log-derivative) run; ``python -m
 tpuflow_torch.cli`` is the reference-compatible command line, and
-``tpuflow_torch.io`` reads and writes its RAW and PPM files. Importing this
-package imports neither JAX nor ``tpuflow``.
+``tpuflow_torch.io`` reads and writes its RAW and PPM files.
+``compute_flow_sharded`` shards each level's relaxation by rows over a
+``make_mesh(n_y)`` of one card. Importing this package imports neither JAX
+nor ``tpuflow``.
 """
 
 __version__ = "0.1.0"
@@ -20,3 +22,5 @@ from tpuflow_torch.config import (  # noqa: F401
 from tpuflow_torch.solver.flow2d import (  # noqa: F401
     FlowResult, LevelTrace, compute_flow, endpoint_error,
 )
+from tpuflow_torch.parallel.mesh import make_mesh  # noqa: F401
+from tpuflow_torch.solver.sharded import compute_flow_sharded  # noqa: F401

@@ -1,0 +1,147 @@
+// Per-pixel bodies of the relaxation, shared by the level kernels
+// (level.cu: outer_prologue_kernel<TENSOR>, jacobi_sweep_kernel) and the
+// row-sharded relaxation (sharded.cu: relax_sharded_kernel<TENSOR>), so both
+// run the same arithmetic in the same association order.
+//
+// A body works on one block of rows: contiguous float32 (h, w) planes, stacks
+// of planes back to back (plane stride n = h * w). The mirror boundary is
+// reflect indexing at the block's own edges (neighbour -1 reads 1, neighbour
+// h reads h - 2). For a whole level the block is the level; for a shard it is
+// the shard's padded rows, which end at the image edge wherever the shard
+// touches it, so the image's rule holds there as well. The free-boundary
+// weights depend on the pixel's global row gy in a level of gh rows.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace tf_body {
+
+__device__ __forceinline__ int refl(int i, int n) {
+  // Reference mirror: x < 0 -> -x, x >= n -> 2n - x - 2 (solve_2d.cu:75-76).
+  return i < 0 ? -i : (i >= n ? 2 * n - i - 2 : i);
+}
+
+// phi = 1 / (2 sqrt(|grad T|^2 + e_s^2)) at (y, x), from the T iterate
+// (level_fused.py:348-353).
+__device__ __forceinline__ float phi_at(const float* __restrict__ tu,
+                                        const float* __restrict__ tv, int y, int x,
+                                        int h, int w, float div2hx, float div2hy,
+                                        float e_s2) {
+  const int xp = y * w + refl(x + 1, w), xm = y * w + refl(x - 1, w);
+  const int yp = refl(y + 1, h) * w + x, ym = refl(y - 1, h) * w + x;
+  const float dux = (tu[xp] - tu[xm]) / div2hx;
+  const float duy = (tu[yp] - tu[ym]) / div2hy;
+  const float dvx = (tv[xp] - tv[xm]) / div2hx;
+  const float dvy = (tv[yp] - tv[ym]) / div2hy;
+  const float grad2 = dux * dux + duy * duy + dvx * dvx + dvy * dvy + e_s2;
+  return 1.0f / (2.0f * sqrtf(grad2));
+}
+
+// outer_prologue at (y, x): phi, ksi and the 9 per-outer hoists, term for
+// term level_fused.py:343-393. Each thread computes phi at its pixel and its
+// four (reflected) neighbours. hoist planes: pw_xp, pw_xm, pw_yp, pw_ym, a12,
+// a13, a23, dnu, dnv. With TENSOR (gradient and log) the a12/a13/a23/dnu/dnv
+// hoists take J (level_fused.py:379-392); ksi stays grey. Without it J is
+// never read.
+template <bool TENSOR>
+__device__ __forceinline__ void prologue_px(const float* __restrict__ T,
+                                            const float* __restrict__ uv,
+                                            const float* __restrict__ fxyz,
+                                            const float* __restrict__ J,
+                                            float* __restrict__ hoist, int y, int x, int h,
+                                            int w, int gy, int gh, float div2hx, float div2hy,
+                                            float alpha_hx2, float alpha_hy2, float e_s2,
+                                            float e_d2) {
+  const size_t n = (size_t)h * w;
+  const int c = y * w + x;
+  const float* tu = T;
+  const float* tv = T + n;
+
+  const float phi_c = phi_at(tu, tv, y, x, h, w, div2hx, div2hy, e_s2);
+  const float phi_xp = phi_at(tu, tv, y, refl(x + 1, w), h, w, div2hx, div2hy, e_s2);
+  const float phi_xm = phi_at(tu, tv, y, refl(x - 1, w), h, w, div2hx, div2hy, e_s2);
+  const float phi_yp = phi_at(tu, tv, refl(y + 1, h), x, h, w, div2hx, div2hy, e_s2);
+  const float phi_ym = phi_at(tu, tv, refl(y - 1, h), x, h, w, div2hx, div2hy, e_s2);
+
+  // Free-boundary weights alpha/h^2, zero at the image border, at global
+  // rows (solve_2d.cu:333-340; halo.py:163-173).
+  const float xp_w = x < w - 1 ? alpha_hx2 : 0.0f;
+  const float xm_w = x > 0 ? alpha_hx2 : 0.0f;
+  const float yp_w = gy < gh - 1 ? alpha_hy2 : 0.0f;
+  const float ym_w = gy > 0 ? alpha_hy2 : 0.0f;
+  const float pw_xp = (phi_xp + phi_c) * 0.5f * xp_w;
+  const float pw_xm = (phi_xm + phi_c) * 0.5f * xm_w;
+  const float pw_yp = (phi_yp + phi_c) * 0.5f * yp_w;
+  const float pw_ym = (phi_ym + phi_c) * 0.5f * ym_w;
+  const float sum_h = pw_xp + pw_xm + pw_yp + pw_ym;
+
+  // ksi from the GREY tensor at du = T - u (reference quirk:
+  // cuda_operation_solve_2d.cpp:84).
+  const float du_c = tu[c] - uv[c];
+  const float dv_c = tv[c] - uv[n + c];
+  const float fx = fxyz[c];
+  const float fy = fxyz[n + c];
+  const float ft = fxyz[2 * n + c];
+  const float sq = (fx * fx * du_c + fx * fy * dv_c + fx * ft) * du_c +
+                   (fx * fy * du_c + fy * fy * dv_c + fy * ft) * dv_c +
+                   (fx * ft * du_c + fy * ft * dv_c + ft * ft);
+  const float sq0 = sq < 0.0f ? 0.0f : sq;  // max(sq, 0), NaN passes through
+  const float ksi = 1.0f / (2.0f * sqrtf(sq0 + e_d2));
+
+  const float J11 = TENSOR ? J[c] : fx * fx;
+  const float J22 = TENSOR ? J[n + c] : fy * fy;
+  const float J12 = TENSOR ? J[2 * n + c] : fx * fy;
+  const float J13 = TENSOR ? J[3 * n + c] : fx * ft;
+  const float J23 = TENSOR ? J[4 * n + c] : fy * ft;
+
+  hoist[c] = pw_xp;
+  hoist[n + c] = pw_xm;
+  hoist[2 * n + c] = pw_yp;
+  hoist[3 * n + c] = pw_ym;
+  hoist[4 * n + c] = ksi * J12;            // a12
+  hoist[5 * n + c] = ksi * J13;            // a13
+  hoist[6 * n + c] = ksi * J23;            // a23
+  hoist[7 * n + c] = ksi * J11 + sum_h;    // dnu
+  hoist[8 * n + c] = ksi * J22 + sum_h;    // dnv
+}
+
+// jacobi_sweep at (y, x): one coupled T-form sweep (sweep_core.py:45-79),
+// new_du then new_dv from the fresh new_du, storing T' = u + new_d
+// (level_fused.py:328-341). Reads T, writes T_out.
+__device__ __forceinline__ void sweep_px(const float* __restrict__ T,
+                                         const float* __restrict__ uv,
+                                         const float* __restrict__ hoist,
+                                         float* __restrict__ T_out, int y, int x, int h,
+                                         int w) {
+  const size_t n = (size_t)h * w;
+  const int c = y * w + x;
+  const int xp = y * w + refl(x + 1, w), xm = y * w + refl(x - 1, w);
+  const int yp = refl(y + 1, h) * w + x, ym = refl(y - 1, h) * w + x;
+  const float* tu = T;
+  const float* tv = T + n;
+
+  const float u_c = uv[c];
+  const float v_c = uv[n + c];
+  const float pw_xp = hoist[c];
+  const float pw_xm = hoist[n + c];
+  const float pw_yp = hoist[2 * n + c];
+  const float pw_ym = hoist[3 * n + c];
+  const float a12 = hoist[4 * n + c];
+  const float a13 = hoist[5 * n + c];
+  const float a23 = hoist[6 * n + c];
+  const float dnu = hoist[7 * n + c];
+  const float dnv = hoist[8 * n + c];
+
+  const float sum_u = pw_xp * (tu[xp] - u_c) + pw_xm * (tu[xm] - u_c) +
+                      pw_yp * (tu[yp] - u_c) + pw_ym * (tu[ym] - u_c);
+  const float sum_v = pw_xp * (tv[xp] - v_c) + pw_xm * (tv[xm] - v_c) +
+                      pw_yp * (tv[yp] - v_c) + pw_ym * (tv[ym] - v_c);
+  const float dv_c = tv[c] - v_c;
+  const float new_du = (-a13 - a12 * dv_c + sum_u) / dnu;
+  const float new_dv = (-a23 - a12 * new_du + sum_v) / dnv;
+  T_out[c] = u_c + new_du;
+  T_out[n + c] = v_c + new_dv;
+}
+
+}  // namespace tf_body

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``tpuflow_torch/csrc/`` have a plain C interface. On
-first use ``nvcc`` compiles them for ``sm_90a`` into one shared library in
-``tpuflow_torch/_build/`` (named by a hash of the sources and flags, so an
-edit rebuilds), and ``ctypes`` loads it. Nothing is built at import time,
-and nothing here runs on a machine without CUDA unless a CUDA tensor
-reaches a kernel wrapper.
+first use one ``nvcc`` per source compiles it for ``sm_90a``, all at once,
+and one more links the objects into a shared library in
+``tpuflow_torch/_build/`` (named by a hash of the sources, the headers they
+include and the flags, so an edit rebuilds); ``ctypes`` loads it. Nothing
+is built at import time, and nothing here runs on a machine without CUDA
+unless a CUDA tensor reaches a kernel wrapper.
 """
 
 from __future__ import annotations
@@ -24,12 +25,15 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("level.cu", "probes.cu")
+SOURCES = ("level.cu", "probes.cu", "sharded.cu")
+HEADERS = ("level_body.cuh",)
 # No fast math: sqrtf and '/' must round as IEEE. --fmad=false keeps every
 # multiply and add rounded on its own, as the JAX kernels associate them.
+# sharded.cu's grid-wide sync needs no relocatable device code (-rdc) since
+# CUDA 11, so the objects link as plain ones.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -45,6 +49,8 @@ SIGNATURES = {
     "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
     "tf_roofline_micro": (_P, _P, _P, _I, _I, _I, _I, _P),
     "tf_probe_matmul": (_P, _P, _P, _I, _I, _I, _P),
+    "tf_relax_sharded": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _P),
 }
 
 
@@ -69,7 +75,7 @@ def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; raises on failure."""
     srcs = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + [CSRC / h for h in HEADERS]:
         digest.update(s.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"libtpuflow_level_{digest.hexdigest()[:16]}.so"
@@ -77,13 +83,23 @@ def load_library() -> KernelLibrary:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        log = "".join(p.communicate()[0] for p in procs)
+        failed = [(s.name, p.returncode) for s, p in zip(srcs, procs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            failed = [("link", link.returncode)] if link.returncode != 0 else []
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{log}")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():

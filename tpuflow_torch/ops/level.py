@@ -106,12 +106,15 @@ def level_tensor(f0_l, f1_w, fxyz, sc, log: bool) -> torch.Tensor:
 
 
 def outer_prologue_plain(T, uv, fxyz, div2hx, div2hy, alpha_hx2, alpha_hy2,
-                         e_s2, e_d2, J=None) -> torch.Tensor:
+                         e_s2, e_d2, J=None, row0: int = 0, height=None) -> torch.Tensor:
+    """The hoists of a block of rows; ``row0`` and ``height`` place the
+    block in a taller level for the free-boundary weights (a shard's
+    padded rows; ``edge_weights``). The defaults are the whole level."""
     _, h, w = T.shape
     tu, tv = T[0], T[1]
     phi = phi_from_T(tu, tv, div2hx, div2hy, e_s2)
     phi_c, phi_xp, phi_xm, phi_yp, phi_ym = shifts(phi)
-    xp_w, xm_w, yp_w, ym_w = edge_weights(h, w, alpha_hx2, alpha_hy2, T.device)
+    xp_w, xm_w, yp_w, ym_w = edge_weights(h, w, alpha_hx2, alpha_hy2, T.device, row0, height)
     pw_xp = (phi_xp + phi_c) * 0.5 * xp_w
     pw_xm = (phi_xm + phi_c) * 0.5 * xm_w
     pw_yp = (phi_yp + phi_c) * 0.5 * yp_w

@@ -1,0 +1,151 @@
+"""Row sharding of a level's relaxation: the split, the halo exchange, and
+``relax_sharded``, the plain version of the sharded kernel (the port of
+tpuflow/parallel/halo.py:63-289).
+
+Only the relaxation is sharded; the rest of a level runs on the whole field
+(halo.py:28-30). A shard owns contiguous rows, split as ``torch.tensor_split``
+splits them (100 rows over 3 shards: 34, 33, 33), and works on a padded
+block: its owned rows plus ``halo = k (inner + 1)`` rows of each neighbour
+shard, on the sides where it has one. The level's constants (uv, fxyz and J)
+exchange their halos once; the iterate T exchanges its halos once every k
+outer iterations. In between, each shard runs the prologue and the sweeps on
+its whole block, computing the margin redundantly. One outer consumes inner +
+1 rows of margin (halo.py:110-114), so after k outers the garbage that the
+block's cut edge lets in has just reached the owned rows, and they are
+bitwise those of the unsharded ``relax`` for any shard count and k: the same
+operations run on the same values (halo.py:121-125).
+
+A block that touches the image edge ends there, so its mirror rule is the
+image's; the free-boundary weights take global rows. The port's levels are
+exact-size, so the JAX path's ghost-row upkeep and top-row mirror fill have
+no counterpart.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from tpuflow_torch.config import FlowConfig
+from tpuflow_torch.ops.level import (
+    N_TENSOR, _check_planes, jacobi_sweep_plain, outer_prologue_plain,
+)
+from tpuflow_torch.parallel.mesh import Mesh
+
+F = np.float32
+MIN_SHARD_ROWS = 16   # below this the JAX pipeline replicates a level (halo.py:66-68)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardRows:
+    """One shard's rows: ``rows`` owned from global row ``row0``, with ``top``
+    halo rows above and ``bot`` below (0 at the image edge)."""
+
+    row0: int
+    rows: int
+    top: int
+    bot: int
+
+    @property
+    def padded(self) -> int:
+        return self.top + self.rows + self.bot
+
+    @property
+    def first(self) -> int:
+        """Global row of the padded block's first row."""
+        return self.row0 - self.top
+
+
+def halo_rows(cfg: FlowConfig, k_outer: int = 1) -> int:
+    """Rows of true dependence one exchange must carry for k outer
+    iterations (halo.py:135)."""
+    return k_outer * (cfg.inner_iterations_count + 1)
+
+
+def row_split(h: int, n_y: int, halo: int) -> List[ShardRows]:
+    """The shards of h rows: contiguous, the first ``h % n_y`` one row
+    longer (``torch.tensor_split``), padded by ``halo`` toward neighbours."""
+    q, r = divmod(h, n_y)
+    shards, row0 = [], 0
+    for s in range(n_y):
+        rows = q + (1 if s < r else 0)
+        shards.append(ShardRows(row0, rows, halo if s > 0 else 0, halo if s < n_y - 1 else 0))
+        row0 += rows
+    return shards
+
+
+def halo_applicable(h: int, n_y: int, cfg: FlowConfig, k_outer: int = 1) -> bool:
+    """Every shard owns at least max(halo, 16) rows (halo.py:63-79): the
+    exchange sends a shard's outermost ``halo`` rows, and below 16 rows a
+    shard is not worth its margin. Uneven splits are allowed."""
+    if n_y < 1 or k_outer < 1:
+        return False
+    return h // n_y >= max(halo_rows(cfg, k_outer), MIN_SHARD_ROWS)
+
+
+def _exchange(blocks: List[torch.Tensor], shards: List[ShardRows], halo: int) -> None:
+    """Fill each shard's halo rows, in place, with its neighbours' edge owned
+    rows: a shard's bottom rows go to the next shard's top halo, its top rows
+    to the previous shard's bottom halo (halo.py:82-97, with tensor copies
+    for ``ppermute``). ``blocks`` are (planes, padded rows, w)."""
+    for s in range(len(shards) - 1):
+        a, b = shards[s], shards[s + 1]
+        end = a.top + a.rows
+        blocks[s + 1][:, :halo] = blocks[s][:, end - halo:end]
+        blocks[s][:, end:] = blocks[s + 1][:, b.top:b.top + halo]
+
+
+def _pad(x: torch.Tensor, shards: List[ShardRows], halo: int) -> List[torch.Tensor]:
+    """(planes, h, w) -> one zero-padded block per shard, owned rows copied
+    in and halos exchanged."""
+    blocks = []
+    for sh in shards:
+        block = x.new_zeros((x.shape[0], sh.padded, x.shape[2]))
+        block[:, sh.top:sh.top + sh.rows] = x[:, sh.row0:sh.row0 + sh.rows]
+        blocks.append(block)
+    _exchange(blocks, shards, halo)
+    return blocks
+
+
+def check_sharded_args(fxyz, uv, cfg: FlowConfig, mesh: Mesh, k_outer: int, J) -> int:
+    """Check the arguments of the sharded relaxation; returns the halo rows."""
+    _, h, w = uv.shape
+    _check_planes(h, w, uv=(uv, 2), fxyz=(fxyz, 3))
+    if J is not None:
+        _check_planes(h, w, J=(J, N_TENSOR))
+    if not halo_applicable(h, mesh.n_y, cfg, k_outer):
+        raise ValueError(
+            f"{h} rows over {mesh.n_y} shards with k_outer={k_outer}: every shard needs at "
+            f"least max({halo_rows(cfg, k_outer)}, {MIN_SHARD_ROWS}) rows")
+    return halo_rows(cfg, k_outer)
+
+
+def relax_sharded(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConfig, mesh: Mesh,
+                  k_outer: int = 1, J: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The iterate T (2, h, w) after outer x inner relaxation from T = uv,
+    rows sharded over ``mesh``, halos exchanged once every ``k_outer``
+    outers: the plain version of ``relax_sharded_kernel`` and the
+    counterpart of ``relax`` (solver/level.py), bitwise equal to it. ``sc``
+    is the level's ``LevelScalars``; ``J`` the gradient/log tensor (None
+    for grey). Runs on the tensors' device."""
+    halo = check_sharded_args(fxyz, uv, cfg, mesh, k_outer, J)
+    shards = row_split(uv.shape[1], mesh.n_y, halo)
+    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
+    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
+    uv_b = _pad(uv, shards, halo)
+    fxyz_b = _pad(fxyz, shards, halo)
+    J_b = _pad(J, shards, halo) if J is not None else [None] * len(shards)
+    T_b = [b.clone() for b in uv_b]
+    for i in range(cfg.outer_iterations_count):
+        if i % k_outer == 0:
+            _exchange(T_b, shards, halo)
+        for s, sh in enumerate(shards):
+            hoist = outer_prologue_plain(T_b[s], uv_b[s], fxyz_b[s], sc.div2hx, sc.div2hy,
+                                         sc.alpha_hx2, sc.alpha_hy2, e_s2, e_d2, J=J_b[s],
+                                         row0=sh.first, height=uv.shape[1])
+            for _ in range(cfg.inner_iterations_count):
+                T_b[s] = jacobi_sweep_plain(T_b[s], uv_b[s], hoist)
+    return torch.cat([T[:, sh.top:sh.top + sh.rows] for T, sh in zip(T_b, shards)], dim=1)

@@ -51,7 +51,7 @@ class FlowResult:
 
 
 def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
-                 collect_trace: bool = False, device="cuda") -> FlowResult:
+                 collect_trace: bool = False, device="cuda", _relax_for=None) -> FlowResult:
     """Dense 2D optical flow from frame_0 to frame_1, two (H, W) frames of
     any real dtype; computation is float32 on ``device``.
 
@@ -61,7 +61,8 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
 
     It switches TF32 off for matmuls and cuDNN (a process-wide PyTorch
     setting): the smoothing and resample matmuls must be full float32, as
-    the JAX package's are (Precision.HIGHEST).
+    the JAX package's are (Precision.HIGHEST). ``_relax_for`` is
+    ``solve``'s per-level relaxation, for ``compute_flow_sharded``.
     """
     cfg = cfg or FlowConfig()
     device = torch.device(device)
@@ -77,7 +78,7 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
     trace = [] if collect_trace else None
     with guard, Timer() as timer:
         uv = solve(torch.from_numpy(f0).to(device), torch.from_numpy(f1).to(device), cfg,
-                   trace=trace)
+                   trace=trace, relax_for=_relax_for)
         uv = uv.cpu().numpy()
     return FlowResult(u=uv[0], v=uv[1], seconds=timer.seconds,
                       levels=[LevelTrace(*t) for t in trace or ()])

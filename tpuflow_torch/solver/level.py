@@ -22,6 +22,7 @@ original-pixel units.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -117,27 +118,34 @@ def relax(fxyz: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
     return T
 
 
+# A level's relaxation: (fxyz, uv, sc, cfg, J=...) -> T, as ``relax``
+# computes it (the ``relax_fn=`` of bucketed_level_step, bucketed.py:1595-1603).
+RelaxFn = Callable[..., torch.Tensor]
+
+
 def level_tail(f0_l: torch.Tensor, f1_w: torch.Tensor, uv: torch.Tensor,
-               sc: LevelScalars, cfg: FlowConfig,
-               _steps: Steps = KERNEL_STEPS) -> torch.Tensor:
+               sc: LevelScalars, cfg: FlowConfig, _steps: Steps = KERNEL_STEPS,
+               relax_fn: Optional[RelaxFn] = None) -> torch.Tensor:
     """Derivatives + relaxation + add + median on an already warped level
-    (what ``level_fused`` computes); returns the level's flow (2, h, w)."""
+    (what ``level_fused`` computes); returns the level's flow (2, h, w).
+    ``relax_fn`` is the relaxation, by default ``relax`` with ``_steps``."""
     fxyz = _steps.level_derivs(f0_l, f1_w, sc.div4hx, sc.div4hy)
     J = None
     if cfg.data_constancy != DataConstancy.GREY:
         J = _steps.level_tensor(f0_l, f1_w, fxyz, sc,
                                 cfg.data_constancy == DataConstancy.LOG_DERIVATIVES)
-    T = relax(fxyz, uv, sc, cfg, _steps, J)
+    T = (relax_fn or functools.partial(relax, _steps=_steps))(fxyz, uv, sc, cfg, J=J)
     return _steps.add_median(T, uv, cfg.median_radius)
 
 
 def level_step(frames_l: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
-               cfg: FlowConfig, _steps: Steps = KERNEL_STEPS) -> torch.Tensor:
+               cfg: FlowConfig, _steps: Steps = KERNEL_STEPS,
+               relax_fn: Optional[RelaxFn] = None) -> torch.Tensor:
     """One whole level after the resample (what ``level_fused_whole``
     computes): frames_l (2, h, w) = [f0_l, f1_l], uv (2, h, w) the
     prolongated flow; returns the level's flow (2, h, w)."""
     f1_w = _steps.warp(frames_l[0], frames_l[1], uv, sc.inv_hx, sc.inv_hy)
-    return level_tail(frames_l[0], f1_w, uv, sc, cfg, _steps)
+    return level_tail(frames_l[0], f1_w, uv, sc, cfg, _steps, relax_fn)
 
 
 def _clock(device: torch.device):
@@ -158,15 +166,18 @@ def _seconds(start, end) -> float:
 
 
 def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
-          _steps: Steps = KERNEL_STEPS, trace: Optional[list] = None) -> torch.Tensor:
+          _steps: Steps = KERNEL_STEPS, trace: Optional[list] = None,
+          relax_for: Optional[Callable[[int, int], RelaxFn]] = None) -> torch.Tensor:
     """The coarse-to-fine solve on f0's device; returns (u, v) as (2, h, w).
 
     With a list ``trace``, appends one ``(level, width, height, seconds)``
     per level, the resample included. On the card each level is timed by
     CUDA events, read once after the last level, so the trace adds no host
     synchronisation inside the solve and leaves the flow unchanged.
-    ``_steps`` is for comparing the kernels with their plain versions
-    end to end; callers leave it alone.
+    ``relax_for(h, w)`` gives each (h, w) level's relaxation (by default
+    ``relax``); the sharded pipeline routes levels with it. ``_steps`` is for comparing
+    the kernels with their plain versions end to end; callers leave it
+    alone.
     """
     h0, w0 = f0.shape
     if min(h0, w0) < 4:
@@ -185,7 +196,8 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
             uv = torch.zeros((2, ch, cw), dtype=torch.float32, device=f0.device)
         else:
             uv = resample(uv, cw, ch)
-        uv = level_step(frames_l, uv, sc, cfg, _steps)
+        relax_fn = relax_for(ch, cw) if relax_for is not None else None
+        uv = level_step(frames_l, uv, sc, cfg, _steps, relax_fn)
         if marks is not None:
             marks.append(_clock(f0.device))
     if marks is not None:

@@ -39,6 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tpuflow_torch.config import DataConstancy, FlowConfig
 from tpuflow_torch.ops.cuda_lib import launch, on_cuda
 
 HB, WB = 392, 640          # the probe's field (the TPU's 584x388 bucket)
@@ -224,7 +225,35 @@ def _instructions_and_flops(ops: Counter) -> tuple:
     return instr, flops
 
 
-def kernel_work(name: str, h: int, w: int, radius: int = 5) -> dict:
+def _sharded_work(h: int, w: int, n_y: int, k: int, cfg: FlowConfig) -> tuple:
+    """(bytes, instructions, flops, design bytes) of one relax_sharded
+    launch under ``cfg``. What the function needs: uv, fxyz and, with the
+    gradient/log tensor, J read once, T written once, and ``outer``
+    prologues and ``outer * inner`` sweeps of arithmetic over the h x w
+    owned pixels, whatever the shard count. The design bytes are what the
+    kernel streams: the prologues and sweeps over every shard's padded rows
+    (halo = k (inner + 1) rows toward each neighbour shard), counted as the
+    unsharded kernels count them; plus the iterate's halos (2 planes, each
+    way across each of the n_y - 1 shard boundaries, read and written) once
+    every k outers, and the constants' halos (uv, fxyz, J) once."""
+    outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
+    tensor = cfg.data_constancy != DataConstancy.GREY
+    halo = k * (inner + 1)
+    px = (h + 2 * halo * (n_y - 1)) * w
+    pro_in, pro_out, pro_ops = _LEVEL_WORK["outer_prologue_tensor" if tensor else "outer_prologue"]
+    sw_in, sw_out, sw_ops = _LEVEL_WORK["jacobi_sweep"]
+    design = outer * (pro_in + pro_out) * px * 4 + outer * inner * (sw_in + sw_out) * px * 4
+    plane_halos = (n_y - 1) * 2 * halo * w * 4 * 2   # boundaries x ways x rows x w x 4 B, r + w
+    design += -(-outer // k) * 2 * plane_halos + (2 + 3 + (5 if tensor else 0)) * plane_halos
+    nbytes = (2 + 3 + (5 if tensor else 0) + 2) * h * w * 4
+    pro_i, pro_f = _instructions_and_flops(pro_ops)
+    sw_i, sw_f = _instructions_and_flops(sw_ops)
+    return (nbytes, h * w * outer * (pro_i + inner * sw_i),
+            h * w * outer * (pro_f + inner * sw_f), design)
+
+
+def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: int = 1,
+                cfg: FlowConfig | None = None) -> dict:
     """What one launch of kernel ``name`` on an (h, w) level needs, and its
     bound on this card: the largest of device-memory bytes over the memory
     rate (each input byte read once, each output byte written once),
@@ -233,12 +262,20 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5) -> dict:
     either memory, "operations" for the issue rate; ``resource`` names it.
 
     Names: the keys of ``_LEVEL_WORK``, ``add_median`` (window side
-    ``radius``), ``roofline_micro_<body>`` (one call of ``PASSES`` passes on
-    an (h, w) field, one shared-memory load per pass by the probe's design)
-    and ``probe_matmul`` ((h, H0) @ (H0, w), one FFMA per product)."""
+    ``radius``), ``relax_sharded`` (one level's relaxation under ``cfg``,
+    default ``FlowConfig()``, over ``n_y`` shards, halos every ``k`` outers:
+    ``_sharded_work``; its ``design_bytes`` are the bytes the kernel streams,
+    at one shard those of the unsharded launches), ``roofline_micro_<body>`` (one call of
+    ``PASSES`` passes on an (h, w) field, one shared-memory load per pass by
+    the probe's design) and ``probe_matmul`` ((h, H0) @ (H0, w), one FFMA
+    per product)."""
     npix = h * w
     shared = 0
-    if name in _LEVEL_WORK or name == "add_median":
+    extra = {}
+    if name == "relax_sharded":
+        nbytes, instr, flops, extra["design_bytes"] = _sharded_work(h, w, n_y, k,
+                                                                    cfg or FlowConfig())
+    elif name in _LEVEL_WORK or name == "add_median":
         planes_in, planes_out, ops = (_LEVEL_WORK[name] if name in _LEVEL_WORK
                                       else _median_work(radius))
         nbytes = (planes_in + planes_out) * npix * 4
@@ -261,7 +298,7 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5) -> dict:
     resource = max(times, key=times.get)
     return {"bytes": nbytes, "shared_bytes": shared, "instructions": instr, "flops": flops,
             "bound_ms": times[resource], "resource": resource,
-            "bound_by": "operations" if resource == "float32 issue" else "bytes"}
+            "bound_by": "operations" if resource == "float32 issue" else "bytes", **extra}
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +364,6 @@ def level_chain_seconds(w: int, h: int, inner: int, k_lo: int, k_hi: int, rounds
     """Device seconds of one 40 x ``inner`` relaxation (``solver.level.relax``,
     grey) on seeded (h, w) fields: the slope over chains of k relaxations,
     u += 0.001 du between them, each chain a replayed CUDA graph."""
-    from tpuflow_torch.config import FlowConfig
     from tpuflow_torch.ops.level import level_derivs
     from tpuflow_torch.solver.level import LevelScalars, relax
 
