@@ -6,9 +6,12 @@
     field and 2 x 8 passes, chained twice;
   * ``probe_kernel_matmul.probe_matmul`` (its plain k-ordered sum) against
     ``tools/probe_kernel_matmul.in_kernel`` (interpret mode) and ``in_xla``
-    on the probe's seeded inputs;
-  * ``kernel_work``'s plane counts and bounds for every kernel;
-  * the measurement entry points raise without a card.
+    on the probe's seeded inputs, and against a numpy fold in k order at
+    odd (M, K, N);
+  * ``kernel_work``'s plane counts and bounds for every kernel, and
+    ``pair_bounds``, its sum over one pair's level schedule;
+  * the measurement entry points and the graph-replay timer raise without
+    a card.
 
 Bounds: the chained step ``x + 1e-4 * y`` may be contracted into one fused
 multiply-add by XLA, so the folds agree to 1 ulp, not bitwise: rtol 1e-6.
@@ -129,6 +132,29 @@ def test_matmul_probe_plain_sums_in_k_order():
         P.probe_matmul(torch.ones(2, 3), torch.ones(4, 2))
 
 
+@pytest.mark.parametrize("m,k,n", [(5, 449, 7), (65, 17, 641)])
+def test_matmul_probe_plain_sums_in_k_order_odd_shapes(m, k, n):
+    # the odd shapes chip_smoke.py holds the kernel to (4-byte copies,
+    # partial tiles and k-chunks), on the probe's banded inputs
+    a, b = P.probe_inputs(m, k, n)
+    assert a.shape == (m, k) and b.shape == (k, n)
+    assert (np.count_nonzero(a, axis=1) == min(9, k)).all()
+    got = P.probe_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    want = np.zeros((m, n), np.float32)
+    for j in range(k):
+        want = want + a[:, j:j + 1] * b[j:j + 1, :]
+    assert (got == want).all()
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-6
+
+
+def test_probe_inputs_default_to_the_probe():
+    a, b = P.probe_inputs()
+    a2, b2 = P.probe_inputs(P.HB, P.H0, P.W0)
+    assert np.array_equal(a, a2) and np.array_equal(b, b2)
+    assert a.shape == (P.HB, P.H0) and b.shape == (P.H0, P.W0)
+
+
 # planes read + written, from each kernel's source in csrc/level.cu
 PLANES = {"warp": 5, "level_derivs": 5, "level_tensor_gradient": 8, "level_tensor_log": 7,
           "outer_prologue": 16, "outer_prologue_tensor": 21, "jacobi_sweep": 17,
@@ -196,6 +222,29 @@ def test_kernel_work_probes():
         R.kernel_work("nope", 4, 4)
 
 
+@pytest.mark.parametrize("constancy", ["grey", "gradient", "log"])
+def test_pair_bounds_weigh_each_level_by_its_size(constancy):
+    from tpuflow_torch.config import DataConstancy, FlowConfig
+    from tpuflow_torch.pyramid import level_schedule
+
+    cfg = FlowConfig(data_constancy=DataConstancy(constancy))
+    w, h = 240, 135
+    pb = R.pair_bounds(w, h, cfg)
+    levels = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    prologue = "outer_prologue" if constancy == "grey" else "outer_prologue_tensor"
+    tensor = {"grey": set(), "gradient": {"level_tensor_gradient"},
+              "log": {"level_tensor_log"}}[constancy]
+    assert set(pb) == {"warp", "level_derivs", "jacobi_sweep", "add_median", prologue} | tensor
+    outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
+    assert pb["jacobi_sweep"]["launches"] == len(levels) * outer * inner
+    assert pb[prologue]["launches"] == len(levels) * outer
+    want = sum(outer * R.kernel_work(prologue, s.height, s.width)["bound_ms"] for s in levels)
+    assert pb[prologue]["bound_ms"] == pytest.approx(want, rel=1e-12)
+    # every level but the finest is smaller than level 0
+    level0 = pb[prologue]["launches"] * R.kernel_work(prologue, h, w)["bound_ms"]
+    assert pb[prologue]["bound_ms"] < level0 / 3
+
+
 def test_measurements_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -204,9 +253,32 @@ def test_measurements_raise_without_cuda(monkeypatch):
         P.run()
 
 
+@pytest.mark.parametrize("capturing, counted", [(False, 1), (True, 0)])
+def test_probe_matmul_counts_only_launches_it_makes(monkeypatch, capturing, counted):
+    monkeypatch.setattr(P, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(P, "launch", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    monkeypatch.setattr(P.probe_matmul, "launches", 0)
+    P.probe_matmul(torch.zeros(2, 3), torch.zeros(3, 4))
+    assert P.probe_matmul.launches == counted
+
+
+def test_graph_timer_raises_without_cuda(monkeypatch):
+    from tpuflow_torch.profile_pair import prologue_by_level
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        R.graph_ms(lambda: calls.append(1))
+    assert calls == []
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prologue_by_level(64, 48)
+
+
 def test_probe_modules_import_no_jax():
     code = (
         "import sys, tpuflow_torch.tools.roofline, tpuflow_torch.tools.probe_kernel_matmul\n"
+        "import tpuflow_torch.profile_pair\n"
         "import tpuflow_torch.utils.timing, tpuflow_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuflow', 'tools')]\n"
         "assert not bad, bad\n"

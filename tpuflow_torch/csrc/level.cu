@@ -32,12 +32,14 @@
 // The one exception is the second-order tensor's stencil over derivative
 // fields, which replicates (clamp: neighbour -1 reads 0, n reads n-1).
 //
-// All kernels are one thread per pixel over 32x8 blocks. Each reads a few
-// neighbouring floats and does ~1 FLOP per byte, so device-memory bandwidth
-// bounds them at fine levels and launch latency at coarse ones; neighbour
-// reuse comes from L1/L2, not shared memory. Shared-memory k-sweep blocking
-// is later work. Pixel indices are int (a 3840x2160 level has 8.3 M
-// pixels); plane offsets are size_t.
+// All kernels but outer_prologue are one thread per pixel over 32x8 blocks.
+// Each reads a few neighbouring floats and does ~1 FLOP per byte, so
+// device-memory bandwidth bounds them at fine levels and launch latency at
+// coarse ones; neighbour reuse comes from L1/L2, not shared memory.
+// outer_prologue stages its stencil input and phi in shared-memory tiles
+// (its comment says why). Shared-memory k-sweep blocking is later work.
+// Pixel indices are int (a 3840x2160 level has 8.3 M pixels); plane offsets
+// are size_t.
 //
 // Numerics: the expressions keep the association order of the JAX
 // kernels term for term. The library is built without fast math and with
@@ -189,27 +191,118 @@ __global__ void level_tensor_kernel(const float* __restrict__ f0, const float* _
 }
 
 // ---------------------------------------------------------------------------
-// outer_prologue: phi, ksi and the per-outer hoists (level_fused.py:343-393),
-// the body tf_body::prologue_px<TENSOR> at global row y of the level. Each
-// thread computes phi at its pixel and its four (reflected) neighbours, so
-// one launch does what the TPU did with a maintained phi field. With TENSOR
-// (gradient and log) the hoists take J from level_tensor; ksi stays grey.
-// Bound: 7 planes read (T x2 over a radius-2 stencil, u, v, fx, fy, ft),
-// plus 5 of J with TENSOR, 9 written; the 5x recomputed phi is arithmetic
-// the card has to spare.
+// outer_prologue: phi, ksi and the per-outer hoists (level_fused.py:343-393).
+// With TENSOR (gradient and log) the hoists take J from level_tensor; ksi
+// stays grey.
+// Bound: bytes. 7 planes read (T x2, u, v, fx, fy, ft), plus 5 of J with
+// TENSOR, 9 written. phi is the costly part of the arithmetic (4 divides, a
+// sqrt and a reciprocal): evaluated at a pixel and at its four neighbours,
+// as tf_body::prologue_px does, it held this kernel at 0.60-0.66 of its byte
+// bound on an H100. So phi is computed once per pixel, as the TPU kernel
+// computed it once as a field and shifted it (level_fused.py:343-366):
+//   1. a block of one thread per pixel owns a PRO_TW x PRO_TH tile and
+//      copies into shared memory, with cp.async and all at once, the two T
+//      planes over the tile plus a 2-pixel ring and the tile of every plane
+//      it reads once (u, v, fx, fy, ft and J): one wait for device memory
+//      per block, with the tile's whole input in flight. The copies are 4
+//      bytes each: a row of a level is rarely 16-byte aligned;
+//   2. it evaluates tf_body::phi_of over the tile plus a 1-pixel ring into a
+//      second shared tile (1.33 evaluations per pixel);
+//   3. each thread forms its pixel's hoists with tf_body::hoists_px and
+//      writes them, coalesced along the row.
+// The tile is 8 rows tall, so the pyramid's small levels still give the card
+// many blocks. An earlier 32 x 32 tile, 4 rows per thread, that staged only
+// T read level 0 of a 4K pair no faster (PERF.md).
+// The mirror rule: phi tile entry q holds phi at image coordinate refl(q),
+// for q in [-1, n] (one reflection stays in the image for n >= 2), and its
+// T neighbours are refl(refl(q) +- 1) in image coordinates, which the T tile
+// holds at that coordinate's own offset. So no coordinate is reflected
+// twice: with w = 2, refl(-2) = 2 would leave the image. Every value is then
+// the one prologue_px computes, in the same association, bitwise.
 // ---------------------------------------------------------------------------
+constexpr int PRO_TW = 32;                   // tile width: one thread per column
+constexpr int PRO_TH = 8;                    // tile height: one thread per row
+constexpr int PRO_THREADS = PRO_TW * PRO_TH;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
 template <bool TENSOR>
-__global__ void outer_prologue_kernel(const float* __restrict__ T, const float* __restrict__ uv,
-                                      const float* __restrict__ fxyz,
-                                      const float* __restrict__ J, float* __restrict__ hoist,
-                                      int h, int w, float div2hx, float div2hy,
-                                      float alpha_hx2, float alpha_hy2, float e_s2,
-                                      float e_d2) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  tf_body::prologue_px<TENSOR>(T, uv, fxyz, J, hoist, y, x, h, w, y, h, div2hx, div2hy,
-                               alpha_hx2, alpha_hy2, e_s2, e_d2);
+__global__ void __launch_bounds__(PRO_THREADS, 6)
+    outer_prologue_kernel(const float* __restrict__ T, const float* __restrict__ uv,
+                          const float* __restrict__ fxyz, const float* __restrict__ J,
+                          float* __restrict__ hoist, int h, int w, float div2hx, float div2hy,
+                          float alpha_hx2, float alpha_hy2, float e_s2, float e_d2) {
+  constexpr int NS = TENSOR ? 10 : 5;  // planes read once: u, v, fx, fy, ft (, J x5)
+  // ts[p][r][c] = plane p of T at image (y0 - 2 + r, x0 - 2 + c), where that
+  // lies in the image; ps[r][c] = phi at (refl(y0 - 1 + r), refl(x0 - 1 + c));
+  // ss[p][r][c] = plane p at (y0 + r, x0 + c).
+  __shared__ float ts[2][PRO_TH + 4][PRO_TW + 4];
+  __shared__ float ps[PRO_TH + 2][PRO_TW + 2];
+  __shared__ float ss[NS][PRO_TH][PRO_TW];
+  const int x0 = blockIdx.x * PRO_TW, y0 = blockIdx.y * PRO_TH;
+  const int tx = threadIdx.x, ty = threadIdx.y, x = x0 + tx, y = y0 + ty;
+  const bool inside = x < w && y < h;
+  const size_t n = (size_t)h * w;
+
+  for (int i = ty * PRO_TW + tx; i < (PRO_TH + 4) * (PRO_TW + 4); i += PRO_THREADS) {
+    const int r = i / (PRO_TW + 4), c = i % (PRO_TW + 4);
+    const int gy = y0 - 2 + r, gx = x0 - 2 + c;
+    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+      const size_t g = (size_t)gy * w + gx;
+      cp_async4(&ts[0][r][c], T + g);
+      cp_async4(&ts[1][r][c], T + n + g);
+    }
+  }
+  if (inside) {
+#pragma unroll
+    for (int p = 0; p < NS; ++p) {
+      const float* src = p < 2 ? uv + p * n : (p < 5 ? fxyz + (p - 2) * n : J + (p - 5) * n);
+      cp_async4(&ss[p][ty][tx], src + (size_t)y * w + x);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int i = ty * PRO_TW + tx; i < (PRO_TH + 2) * (PRO_TW + 2); i += PRO_THREADS) {
+    const int r = i / (PRO_TW + 2), c = i % (PRO_TW + 2);
+    const int qy = y0 - 1 + r, qx = x0 - 1 + c;
+    if (qy > h || qx > w) continue;  // beyond the ring of the image's last row or column
+    const int py = refl(qy, h), px = refl(qx, w);
+    // phi_at's neighbours of (py, px), as offsets into the T tile
+    const int cy = py - y0 + 2, cx = px - x0 + 2;
+    const int xp = refl(px + 1, w) - x0 + 2, xm = refl(px - 1, w) - x0 + 2;
+    const int yp = refl(py + 1, h) - y0 + 2, ym = refl(py - 1, h) - y0 + 2;
+    ps[r][c] = tf_body::phi_of(ts[0][cy][xp], ts[0][cy][xm], ts[0][yp][cx], ts[0][ym][cx],
+                               ts[1][cy][xp], ts[1][cy][xm], ts[1][yp][cx], ts[1][ym][cx],
+                               div2hx, div2hy, e_s2);
+  }
+  __syncthreads();
+
+  if (!inside) return;
+  tf_body::PixelPlanes planes{ss[0][ty][tx], ss[1][ty][tx], ss[2][ty][tx], ss[3][ty][tx],
+                              ss[4][ty][tx]};
+  if constexpr (TENSOR) {
+    planes.j11 = ss[5][ty][tx];
+    planes.j22 = ss[6][ty][tx];
+    planes.j12 = ss[7][ty][tx];
+    planes.j13 = ss[8][ty][tx];
+    planes.j23 = ss[9][ty][tx];
+  }
+  tf_body::hoists_px<TENSOR>(ps[ty + 1][tx + 1], ps[ty + 1][tx + 2], ps[ty + 1][tx],
+                             ps[ty + 2][tx + 1], ps[ty][tx + 1], ts[0][ty + 2][tx + 2],
+                             ts[1][ty + 2][tx + 2], planes, hoist, n, y * w + x, x, w, y, h,
+                             alpha_hx2, alpha_hy2, e_d2);
+}
+
+dim3 prologue_grid(int h, int w) {
+  return dim3((w + PRO_TW - 1) / PRO_TW, (h + PRO_TH - 1) / PRO_TH);
 }
 
 // ---------------------------------------------------------------------------
@@ -312,8 +405,9 @@ int tf_level_tensor(const float* f0, const float* f1, const float* fxyz, float* 
 int tf_outer_prologue(const float* T, const float* uv, const float* fxyz, float* hoist,
                       int h, int w, float div2hx, float div2hy, float alpha_hx2,
                       float alpha_hy2, float e_s2, float e_d2, void* stream) {
-  outer_prologue_kernel<false><<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      T, uv, fxyz, nullptr, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
+  outer_prologue_kernel<false>
+      <<<prologue_grid(h, w), dim3(PRO_TW, PRO_TH), 0, (cudaStream_t)stream>>>(
+          T, uv, fxyz, nullptr, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
   return (int)cudaGetLastError();
 }
 
@@ -321,8 +415,9 @@ int tf_outer_prologue_tensor(const float* T, const float* uv, const float* fxyz,
                              const float* J, float* hoist, int h, int w, float div2hx,
                              float div2hy, float alpha_hx2, float alpha_hy2, float e_s2,
                              float e_d2, void* stream) {
-  outer_prologue_kernel<true><<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      T, uv, fxyz, J, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
+  outer_prologue_kernel<true>
+      <<<prologue_grid(h, w), dim3(PRO_TW, PRO_TH), 0, (cudaStream_t)stream>>>(
+          T, uv, fxyz, J, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
   return (int)cudaGetLastError();
 }
 

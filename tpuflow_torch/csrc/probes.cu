@@ -9,6 +9,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -115,64 +117,126 @@ cudaError_t launch_micro(const float* x0, const float* rest, float* out, int h, 
 // ---------------------------------------------------------------------------
 // probe_matmul: C = A @ B in float32, (M, K) @ (K, N) -> (M, N). The TPU
 // probe asked whether an in-kernel HIGHEST-precision matmul (a multi-pass
-// bf16 product on the MXU) matches XLA's. Here it is a simple SIMT GEMM:
-// 64x64 output tiles, 16-deep slabs of A and B in shared memory, 4x4 outputs
-// in registers per thread, each product accumulated in k order with an
-// explicit __fmaf_rn (which --fmad=false leaves alone). cuBLAS's SGEMM sums in
-// another order, so the two agree to rounding, not bitwise.
-// Bound: operations (2 M N K flops) at the probe's shape; this kernel uses
-// no tensor cores and, at (64, 448) @ (448, 640), only 10 of 132 SMs.
+// bf16 product on the MXU) matches XLA's. Here it stays float32 FFMA (TF32
+// would be another function): each output is one __fmaf_rn chain from 0 in
+// k order (which --fmad=false leaves alone), so its bits do not depend on
+// the tiling. cuBLAS's SGEMM sums in another order: the two agree to
+// rounding, not bitwise.
+// Bound: operations (M N K FFMA). At the probe's (64, 448) @ (448, 640) that
+// is 0.55 us of the card, and each output's chain of K dependent FFMAs
+// (about 4 clocks each) takes about 0.9 us alone, so the kernel is held by
+// latency: of the chains, and of the panels' first bytes. Design:
+//   * small output tiles, MM_BM x MM_BN = 16 x 20, to spread the chains over
+//     the card: the probe's shape gives 4 x 32 = 128 CTAs for 132 SMs. The
+//     whole K stays in the CTA (no split-K, which would change the order);
+//   * A's 16-row panel and B's 20-column panel go through a MM_STAGES-deep
+//     cp.async ring of MM_KC-deep chunks, so the FFMAs of one chunk run while
+//     the next ones land. 16-byte copies where K and N are multiples of 4 and
+//     the operands 16-byte aligned, else 4-byte ones, which issue 4 times as
+//     many copies: at the probe's shape on an H100 the 4-byte path takes
+//     about 1.3x as long, slower than cuBLAS's SGEMM (ms_unaligned in
+//     probe_kernel_matmul.run(), PERF.md). Out-of-range elements are
+//     zero-filled by the copy (src-size 0), which adds only fma(0, 0, acc);
+//   * A stays row-major in shared memory with its rows MM_KC + 4 floats
+//     apart: a warp's float4 loads of 4 rows fall in distinct banks, and the
+//     copies write whole 16-byte words, so no access is bank-conflicted;
+//   * a thread owns 2 adjacent outputs of one row: per 4 k it loads one
+//     float4 of A and four float2 of B for 8 FFMAs. 160 threads, 5 warps.
+// The ring is MM_STAGES x (16 x 68 + 64 x 20) floats = 27.75 KB of static
+// shared memory, under the 48 KB a launch gets without an attribute.
 // ---------------------------------------------------------------------------
 
-constexpr int MM_BM = 64, MM_BN = 64, MM_BK = 16, MM_T = 4;
-constexpr int MM_THREADS = (MM_BM / MM_T) * (MM_BN / MM_T);  // 256
+constexpr int MM_BM = 16, MM_BN = 20;        // output tile
+constexpr int MM_KC = 64, MM_STAGES = 3;     // k-chunk depth, ring depth
+constexpr int MM_TN = 2;                     // outputs per thread, along n
+constexpr int MM_THREADS = MM_BM * (MM_BN / MM_TN);  // 160
+constexpr int MM_ALD = MM_KC + 4;            // A's row pitch in shared memory
 
-__global__ void probe_matmul_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                                    float* __restrict__ C, int M, int K, int N) {
-  __shared__ float As[MM_BK][MM_BM];  // A's slab, transposed
-  __shared__ float Bs[MM_BK][MM_BN];
-  const int tx = threadIdx.x % (MM_BN / MM_T);
-  const int ty = threadIdx.x / (MM_BN / MM_T);
-  const int m0 = blockIdx.y * MM_BM;
-  const int n0 = blockIdx.x * MM_BN;
-  float acc[MM_T][MM_T];
-#pragma unroll
-  for (int i = 0; i < MM_T; ++i)
-#pragma unroll
-    for (int j = 0; j < MM_T; ++j) acc[i][j] = 0.0f;
+// One cp.async of V floats (4 or 16 bytes); only the first `bytes` are read
+// from src, the rest of the destination is zero-filled.
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes) : "memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += MM_BK) {
-    for (int i = threadIdx.x; i < MM_BM * MM_BK; i += MM_THREADS) {
-      const int m = i / MM_BK, k = i % MM_BK;
-      As[k][m] = (m0 + m < M && k0 + k < K) ? A[(size_t)(m0 + m) * K + k0 + k] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < MM_BK * MM_BN; i += MM_THREADS) {
-      const int k = i / MM_BN, c = i % MM_BN;
-      Bs[k][c] = (k0 + k < K && n0 + c < N) ? Bm[(size_t)(k0 + k) * N + n0 + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < MM_BK; ++k) {
-      float a[MM_T], b[MM_T];
-#pragma unroll
-      for (int i = 0; i < MM_T; ++i) a[i] = As[k][ty * MM_T + i];
-#pragma unroll
-      for (int j = 0; j < MM_T; ++j) b[j] = Bs[k][tx * MM_T + j];
-#pragma unroll
-      for (int i = 0; i < MM_T; ++i)
-#pragma unroll
-        for (int j = 0; j < MM_T; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Chunk k0 of A's rows m0.. and B's columns n0.. into one stage of the ring.
+template <int V>
+__device__ __forceinline__ void mm_load_chunk(float (*As)[MM_ALD], float (*Bs)[MM_BN],
+                                              const float* __restrict__ A,
+                                              const float* __restrict__ Bm, int M, int K,
+                                              int N, int m0, int n0, int k0) {
+  for (int i = threadIdx.x; i < MM_BM * (MM_KC / V); i += MM_THREADS) {
+    const int r = i / (MM_KC / V), c = (i % (MM_KC / V)) * V;
+    const bool in = m0 + r < M && k0 + c < K;
+    cp_async<V>(&As[r][c], in ? A + (size_t)(m0 + r) * K + k0 + c : A, in ? 4 * V : 0);
   }
+  for (int i = threadIdx.x; i < MM_KC * (MM_BN / V); i += MM_THREADS) {
+    const int r = i / (MM_BN / V), c = (i % (MM_BN / V)) * V;
+    const bool in = k0 + r < K && n0 + c < N;
+    cp_async<V>(&Bs[r][c], in ? Bm + (size_t)(k0 + r) * N + n0 + c : Bm, in ? 4 * V : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int V>
+__global__ void __launch_bounds__(MM_THREADS)
+    probe_matmul_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                        float* __restrict__ C, int M, int K, int N) {
+  __shared__ __align__(16) float As[MM_STAGES][MM_BM][MM_ALD];
+  __shared__ __align__(16) float Bs[MM_STAGES][MM_KC][MM_BN];
+  const int m0 = blockIdx.y * MM_BM, n0 = blockIdx.x * MM_BN;
+  const int tm = threadIdx.x / (MM_BN / MM_TN);
+  const int tn = (threadIdx.x % (MM_BN / MM_TN)) * MM_TN;
+  const int chunks = (K + MM_KC - 1) / MM_KC;
+
+  // Fill all stages but one; every thread commits one group per chunk slot,
+  // empty or not, so wait_group counts chunks.
 #pragma unroll
-  for (int i = 0; i < MM_T; ++i) {
-    const int m = m0 + ty * MM_T + i;
+  for (int s = 0; s < MM_STAGES - 1; ++s) {
+    if (s < chunks)
+      mm_load_chunk<V>(As[s], Bs[s], A, Bm, M, K, N, m0, n0, s * MM_KC);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  float acc0 = 0.0f, acc1 = 0.0f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<MM_STAGES - 2>();  // chunk ch has landed (this thread's copies)
+    __syncthreads();                         // ... everyone's; stage ch - 1 is free
+    const int next = ch + MM_STAGES - 1;
+    if (next < chunks)
+      mm_load_chunk<V>(As[next % MM_STAGES], Bs[next % MM_STAGES], A, Bm, M, K, N, m0, n0,
+                       next * MM_KC);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float(*as)[MM_ALD] = As[ch % MM_STAGES];
+    const float(*bs)[MM_BN] = Bs[ch % MM_STAGES];
 #pragma unroll
-    for (int j = 0; j < MM_T; ++j) {
-      const int c = n0 + tx * MM_T + j;
-      if (m < M && c < N) C[(size_t)m * N + c] = acc[i][j];
+    for (int k = 0; k < MM_KC; k += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[tm][k]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float2 b = *reinterpret_cast<const float2*>(&bs[k + kk][tn]);
+        acc0 = __fmaf_rn(av[kk], b.x, acc0);
+        acc1 = __fmaf_rn(av[kk], b.y, acc1);
+      }
     }
+  }
+  const int m = m0 + tm, c = n0 + tn;
+  if (m < M) {
+    if (c < N) C[(size_t)m * N + c] = acc0;
+    if (c + 1 < N) C[(size_t)m * N + c + 1] = acc1;
   }
 }
 
@@ -200,7 +264,13 @@ int tf_roofline_micro(const float* x0, const float* rest, float* out, int h, int
 int tf_probe_matmul(const float* A, const float* B, float* C, int M, int K, int N,
                     void* stream) {
   const dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-  probe_matmul_kernel<<<grid, MM_THREADS, 0, (cudaStream_t)stream>>>(A, B, C, M, K, N);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = K % 4 == 0 && N % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B)) & 15) == 0;
+  if (vec)
+    probe_matmul_kernel<4><<<grid, MM_THREADS, 0, s>>>(A, B, C, M, K, N);
+  else
+    probe_matmul_kernel<1><<<grid, MM_THREADS, 0, s>>>(A, B, C, M, K, N);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,18 @@ the wall ms, the device busy ms (the sum of the device time of every kernel
 and copy), the idle share, the device ms by kernel name, and the device ms
 of the layers ``gaussian`` (presmooth) and ``resample`` (frames and flow),
 read from the ``record_function`` ranges that ``ops/gaussian.py`` and
-``ops/resample.py`` open. Needs a CUDA device, and raises without one.
+``ops/resample.py`` open, and for each level kernel its device ms and
+launches beside the pair's bound (``roofline.pair_bounds``: launches x
+bound at each level's own size) and the gap between them, largest first.
+
+    python -m tpuflow_torch.profile_pair --size 3840x2160 --prologue-levels
+
+times instead both instantiations of ``ops.level.outer_prologue`` (grey,
+and with the tensor J) at each level of the preset's schedule by CUDA-graph
+replay (``roofline.graph_ms``), beside each level's bound, and a yardstick
+of the card's rate for a stream that reads as much as it writes: one
+``Tensor.copy_`` of 9 level-0 planes. Both need a CUDA device, and raise
+without one.
 """
 
 from __future__ import annotations
@@ -18,16 +29,30 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tpuflow_torch import compute_flow, models
+from tpuflow_torch.ops.level import outer_prologue
+from tpuflow_torch.pyramid import level_schedule
+from tpuflow_torch.solver.level import LevelScalars
 from tpuflow_torch.synthetic import textured_pair
+from tpuflow_torch.tools.roofline import device_info, graph_ms, kernel_work, pair_bounds
 
 REPS = 3
 LAYERS = ("gaussian", "resample")
 PROFILER_OVERHEAD = ("Activity Buffer Request",)  # CUPTI's own device records
+# roofline.kernel_work names -> the demangled kernel name in csrc/level.cu
+LEVEL_KERNELS = {
+    "warp": "warp_kernel(", "level_derivs": "level_derivs_kernel(",
+    "level_tensor_gradient": "level_tensor_kernel<false>",
+    "level_tensor_log": "level_tensor_kernel<true>",
+    "outer_prologue": "outer_prologue_kernel<false>",
+    "outer_prologue_tensor": "outer_prologue_kernel<true>",
+    "jacobi_sweep": "jacobi_sweep_kernel(", "add_median": "add_median_kernel<",
+}
 
 
 def _device_us(evt, self_only: bool) -> float:
@@ -65,21 +90,73 @@ def profile_pair(w: int, h: int, preset: str) -> dict:
                                   "calls": evt.count}
     busy = sum(k["ms"] for k in by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]["ms"])[:15])
+    level = {}
+    for name, b in pair_bounds(w, h, cfg).items():
+        hits = [v for k, v in by_kernel.items() if LEVEL_KERNELS[name] in k]
+        ms = sum(v["ms"] for v in hits)
+        level[name] = {"ms": ms, "calls": sum(v["calls"] for v in hits),
+                       "launches": b["launches"], "bound_ms": b["bound_ms"],
+                       "gap_ms": ms - b["bound_ms"], "share": b["bound_ms"] / ms if ms else None}
+    level = dict(sorted(level.items(), key=lambda kv: -kv[1]["gap_ms"]))
     return {"shape": [h, w], "preset": preset, "constancy": cfg.data_constancy.value,
             "wall_ms_unprofiled": wall, "wall_ms_profiled": profiled_ms,
             "device_busy_ms": busy, "idle_share_of_profiled_wall": 1.0 - busy / profiled_ms,
             "layer_device_ms": layers,
             "layer_share_of_busy": {k: v / busy for k, v in layers.items()} if busy else {},
-            "by_kernel_top15": top}
+            "by_kernel_top15": top, "level_kernels_by_gap": level}
+
+
+def prologue_by_level(w: int, h: int, preset: str = "full_model", seed: int = 0) -> dict:
+    """Both prologues at every level of one pair, on seeded fields cut from
+    level-0-sized ones: per level [h, w, grey ms, tensor ms, grey bound ms,
+    tensor bound ms], and the sums over the pair (``outer_iterations_count``
+    launches per level)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("prologue_by_level times a CUDA card, and none is available")
+    cfg = getattr(models, preset)()
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    uv = torch.from_numpy((rng.standard_normal((2, h, w)) * 2.0).astype(np.float32)).to(dev)
+    T = uv + torch.from_numpy((rng.standard_normal((2, h, w)) * 0.1).astype(np.float32)).to(dev)
+    fxyz = torch.from_numpy((rng.standard_normal((3, h, w)) * 10.0).astype(np.float32)).to(dev)
+    J = torch.from_numpy(rng.standard_normal((5, h, w)).astype(np.float32)).to(dev)
+    e2 = float(np.float32(cfg.equation_smoothness) * np.float32(cfg.equation_smoothness))
+    ed2 = float(np.float32(cfg.equation_data) * np.float32(cfg.equation_data))
+    rows = []
+    for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor):
+        lh, lw = s.height, s.width
+        t, u, f, j = (a[:, :lh, :lw].contiguous() for a in (T, uv, fxyz, J))
+        sc = LevelScalars.make(lw, lh, s.hx, s.hy, cfg.equation_alpha)
+        pro = (sc.div2hx, sc.div2hy, sc.alpha_hx2, sc.alpha_hy2, e2, ed2)
+        grey = graph_ms(lambda: outer_prologue(t, u, f, *pro), calls=20, replays=3)
+        tensor = graph_ms(lambda: outer_prologue(t, u, f, *pro, J=j), calls=20, replays=3)
+        rows.append([lh, lw, grey, tensor, kernel_work("outer_prologue", lh, lw)["bound_ms"],
+                     kernel_work("outer_prologue_tensor", lh, lw)["bound_ms"]])
+    outer = cfg.outer_iterations_count
+    src = torch.cat([T, uv, fxyz, J[:2]])
+    dst = torch.empty_like(src)
+    copy_ms = graph_ms(lambda: dst.copy_(src), calls=20, replays=3)
+    return {"shape": [h, w], "preset": preset, "outer": outer,
+            "pair_ms": {"grey": outer * sum(r[2] for r in rows),
+                        "tensor": outer * sum(r[3] for r in rows)},
+            "pair_bound_ms": {"grey": outer * sum(r[4] for r in rows),
+                              "tensor": outer * sum(r[5] for r in rows)},
+            "levels": rows,
+            "copy_9_planes_ms": copy_ms,
+            "copy_9_planes_tb_per_s": 2 * src.numel() * 4 / (copy_ms * 1e-3) / 1e12,
+            "timing": "CUDA-graph replay (roofline.graph_ms)", "device": device_info()}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--size", default="3840x2160", help="WxH")
     parser.add_argument("--preset", default="full_model", help="a function of tpuflow_torch.models")
+    parser.add_argument("--prologue-levels", action="store_true",
+                        help="time the outer prologue at every level instead of profiling")
     args = parser.parse_args(argv)
     w, h = (int(x) for x in args.size.lower().split("x"))
-    print(json.dumps(profile_pair(w, h, args.preset)), flush=True)
+    run = prologue_by_level if args.prologue_levels else profile_pair
+    print(json.dumps(run(w, h, args.preset)), flush=True)
     return 0
 
 

@@ -44,22 +44,27 @@ def probe_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (m, k), n = a.shape, b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     launch("tf_probe_matmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n)
-    probe_matmul.launches += 1
+    # A call captured into a CUDA graph records the launch and makes none;
+    # the graph's replays launch it without this wrapper.
+    if not torch.cuda.is_current_stream_capturing():
+        probe_matmul.launches += 1
     return out
 
 
 probe_matmul.launches = 0
 
 
-def probe_inputs() -> tuple:
+def probe_inputs(m: int = HB, k: int = H0, n: int = W0) -> tuple:
     """The probe's seeded numpy inputs (tools/probe_kernel_matmul.py:41-47):
-    A (HB, H0) with a band of 9 uniform weights per row, B = 200 * uniform."""
+    A (m, k) with a band of 9 uniform weights per row (all k if k < 9),
+    B (k, n) = 200 * uniform. The defaults are the probe's own."""
     rng = np.random.default_rng(0)
-    a = np.zeros((HB, H0), np.float32)
-    for i in range(HB):
-        j = min(int(i * H0 / HB), H0 - 9)
-        a[i, j:j + 9] = rng.random(9, dtype=np.float32)
-    b = (200.0 * rng.random((H0, W0))).astype(np.float32)
+    band = min(9, k)
+    a = np.zeros((m, k), np.float32)
+    for i in range(m):
+        j = min(int(i * k / m), k - band)
+        a[i, j:j + band] = rng.random(band, dtype=np.float32)
+    b = (200.0 * rng.random((k, n))).astype(np.float32)
     return a, b
 
 
@@ -72,8 +77,15 @@ def compare(got: np.ndarray, want: np.ndarray) -> dict:
 
 def run() -> dict:
     """The probe on the card: kernel against torch.matmul (TF32 off), with
-    device ms by CUDA events and the bound from ``roofline.kernel_work``."""
-    from tpuflow_torch.tools.roofline import cuda_ms, device_info, kernel_work
+    the bound from ``roofline.kernel_work``. ``ms`` and ``library_ms`` are
+    device times by CUDA-graph replay (``roofline.graph_ms``); the
+    ``host_paced_`` pair are ``REPS`` back-to-back Python calls between two
+    events (``roofline.cuda_ms``), which at a few µs of work per call read
+    the host's pace. ``launch_floor_ms`` is the graph-replay time of a
+    one-element ``add_``: what any kernel costs by that timer.
+    ``ms_unaligned`` is the kernel on the same values stored 4 bytes past
+    a 16-byte boundary."""
+    from tpuflow_torch.tools.roofline import cuda_ms, device_info, graph_ms, kernel_work
 
     if not torch.cuda.is_available():
         raise RuntimeError("the matmul probe runs on a CUDA card, and none is available")
@@ -83,9 +95,16 @@ def run() -> dict:
     got = probe_matmul(a, b).cpu().numpy()
     want = torch.matmul(a, b).cpu().numpy()
     work = kernel_work("probe_matmul", HB, W0)
+    kernel, library = (lambda: probe_matmul(a, b)), (lambda: torch.matmul(a, b))
+    a4, b4 = (torch.empty(t.numel() + 1, device=t.device)[1:].view_as(t).copy_(t) for t in (a, b))
+    one = torch.zeros(1, device=a.device)
     return {"probe": "matmul", "shape": [[HB, H0], [H0, W0]], **compare(got, want),
-            "ms": cuda_ms(lambda: probe_matmul(a, b), REPS),
-            "library_ms": cuda_ms(lambda: torch.matmul(a, b), REPS),
+            "ms": graph_ms(kernel), "library_ms": graph_ms(library),
+            "ms_unaligned": graph_ms(lambda: probe_matmul(a4, b4)),
+            "host_paced_ms": cuda_ms(kernel, REPS),
+            "library_host_paced_ms": cuda_ms(library, REPS),
+            "launch_floor_ms": graph_ms(lambda: one.add_(1.0)),
+            "timing": "ms, library_ms: CUDA-graph replay; host_paced_*: back-to-back calls",
             "library": "torch.matmul, TF32 off",
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
             "device": device_info()}

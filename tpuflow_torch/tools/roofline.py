@@ -24,7 +24,9 @@ The port of tools/roofline.py. It decomposes what bounds the sweep:
    ``jacobi_sweep_kernel``), printed against the measurement.
 
 ``kernel_work`` gives every kernel of the port its bytes, operations and
-bound on this card. Prints the component lines and one final JSON line.
+bound on this card, and ``pair_bounds`` its sum over one pair's levels.
+``graph_ms`` times a kernel of a few µs on the device, by CUDA-graph
+replay. Prints the component lines and one final JSON line.
 """
 
 from __future__ import annotations
@@ -301,6 +303,34 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
             "bound_by": "operations" if resource == "float32 issue" else "bytes", **extra}
 
 
+def pair_bounds(w: int, h: int, cfg: FlowConfig | None = None) -> dict:
+    """{kernel: {"launches", "bound_ms"}} of one (w, h) pair of the level
+    path (``solver/level.py``) under ``cfg`` (default ``FlowConfig()``):
+    each level kernel's launches over the level schedule, and the sum over
+    the levels of launches x ``kernel_work`` at the level's own size. The
+    pyramid's levels are smaller than level 0, so this is the bound a pair's
+    device time by kernel (``profile_pair``) is read against, not launches
+    x the level-0 bound."""
+    from tpuflow_torch.ops.median import effective_radius
+    from tpuflow_torch.pyramid import level_schedule
+
+    cfg = cfg or FlowConfig()
+    outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
+    tensor = cfg.data_constancy != DataConstancy.GREY
+    per_level = {"warp": 1, "level_derivs": 1, "jacobi_sweep": outer * inner, "add_median": 1,
+                 "outer_prologue_tensor" if tensor else "outer_prologue": outer}
+    if tensor:
+        log = cfg.data_constancy == DataConstancy.LOG_DERIVATIVES
+        per_level["level_tensor_log" if log else "level_tensor_gradient"] = 1
+    radius = effective_radius(cfg.median_radius)
+    out = {name: {"launches": 0, "bound_ms": 0.0} for name in per_level}
+    for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor):
+        for name, n in per_level.items():
+            out[name]["launches"] += n
+            out[name]["bound_ms"] += n * kernel_work(name, s.height, s.width, radius)["bound_ms"]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Measurement helpers (CUDA only)
 # ---------------------------------------------------------------------------
@@ -319,9 +349,11 @@ def device_info() -> dict:
 
 
 def cuda_ms(fn: Callable, reps: int, warmup: bool = True) -> float:
-    """Mean device ms per call of ``fn`` over ``reps`` back-to-back calls
-    between two CUDA events, after one warm-up call unless ``warmup`` is
-    false."""
+    """Mean ms per call of ``fn`` over ``reps`` back-to-back calls between
+    two CUDA events, after one warm-up call unless ``warmup`` is false.
+    The host issues the calls as the events run, so a call shorter than
+    its host cost (allocation, launch, dispatch: tens of µs) reads the
+    host's pace; ``graph_ms`` reads the device's."""
     if warmup:
         fn()
         torch.cuda.synchronize()
@@ -347,16 +379,42 @@ def slope_time(call: Callable, k_lo: int, k_hi: int, rounds: int, arg) -> float:
 
 
 def _graph(fn: Callable) -> torch.cuda.CUDAGraph:
-    """``fn()`` captured in a CUDA graph, after one warm-up run on a side stream."""
+    """``fn()`` captured in a CUDA graph on a side stream, after one run on
+    that same stream (a library such as cuBLAS sets up its per-stream
+    workspace there, outside the capture)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
-    torch.cuda.current_stream().wait_stream(side)
+    side.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         fn()
+    torch.cuda.current_stream().wait_stream(side)
     return graph
+
+
+def graph_ms(fn: Callable, calls: int = 50, replays: int = 20) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph (after running them once, uncaptured, on the capture stream), one
+    replay to warm up, then ``replays`` replays between two CUDA events.
+    The calls are back to back on the device, each input as warm in L2 as
+    the last call left it. The host issues
+    one replay per ``calls`` calls, so the events time the device, not the
+    host's allocation, launch and dispatch."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_ms times a CUDA card, and none is available")
+
+    def many():
+        for _ in range(calls):
+            fn()
+
+    graph = _graph(many)
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: [graph.replay() for _ in range(replays)], 1, warmup=False)
+    del graph
+    return ms / (replays * calls)
 
 
 def level_chain_seconds(w: int, h: int, inner: int, k_lo: int, k_hi: int, rounds: int,
