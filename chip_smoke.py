@@ -10,11 +10,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   3. kernels  each CUDA kernel against its plain PyTorch version on the card,
               on seeded inputs at 584x388, 1920x1080 and 3840x2160, the two
               prologue rows bitwise and also at the edge shapes of their
-              tiles (PROLOGUE_SHAPES); times at 1920x1080 and 3840x2160
+              tiles (PROLOGUE_SHAPES); times at 1920x1080 and 3840x2160.
+              Then jacobi_sweeps (the k-sweep kernel) at inner 1, 2, 5 and
+              7 > KMAX: bitwise against as many chained launches of the
+              one-sweep kernel and within 1e-5 of its plain version, at those
+              shapes and at KSWEEP_SHAPES (narrower and shorter than its
+              region); five sweeps timed in turns with five chained launches
+              (and the kernel's other region height and layout) by
+              CUDA-graph replay; and
+              add_median at R = 3, 5, 7 bitwise at every shape its window fits
   4. e2e      compute_flow(FlowConfig()) (grey) at 584x388 and 1920x1080 on
               a textured pair shifted by (+1.25, -0.75) px: kernel path vs
               plain path, the recovered shift, and at 584x388 the NumPy
-              oracle on a reduced schedule; each run's launch counts
+              oracle on a reduced schedule; each run's launch counts; the
+              flow bit for bit that of the one-sweep chain (CHAIN_STEPS)
   5. e2e      models.full_model() (gradient) and models.xray_log(alpha=1e-3)
               (log) at 584x388, with the same checks
   6. e2e      models.full_model() at 3840x2160 (the size class the TPU sends
@@ -38,7 +47,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               torch.matmul by CUDA-graph replay), with their launch counts
  10. bounds   each level kernel's bytes, operations and bound
               (roofline.kernel_work) at 1920x1080 and 3840x2160 beside its
-              time from phase 3, and the library call where one exists
+              time from phase 3, and the library call where one exists; the
+              static SASS counts of the k-sweep kernel and the median
  11. trace    compute_flow(full_model(), collect_trace=True) at 3840x2160:
               the per-level ms against the per-level bound, the flow bit for
               bit against an untraced run; profiling.trace at 584x388
@@ -55,7 +65,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 Each main-path run of phases 4-6, 11 and 12, and the measurement path of
 phase 9, sets every launch count to 0 just before it and reads the counts
-just after. Then come the kernels table as one JSON line, the done line with the
+just after. The one-sweep kernel (jacobi_sweep) is off the main path: its
+launches are those of phase 9's measurement path, which differences the
+relaxation with it chained. Then come the kernels table as one JSON line, the done line with the
 total seconds, the nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``. Without CUDA, or run outside a checkout of the repo, it exits 1
 and prints no result.
@@ -104,7 +116,14 @@ ZERO_FLOW_EPE = float(np.hypot(1.25, -0.75))
 # the median selects, and the prologue's tiles must give every value that
 # the plain version computes.
 BOUNDS = {"warp": 1e-4, "level_derivs": 1e-5, "level_tensor": 1e-5, "outer_prologue": 0.0,
-          "outer_prologue_tensor": 0.0, "jacobi_sweep": 1e-5, "add_median": 0.0}
+          "outer_prologue_tensor": 0.0, "jacobi_sweep": 1e-5, "jacobi_sweeps": 1e-5,
+          "add_median": 0.0}
+# jacobi_sweeps against as many chained one-sweep launches: the same
+# expression on the same operands, bitwise.
+CHAIN_BOUND = 0.0
+# The kernels of the main path; the one-sweep kernel is the k-sweep kernel's
+# twin and runs on phase 9's measurement path.
+MAIN_PATH = tuple(name for name in BOUNDS if name != "jacobi_sweep")
 ELEMENTWISE_RELATIVE = ("level_derivs",)
 FIELD_RELATIVE = ("level_tensor_gradient", "level_tensor_log")
 # The prologue rows also run at the edge shapes of its 32 x 8 tiles (w = 2
@@ -112,12 +131,23 @@ FIELD_RELATIVE = ("level_tensor_gradient", "level_tensor_log")
 # and at 2268 x 1276, a level of the 4K schedule whose h * w is odd.
 PROLOGUE_ROWS = ("outer_prologue", "outer_prologue_tensor")
 PROLOGUE_SHAPES = ((2, 2), (5, 3), (22, 13), (33, 9), (65, 17), (97, 31), (2268, 1276))
+# The k-sweep kernel's region is 64 x 32 (a 54 x 22 tile at 5 sweeps): levels
+# narrower and shorter than a region, one tile exactly, one pixel more or less
+# in each direction, and the same about a 54 x 14 tile
+KSWEEP_SHAPES = ((40, 300), (300, 20), (54, 22), (55, 23), (53, 21), (63, 31), (54, 14),
+                 (55, 15), (53, 13), (63, 23))
+KSWEEP_INNERS = (1, 2, 5, 7)
+MEDIAN_RADII = (3, 5, 7)
 # The kernels redesigned since their first port, and what changed. The
 # earlier kernels are gone from the tree, so their times are in PERF.md, not
 # in the kernels line, which holds only what this run measured.
 PHI_TILE = "phi once per pixel from a shared-memory tile"
 REDESIGNED = {"outer_prologue": PHI_TILE, "outer_prologue_tensor": PHI_TILE,
-              "probe_matmul": "128 CTAs and a cp.async ring"}
+              "probe_matmul": "128 CTAs and a cp.async ring",
+              "jacobi_sweeps": "the inner loop in one launch: k sweeps of a shared-memory tile "
+                               "and its ring, replacing k one-sweep launches",
+              "add_median": "a 99-exchange selection (19 at 3x3) over a shared tile of the sum, "
+                            "replacing a 300-exchange sort over device memory"}
 RELAX = ("tpuflow/ops/pallas/relax_bucket.py:400; tpuflow/ops/pallas/relax_bucket.py:176; "
          "tpuflow/ops/pallas/relax_du.py:457; tpuflow/ops/pallas/relax_du.py:874; "
          "tpuflow/ops/pallas/relax_du.py:241")
@@ -135,6 +165,8 @@ REPLACES = {
                              "with the tensor, :379-392); with tensor=: " + RELAX,
     "jacobi_sweep": "tpuflow/ops/pallas/level_fused.py:526; "
                     "tpuflow/ops/pallas/level_fused.py:472; " + RELAX,
+    "jacobi_sweeps": "tpuflow/ops/pallas/level_fused.py:526 and :472 (the sweeps :328-341); "
+                     + RELAX,
     "add_median": "tpuflow/ops/pallas/level_fused.py:526 (phase C :432); "
                   "tpuflow/ops/pallas/level_fused.py:472",
     "roofline_micro": "tools/roofline.py:88 (microkernel; pl.pallas_call :104)",
@@ -211,6 +243,8 @@ def kernel_pairs(x: dict) -> dict:
                            lambda: L.outer_prologue_plain(x["T"], x["uvf"], x["fxyz"], *pro)),
         "jacobi_sweep": (lambda: L.jacobi_sweep(x["T"], x["uvf"], x["hoist"]),
                          lambda: L.jacobi_sweep_plain(x["T"], x["uvf"], x["hoist"])),
+        "jacobi_sweeps": (lambda: L.jacobi_sweeps(x["T"], x["uvf"], x["hoist"], 5),
+                          lambda: L.jacobi_sweeps_plain(x["T"], x["uvf"], x["hoist"], 5)),
         "add_median": (lambda: L.add_median(x["T"], x["uvf"], 5),
                        lambda: L.add_median_plain(x["T"], x["uvf"], 5)),
     }
@@ -288,8 +322,103 @@ def phase_kernels(shapes=(SIZES[0], SIZES[1], SIZE_4K), timed=(SIZES[1], SIZE_4K
     return table
 
 
+def phase_ksweep(card: str, shapes=(SIZES[0], SIZES[1], SIZE_4K) + PROLOGUE_SHAPES
+                 + KSWEEP_SHAPES) -> dict:
+    """jacobi_sweeps at KSWEEP_INNERS against as many chained one-sweep
+    launches (CHAIN_BOUND) and its plain version (BOUNDS), at ``shapes``;
+    then five sweeps at 1920x1080 and 3840x2160 timed in turns by CUDA-graph
+    replay (chain, k-sweep, k-sweep, chain) beside the bound of the function.
+    Returns {max_abs_err, max_abs_vs_chain, device: {shape: times}} (launches
+    here are not counted)."""
+    import torch
+
+    from tpuflow_torch.ops import level as L
+    from tpuflow_torch.tools.roofline import graph_ms, kernel_work
+
+    out = {"max_abs_err": 0.0, "max_abs_vs_chain": 0.0, "device": {}}
+    for w, h in shapes:
+        x = kernel_inputs(w, h)
+        T, uv, hoist = x["T"], x["uvf"], x["hoist"]
+        for inner in KSWEEP_INNERS:
+            got = L.jacobi_sweeps(T, uv, hoist, inner)
+            chain = L.jacobi_sweep_chain(T, uv, hoist, inner)
+            plain = L.jacobi_sweeps_plain(T, uv, hoist, inner)
+            torch.cuda.synchronize()
+            row = {"phase": "ksweep", "shape": [h, w], "inner": inner,
+                   "launches_per_call": -(-inner // L.KMAX),
+                   "max_abs_vs_chain": float((got - chain).abs().max()),
+                   "chain_bound": CHAIN_BOUND, "max_abs_err": float((got - plain).abs().max()),
+                   "bound": BOUNDS["jacobi_sweeps"], "finite": bool(torch.isfinite(got).all())}
+            row["ok"] = (row["finite"] and row["max_abs_vs_chain"] <= CHAIN_BOUND
+                         and row["max_abs_err"] <= row["bound"])
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"jacobi_sweeps at {w}x{h}, inner {inner}: {row}")
+            out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
+            out["max_abs_vs_chain"] = max(out["max_abs_vs_chain"], row["max_abs_vs_chain"])
+        if (w, h) in (SIZES[1], SIZE_4K):
+            runs = {"chain": lambda: L.jacobi_sweep_chain(T, uv, hoist, 5),
+                    "ksweep": lambda: L.jacobi_sweeps(T, uv, hoist, 5)}
+            ms = {name: [] for name in runs}
+            for name in list(runs) + list(runs)[::-1]:
+                ms[name].append(graph_ms(runs[name], calls=20, replays=5))
+            work = kernel_work("jacobi_sweeps", h, w, inner=5)
+            row = {"phase": "ksweep_time", "shape": [h, w], "inner": 5, "card": card,
+                   "timing": "CUDA-graph replay, in turns", "ms": ms,
+                   "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+                   "design_bytes": work["design_bytes"],
+                   "share": work["bound_ms"] / min(ms["ksweep"]),
+                   "chain_share": work["bound_ms"] / min(ms["chain"]),
+                   "speedup_over_chain": min(ms["chain"]) / min(ms["ksweep"])}
+            emit(row)
+            out["device"][f"{w}x{h}"] = {k: min(v) for k, v in ms.items()}
+        del x, T, uv, hoist
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_median(card: str, shapes=(SIZES[0], SIZES[1], SIZE_4K) + PROLOGUE_SHAPES
+                 + KSWEEP_SHAPES) -> dict:
+    """add_median at MEDIAN_RADII against its plain version, bitwise, at
+    every shape of ``shapes`` its reflected window fits (min(h, w) > R/2);
+    the 5x5 at 1920x1080 and 3840x2160 by CUDA-graph replay. Returns
+    {max_abs_err, device: {shape: ms}}."""
+    import torch
+
+    from tpuflow_torch.ops import level as L
+    from tpuflow_torch.tools.roofline import graph_ms, kernel_work
+
+    out = {"max_abs_err": 0.0, "device": {}}
+    for w, h in shapes:
+        x = kernel_inputs(w, h)
+        for r in MEDIAN_RADII:
+            if min(h, w) <= r // 2:
+                continue
+            got = L.add_median(x["T"], x["uvf"], r)
+            want = L.add_median_plain(x["T"], x["uvf"], r)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            row = {"phase": "median", "shape": [h, w], "radius": r, "max_abs_err": err,
+                   "bound": BOUNDS["add_median"], "ok": err <= BOUNDS["add_median"]}
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"add_median at {w}x{h}, R={r}: {err}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        if (w, h) in (SIZES[1], SIZE_4K):
+            ms = graph_ms(lambda: L.add_median(x["T"], x["uvf"], 5), calls=20, replays=5)
+            work = kernel_work("add_median", h, w)
+            emit({"phase": "median_time", "shape": [h, w], "radius": 5, "card": card,
+                  "timing": "CUDA-graph replay", "ms": ms, "bound_ms": work["bound_ms"],
+                  "bound_by": work["bound_by"], "share": work["bound_ms"] / ms})
+            out["device"][f"{w}x{h}"] = ms
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
 def expected_launches(w: int, h: int, cfg) -> dict:
     from tpuflow_torch.config import DataConstancy
+    from tpuflow_torch.ops.level import KMAX
     from tpuflow_torch.pyramid import level_schedule
 
     n = len(level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor))
@@ -297,8 +426,8 @@ def expected_launches(w: int, h: int, cfg) -> dict:
     tensor = cfg.data_constancy != DataConstancy.GREY
     return {"warp": n, "level_derivs": n, "level_tensor": n if tensor else 0,
             "outer_prologue": 0 if tensor else n * outer,
-            "outer_prologue_tensor": n * outer if tensor else 0,
-            "jacobi_sweep": n * outer * inner, "add_median": n, "levels": n}
+            "outer_prologue_tensor": n * outer if tensor else 0, "jacobi_sweep": 0,
+            "jacobi_sweeps": n * outer * -(-inner // KMAX), "add_median": n, "levels": n}
 
 
 def phase_e2e(w: int, h: int, preset: str, counts_total: dict, oracle: bool = False,
@@ -312,7 +441,7 @@ def phase_e2e(w: int, h: int, preset: str, counts_total: dict, oracle: bool = Fa
 
     from tpuflow_torch import FlowConfig, compute_flow, endpoint_error, models
     from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
-    from tpuflow_torch.solver.level import PLAIN_STEPS, solve
+    from tpuflow_torch.solver.level import CHAIN_STEPS, PLAIN_STEPS, solve
     from tpuflow_torch.synthetic import shift_epe, textured_pair
 
     cfg = getattr(models, preset)(**preset_kw)
@@ -339,14 +468,17 @@ def phase_e2e(w: int, h: int, preset: str, counts_total: dict, oracle: bool = Fa
         raise AssertionError(f"bad output at {w}x{h}: shape {res.u.shape}, or non-finite")
     t0 = time.perf_counter()
     with torch.cuda.device(0):
-        uv = solve(torch.from_numpy(f0).cuda(), torch.from_numpy(f1).cuda(), cfg,
-                   _steps=PLAIN_STEPS).cpu().numpy()
-    plain_s = time.perf_counter() - t0
+        frames = torch.from_numpy(f0).cuda(), torch.from_numpy(f1).cuda()
+        uv = solve(*frames, cfg, _steps=PLAIN_STEPS).cpu().numpy()
+        plain_s = time.perf_counter() - t0
+        chain = solve(*frames, cfg, _steps=CHAIN_STEPS).cpu().numpy()
+    chain_same = res.u.tobytes() == chain[0].tobytes() and res.v.tobytes() == chain[1].tobytes()
     epe_plain = endpoint_error(res.u, res.v, uv[0], uv[1])
     epe_shift = shift_epe(res.u, res.v)
     row = {"phase": "e2e", "shape": [h, w], "config": label,
            "constancy": constancy, "epe_kernel_vs_plain": epe_plain,
            "epe_vs_true_shift": epe_shift, "true_shift_bound": shift_bound,
+           "flow_bitwise_equal_to_one_sweep_chain": chain_same,
            "kernel_wall_s": res.seconds, "plain_wall_s": plain_s,
            "max_memory_allocated_bytes": peak,
            "mean_u": float(res.u.mean()), "mean_v": float(res.v.mean())}
@@ -363,11 +495,13 @@ def phase_e2e(w: int, h: int, preset: str, counts_total: dict, oracle: bool = Fa
                            device="cuda")
         row["epe_vs_oracle_reduced"] = endpoint_error(red.u, red.v, ou, ov)
         checks.append(("oracle_reduced", row["epe_vs_oracle_reduced"], 0.05))
-    row["ok"] = all(v <= b for _, v, b in checks)
+    row["ok"] = all(v <= b for _, v, b in checks) and chain_same
     emit(row)
     for name, v, b in checks:
         if not v <= b:
             raise AssertionError(f"{name} at {w}x{h}, {preset}: {v} > {b}")
+    if not chain_same:
+        raise AssertionError(f"the flow at {w}x{h}, {preset} differs from the one-sweep chain's")
     return f0, f1
 
 
@@ -461,7 +595,8 @@ def sass_loads_in_loop(lib_path) -> dict:
 
 def phase_probes(lib_path) -> dict:
     """The probe kernels against their plain versions, then the measurement
-    path with its launch counts. Returns the kernels-line rows of both."""
+    path with its launch counts. Returns the one-sweep kernel's launches on
+    that path and the kernels-line rows of both probes."""
     import torch
 
     from tpuflow_torch.tools import probe_kernel_matmul as P
@@ -505,12 +640,17 @@ def phase_probes(lib_path) -> dict:
         if not row["ok"]:
             raise AssertionError(f"probe_matmul at {m}x{k}x{n}: {row}")
 
-    # --- the measurement path: counts 0 just before, read just after
-    R.roofline_micro.launches = P.probe_matmul.launches = 0
+    # --- the measurement path: counts 0 just before, read just after. It
+    # differences the relaxation with the one-sweep kernel chained, the only
+    # path that kernel is on.
+    from tpuflow_torch.ops import level as L
+
+    R.roofline_micro.launches = P.probe_matmul.launches = L.jacobi_sweep.launches = 0
     roof = R.measure(log=lambda line: emit({"phase": "roofline_log", "line": line}))
     probe = P.run()
     launches = {"roofline_micro": R.roofline_micro.launches,
-                "probe_matmul": P.probe_matmul.launches}
+                "probe_matmul": P.probe_matmul.launches,
+                "jacobi_sweep": L.jacobi_sweep.launches}
     emit({"phase": "roofline", **roof})
     emit({"phase": "probe_matmul", **probe})
     emit({"phase": "probe_launches", "counts": launches})
@@ -527,7 +667,7 @@ def phase_probes(lib_path) -> dict:
     work = body_work["stream"]
     mm_work = R.kernel_work("probe_matmul", P.HB, P.W0)
     a, b = (torch.from_numpy(t).cuda() for t in P.probe_inputs())
-    return {
+    return launches["jacobi_sweep"], {
         "roofline_micro": {
             "source": "tpuflow_torch/csrc/probes.cu", "launches": launches["roofline_micro"],
             "max_abs_err": micro_err, "shape": [R.HB, R.WB], "passes": R.PASSES,
@@ -554,7 +694,31 @@ def phase_probes(lib_path) -> dict:
 
 
 LEVEL_WORK = ("warp", "level_derivs", "level_tensor_gradient", "level_tensor_log",
-              "outer_prologue", "outer_prologue_tensor", "jacobi_sweep", "add_median")
+              "outer_prologue", "outer_prologue_tensor", "jacobi_sweep", "jacobi_sweeps",
+              "add_median")
+
+
+def phase_sass(lib_path) -> None:
+    """Static SASS counts of the k-sweep kernel (5 sweeps) and the 5x5 median (roofline.sass_counts): all instructions,
+    the float32 arithmetic (FADD, FMUL, FFMA, MUFU), FMNMX, shared-memory
+    loads and stores, and per pixel-sweep (per pixel for the median: two
+    planes) of the code that one thread runs, every branch counted once."""
+    from tpuflow_torch.ops.level import KMAX, KSWEEP_RH
+    from tpuflow_torch.tools.roofline import sass_counts
+
+    kinds = {"float32": ("FADD", "FMUL", "FFMA", "MUFU"), "fmnmx": ("FMNMX",),
+             "shared": ("LDS", "STS")}
+    # a k-sweep thread sweeps KSWEEP_RH / 8 pixels (csrc/level.cu: KS_TY)
+    wanted = {f"jacobi_sweeps_kernelILi{KMAX}E": KSWEEP_RH // 8 * KMAX,
+              "add_median_kernelILi5E": 1}
+    for fn, c in sass_counts(lib_path).items():
+        for key, units in wanted.items():
+            if key in fn:
+                total = sum(c.values())
+                row = {"phase": "sass", "kernel": key, "instructions": total,
+                       **{k: sum(c.get(op, 0) for op in ops) for k, ops in kinds.items()},
+                       "units": units, "instructions_per_unit": total / units}
+                emit(row)
 
 
 def phase_bounds(table: dict) -> dict:
@@ -587,7 +751,7 @@ def phase_trace(w: int, h: int, bounds: dict):
     from tpuflow_torch import compute_flow, models
     from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
     from tpuflow_torch.synthetic import textured_pair
-    from tpuflow_torch.tools.roofline import kernel_work
+    from tpuflow_torch.tools.roofline import level_bound_ms
     from tpuflow_torch.utils import profiling
     from tpuflow_torch.utils.timing import format_level_table
 
@@ -600,16 +764,8 @@ def phase_trace(w: int, h: int, bounds: dict):
     want = expected_launches(w, h, cfg)
     if any(counts[k] != want[k] for k in counts):
         raise AssertionError(f"traced run launches {counts}, expected {want}")
-    per_level = {"warp": 1, "level_derivs": 1, "level_tensor_gradient": 1,
-                 "outer_prologue_tensor": cfg.outer_iterations_count,
-                 "jacobi_sweep": cfg.outer_iterations_count * cfg.inner_iterations_count,
-                 "add_median": 1}
-    levels = []
-    for t in traced.levels:
-        bound = sum(kernel_work(k, t.height, t.width)["bound_ms"] * n
-                    for k, n in per_level.items())
-        levels.append({"level": t.level, "width": t.width, "height": t.height,
-                       "ms": t.seconds * 1e3, "bound_ms": bound})
+    levels = [{"level": t.level, "width": t.width, "height": t.height, "ms": t.seconds * 1e3,
+               "bound_ms": level_bound_ms(t.height, t.width, cfg)} for t in traced.levels]
     same = (traced.u.tobytes() == plain.u.tobytes() and traced.v.tobytes() == plain.v.tobytes())
     sum_ms = sum(lv["ms"] for lv in levels)
     row = {"phase": "trace", "shape": [h, w], "config": "models.full_model()",
@@ -647,18 +803,18 @@ SHARDED_REPLACES = "tpuflow/parallel/halo_kernel.py:100 (relax_sharded_kernel; p
 def expected_sharded_launches(w: int, h: int, cfg, n_y: int) -> dict:
     """Launch counts of compute_flow_sharded at k = 1: the admitted levels
     make one relax_sharded launch each, the others outer prologues and
-    outer x inner sweeps."""
+    outer k-sweep launches."""
     from tpuflow_torch.parallel import kernel_halo_applicable
     from tpuflow_torch.pyramid import level_schedule
 
     levels = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
     sharded = sum(1 for s in levels if kernel_halo_applicable(s.height, n_y, cfg))
     want = expected_launches(w, h, cfg)
-    outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
     unsharded = len(levels) - sharded
     prologue = "outer_prologue" if want["outer_prologue"] else "outer_prologue_tensor"
-    want.update({prologue: unsharded * outer, "jacobi_sweep": unsharded * outer * inner,
-                 "relax_sharded": sharded})
+    per_level = want["jacobi_sweeps"] // len(levels)
+    want.update({prologue: unsharded * cfg.outer_iterations_count,
+                 "jacobi_sweeps": unsharded * per_level, "relax_sharded": sharded})
     return want
 
 
@@ -888,6 +1044,8 @@ def main() -> int:
           "ptxas": ptxas})
 
     table = phase_kernels()
+    ksweep = phase_ksweep(card)
+    median = phase_median(card)
     counts, pairs = {}, {}
     for w, h in SIZES:
         pairs[(w, h, "reference_default")] = phase_e2e(w, h, "reference_default", counts,
@@ -897,7 +1055,7 @@ def main() -> int:
     pairs[SIZE_4K + ("full_model",)] = phase_e2e(*SIZE_4K, "full_model", counts,
                                                  shift_bound=ZERO_FLOW_EPE)
     emit({"phase": "launch_totals", "counts": counts})
-    missing = [name for name in BOUNDS if counts.get(name, 0) == 0]
+    missing = [name for name in MAIN_PATH if counts.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     phase_cli()
@@ -912,7 +1070,10 @@ def main() -> int:
     phase_times(*SIZE_4K, *pairs[SIZE_4K + ("full_model",)], card, "full_model",
                 {"kernel": 3})
     # The measurement path after the main path's times, which it must not disturb.
-    probes = phase_probes(lib.path)
+    chain_launches, probes = phase_probes(lib.path)
+    if chain_launches == 0:
+        raise AssertionError("the one-sweep kernel was never launched on the measurement path")
+    phase_sass(lib.path)
     bounds = phase_bounds(table)
     phase_trace(*SIZE_4K, bounds)
     t_sharded = time.perf_counter()
@@ -934,6 +1095,19 @@ def main() -> int:
                "bound_by": b["bound_by"], "resource": b["resource"], "share": b["share"],
                "library_ms": None, "library": "none", "ms_1080p": t["ms"],
                "plain_ms_1080p": t["plain_ms"]}
+        if name == "jacobi_sweep":
+            row.update(launches=chain_launches,
+                       path="measurement (phase 9: roofline.measure differences relax with "
+                            "this kernel chained); off the main path since jacobi_sweeps",
+                       role="the one-sweep twin jacobi_sweeps is held against, bitwise")
+        if name == "jacobi_sweeps":
+            row.update(inner=5, design_bytes=b["design_bytes"],
+                       max_abs_err=max(t["max_abs_err"], ksweep["max_abs_err"]),
+                       max_abs_vs_chain=ksweep["max_abs_vs_chain"],
+                       device_ms_by_shape=ksweep["device"])
+        if name == "add_median":
+            row.update(radius=5, max_abs_err=max(t["max_abs_err"], median["max_abs_err"]),
+                       device_ms_by_shape=median["device"])
         if name == "warp":
             row.update(near_twin=WARP_TWIN, near_twin_ms=t["near_twin_ms_4k"])
         if name in REDESIGNED:

@@ -199,6 +199,41 @@ def test_rejects_bad_frames():
         compute_flow(np.zeros((3, 8)), np.zeros((3, 8)), device="cpu")
 
 
+@pytest.mark.parametrize("flags", [(True, True), (False, True), (True, False)])
+def test_compute_flow_leaves_the_tf32_flags_as_the_caller_set_them(flags):
+    """compute_flow turns TF32 off for its solve only, and gives both
+    process-wide flags back, on return and on raise."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        f0, f1 = two_blob_pair()
+        res = compute_flow(f0, f1, FlowConfig(**SMALL_CFG), device="cpu")
+        assert np.isfinite(res.u).all()
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+        # frames smaller than 4x4 raise inside the solve, after the flags were switched
+        with pytest.raises(ValueError, match="4x4"):
+            compute_flow(np.zeros((3, 8)), np.zeros((3, 8)), device="cpu")
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_compute_flow_solves_without_tf32(monkeypatch):
+    import tpuflow_torch.solver.flow2d as flow2d
+
+    seen, real = [], flow2d.solve
+
+    def spy(*args, **kw):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(flow2d, "solve", spy)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    compute_flow(*two_blob_pair(), FlowConfig(**SMALL_CFG), device="cpu")
+    assert seen == [(False, False)]
+
+
 def test_textured_pair_is_an_exact_shift():
     f0, f1 = textured_pair(64, 48, shift=(2.0, -1.0))
     assert f0.dtype == np.float32 and f0.min() == 0.0 and f0.max() == 255.0

@@ -158,7 +158,7 @@ def test_probe_inputs_default_to_the_probe():
 # planes read + written, from each kernel's source in csrc/level.cu
 PLANES = {"warp": 5, "level_derivs": 5, "level_tensor_gradient": 8, "level_tensor_log": 7,
           "outer_prologue": 16, "outer_prologue_tensor": 21, "jacobi_sweep": 17,
-          "add_median": 6}
+          "jacobi_sweeps": 15, "add_median": 6}
 
 
 @pytest.mark.parametrize("name", list(PLANES))
@@ -191,6 +191,7 @@ def test_kernel_work_what_binds():
     assert log["instructions"] == grad["instructions"] + 7 + 2 * 7 + 2 * 18
     assert by["level_tensor_log"] == "bytes" and by["level_tensor_gradient"] == "bytes"
     assert by["jacobi_sweep"] == "bytes" and by["outer_prologue_tensor"] == "bytes"
+    assert by["jacobi_sweeps"] == "bytes"
     # phi once per pixel, and the prologues differ by the grey J's 5 products
     pro, pro_t = R.kernel_work("outer_prologue", 1, 1), R.kernel_work("outer_prologue_tensor", 1, 1)
     assert pro["instructions"] - pro_t["instructions"] == 5
@@ -198,6 +199,30 @@ def test_kernel_work_what_binds():
     assert sweep["instructions"] == R.SWEEP_COUNTS["flops"] + 2 * R.LIBRARY_OPS["div"][0]
     assert sweep["flops"] == R.SWEEP_COUNTS["flops"] + 2 * R.LIBRARY_OPS["div"][1]
     assert R.SWEEP_COUNTS["loads"] + R.SWEEP_COUNTS["stores"] == 22
+
+
+@pytest.mark.parametrize("inner", [1, 2, 5])
+def test_kernel_work_of_the_k_sweep(inner):
+    """One launch of ``inner`` sweeps: 13 planes read and 2 written once,
+    ``inner`` sweeps of arithmetic; the overlapping tiles' re-reads are
+    design bytes."""
+    from tpuflow_torch.ops.level import KMAX, ksweep_tiles
+
+    h, w = 2160, 3840
+    ks = R.kernel_work("jacobi_sweeps", h, w, inner=inner)
+    one = R.kernel_work("jacobi_sweep", h, w)
+    assert ks["bytes"] == 15 * h * w * 4
+    assert ks["instructions"] == inner * one["instructions"]
+    assert ks["flops"] == inner * one["flops"]
+    assert ks["bytes"] < ks["design_bytes"] < 15 * h * w * 4 * 2.5
+    # the design bytes by hand at 2x2: one block, the whole level, no ring
+    tiny = R.kernel_work("jacobi_sweeps", 2, 2, inner=inner)
+    assert tiny["design_bytes"] == tiny["bytes"] == 15 * 4 * 4
+    assert len(list(ksweep_tiles(2, 2, inner))) == 1
+    with pytest.raises(ValueError, match="sweeps"):
+        R.kernel_work("jacobi_sweeps", h, w, inner=KMAX + 1)
+    with pytest.raises(ValueError, match="sweeps"):
+        R.kernel_work("jacobi_sweeps", h, w, inner=0)
 
 
 def test_kernel_work_probes():
@@ -234,15 +259,58 @@ def test_pair_bounds_weigh_each_level_by_its_size(constancy):
     prologue = "outer_prologue" if constancy == "grey" else "outer_prologue_tensor"
     tensor = {"grey": set(), "gradient": {"level_tensor_gradient"},
               "log": {"level_tensor_log"}}[constancy]
-    assert set(pb) == {"warp", "level_derivs", "jacobi_sweep", "add_median", prologue} | tensor
+    assert set(pb) == {"warp", "level_derivs", "jacobi_sweeps", "add_median", prologue} | tensor
     outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
-    assert pb["jacobi_sweep"]["launches"] == len(levels) * outer * inner
+    # one k-sweep launch per outer iteration at inner <= KMAX
+    assert pb["jacobi_sweeps"]["launches"] == len(levels) * outer
+    want = sum(outer * R.kernel_work("jacobi_sweeps", s.height, s.width, inner=inner)["bound_ms"]
+               for s in levels)
+    assert pb["jacobi_sweeps"]["bound_ms"] == pytest.approx(want, rel=1e-12)
     assert pb[prologue]["launches"] == len(levels) * outer
     want = sum(outer * R.kernel_work(prologue, s.height, s.width)["bound_ms"] for s in levels)
     assert pb[prologue]["bound_ms"] == pytest.approx(want, rel=1e-12)
     # every level but the finest is smaller than level 0
     level0 = pb[prologue]["launches"] * R.kernel_work(prologue, h, w)["bound_ms"]
     assert pb[prologue]["bound_ms"] < level0 / 3
+
+
+@pytest.mark.parametrize("constancy,inner", [("grey", 5), ("gradient", 5), ("log", 7),
+                                             ("grey", 0)])
+def test_level_bound_is_the_pair_bound_of_one_level(constancy, inner):
+    """level_bound_ms (what the per-level trace is read against) sums the
+    same launches as pair_bounds: over the schedule they agree."""
+    from tpuflow_torch.config import DataConstancy, FlowConfig
+    from tpuflow_torch.pyramid import level_schedule
+
+    cfg = FlowConfig(data_constancy=DataConstancy(constancy), inner_iterations_count=inner)
+    w, h = 240, 135
+    levels = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    total = sum(v["bound_ms"] for v in R.pair_bounds(w, h, cfg).values())
+    assert sum(R.level_bound_ms(s.height, s.width, cfg) for s in levels) == pytest.approx(
+        total, rel=1e-12)
+    names = [name for name, _, _ in R.level_launches(cfg)]
+    assert names.count("jacobi_sweeps") == -(-inner // 5)
+    assert ("add_median", 1, {"radius": 5}) in R.level_launches(cfg)
+
+
+@pytest.mark.parametrize("inner,launches", [(0, 0), (3, 1), (5, 1), (7, 2), (10, 2), (11, 3)])
+def test_pair_bounds_split_the_inner_loop_into_k_sweep_launches(inner, launches):
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.ops.level import KMAX
+    from tpuflow_torch.pyramid import level_schedule
+
+    cfg = FlowConfig(inner_iterations_count=inner, outer_iterations_count=4)
+    w, h = 120, 90
+    pb = R.pair_bounds(w, h, cfg)
+    levels = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    if not launches:
+        assert "jacobi_sweeps" not in pb
+        return
+    assert pb["jacobi_sweeps"]["launches"] == len(levels) * 4 * launches
+    chunks = [min(KMAX, inner - d) for d in range(0, inner, KMAX)]
+    want = sum(4 * R.kernel_work("jacobi_sweeps", s.height, s.width, inner=k)["bound_ms"]
+               for s in levels for k in chunks)
+    assert pb["jacobi_sweeps"]["bound_ms"] == pytest.approx(want, rel=1e-12)
 
 
 def test_measurements_raise_without_cuda(monkeypatch):
@@ -264,7 +332,7 @@ def test_probe_matmul_counts_only_launches_it_makes(monkeypatch, capturing, coun
 
 
 def test_graph_timer_raises_without_cuda(monkeypatch):
-    from tpuflow_torch.profile_pair import prologue_by_level
+    from tpuflow_torch.profile_pair import prologue_by_level, sweeps_by_level
 
     calls = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -273,6 +341,23 @@ def test_graph_timer_raises_without_cuda(monkeypatch):
     assert calls == []
     with pytest.raises(RuntimeError, match="CUDA"):
         prologue_by_level(64, 48)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweeps_by_level(64, 48)
+
+
+@pytest.mark.parametrize("constancy", ["grey", "gradient", "log"])
+def test_profile_names_every_kernel_of_the_pair(constancy):
+    """level_kernels_by_gap finds each kernel of pair_bounds by its
+    demangled name, and the one-sweep kernel's pattern does not take the
+    k-sweep kernel's launches."""
+    from tpuflow_torch.config import DataConstancy, FlowConfig
+    from tpuflow_torch.profile_pair import LEVEL_KERNELS
+
+    cfg = FlowConfig(data_constancy=DataConstancy(constancy))
+    assert set(R.pair_bounds(64, 48, cfg)) <= set(LEVEL_KERNELS)
+    ksweep = "void (anonymous namespace)::jacobi_sweeps_kernel<5, false>(const float*, ...)"
+    hits = [name for name, pattern in LEVEL_KERNELS.items() if pattern in ksweep]
+    assert hits == ["jacobi_sweeps"]
 
 
 def test_probe_modules_import_no_jax():

@@ -22,7 +22,10 @@
 //   tf_level_tensor           once per level  J11..J23 (gradient and log only)
 //   tf_outer_prologue         once per outer  phi/ksi and the per-outer hoists
 //   tf_outer_prologue_tensor  once per outer  the same, the hoists from J
-//   tf_jacobi_sweep           outer x inner   one coupled T-form sweep
+//   tf_jacobi_sweeps          once per outer  the inner loop: k <= KS_KMAX sweeps
+//   tf_jacobi_sweep           (twin)          one coupled T-form sweep; k chained
+//                                             launches are what tf_jacobi_sweeps
+//                                             is held against, bit for bit
 //   tf_add_median             once per level  u + (T - u), then the window median
 //
 // Every field is a contiguous float32 (h, w) plane at the level's exact
@@ -32,12 +35,12 @@
 // The one exception is the second-order tensor's stencil over derivative
 // fields, which replicates (clamp: neighbour -1 reads 0, n reads n-1).
 //
-// All kernels but outer_prologue are one thread per pixel over 32x8 blocks.
-// Each reads a few neighbouring floats and does ~1 FLOP per byte, so
-// device-memory bandwidth bounds them at fine levels and launch latency at
-// coarse ones; neighbour reuse comes from L1/L2, not shared memory.
-// outer_prologue stages its stencil input and phi in shared-memory tiles
-// (its comment says why). Shared-memory k-sweep blocking is later work.
+// warp, level_derivs, level_tensor and jacobi_sweep are one thread per pixel
+// over 32x8 blocks. Each reads a few neighbouring floats and does ~1 FLOP per
+// byte, so device-memory bandwidth bounds them at fine levels and launch
+// latency at coarse ones; neighbour reuse comes from L1/L2, not shared
+// memory. outer_prologue, jacobi_sweeps and add_median stage their stencil
+// input in shared-memory tiles (their comments say why).
 // Pixel indices are int (a 3840x2160 level has 8.3 M pixels); plane offsets
 // are size_t.
 //
@@ -321,49 +324,236 @@ __global__ void jacobi_sweep_kernel(const float* __restrict__ T, const float* __
 }
 
 // ---------------------------------------------------------------------------
+// jacobi_sweeps: the inner loop of one outer iteration, K <= KS_KMAX coupled
+// sweeps of fixed uv and hoists in one launch. Every sweep of every pixel is
+// tf_body::sweep_vals on the operands K chained launches of
+// jacobi_sweep_kernel give it, so the result is theirs, bit for bit.
+// Bound: bytes. The function reads 13 planes once (T x2, u, v, 9 hoists) and
+// writes 2; K chained one-sweep launches move 17 planes each. Its arithmetic
+// (K x 47 float32 instructions per pixel) is below the byte bound, but with
+// the recompute below and the shared-memory traffic, indexing and barriers
+// around it, instruction issue is what this design spends most time on.
+// Design:
+//   * a block of KS_RW x KS_TY threads owns a region of KS_RW x KS_RH
+//     pixels: its output tile, (KS_RW - 2K) x (KS_RH - 2K), plus a K-pixel
+//     ring, at image coordinates (blockIdx * tile - K), clipped to the
+//     image. Each thread owns one column of KS_RH / KS_TY region pixels
+//     (rows ty, ty + KS_TY, ...), so a warp touches 32 consecutive floats of
+//     a row. T's two buffers take 32 KB of shared memory, below the 48 KB a
+//     launch gets without opting in;
+//   * T's two planes over the region are copied into shared memory by
+//     cp.async, 4 bytes each: rows of most levels are not 16-byte aligned,
+//     and TMA's tensor maps need 16-byte global strides, which widths such
+//     as 3111 do not have. u, v and the 9 hoists are read only at a pixel's
+//     own thread, and only where the first sweep updates: each thread loads
+//     its pixels' into registers;
+//   * sweep s = 1..K reads T from one shared buffer and writes the other,
+//     over the region shrunk by s on every side that is not an image edge
+//     (the trapezoid). At an image edge the mirror neighbour refl(+-1) lies
+//     inside the region and holds the same sweep's value, so no pixel reads
+//     a value the chained launches would not give it;
+//   * after sweep K the tile's own pixels are written to device memory.
+// At K = 5 the ring costs 64 x 32 / (54 x 22) = 1.7x the tile's
+// T bytes (neighbouring blocks read the overlap, mostly from L2) and the
+// trapezoid 1.3x the tile's sweeps.
+// ---------------------------------------------------------------------------
+constexpr int KS_KMAX = 5;     // sweeps per launch (ops/level.py: KMAX)
+constexpr int KS_RW = 64;      // region columns, one thread each (ops/level.py: KSWEEP_RW)
+constexpr int KS_TY = 8;       // thread rows
+constexpr int KS_RH = 32;      // region rows (ops/level.py: KSWEEP_RH)
+constexpr int KS_THREADS = KS_RW * KS_TY;
+
+template <int K>
+__global__ void __launch_bounds__(KS_THREADS, 2)
+    jacobi_sweeps_kernel(const float* __restrict__ T, const float* __restrict__ uv,
+                         const float* __restrict__ hoist, float* __restrict__ T_out, int h,
+                         int w) {
+  static_assert(K >= 1 && K <= KS_KMAX && KS_RH % KS_TY == 0 && KS_RH > 2 * K,
+                "bad k-sweep geometry");
+  constexpr int TW = KS_RW - 2 * K, TH = KS_RH - 2 * K;
+  constexpr int P = KS_RH / KS_TY;        // region pixels per thread
+  constexpr int PLANE = KS_RH * KS_RW;    // floats of one shared plane
+  // ts: [buffer][plane][row][col] of T
+  __shared__ float ts[4 * PLANE];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int rx0 = blockIdx.x * TW - K, ry0 = blockIdx.y * TH - K;  // region origin
+  const size_t n = (size_t)h * w;
+  // A side of the region shrinks by one pixel a sweep unless it is an image
+  // edge; the region's first and last columns and rows inside the image.
+  const bool shrink_l = rx0 > 0, shrink_r = rx0 + KS_RW - 1 < w - 1;
+  const bool shrink_t = ry0 > 0, shrink_b = ry0 + KS_RH - 1 < h - 1;
+  const int c_first = max(0, -rx0), c_last = min(KS_RW - 1, w - 1 - rx0);
+  const int r_first = max(0, -ry0), r_last = min(KS_RH - 1, h - 1 - ry0);
+  const int gx = rx0 + tx;
+  // the mirror neighbours of column tx, as region columns
+  const int xp = gx == w - 1 ? tx - 1 : tx + 1;
+  const int xm = gx == 0 ? tx + 1 : tx - 1;
+
+  tf_body::SweepConsts kc[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int r = ty + KS_TY * j, gy = ry0 + r;
+    if (tx < c_first || tx > c_last || r < r_first || r > r_last) continue;
+    const size_t g = (size_t)gy * w + gx;
+    const int i = r * KS_RW + tx;
+    cp_async4(&ts[i], T + g);
+    cp_async4(&ts[PLANE + i], T + n + g);
+    // u, v and the hoists only where the first sweep updates
+    const bool first = tx >= (shrink_l ? 1 : c_first) && tx <= (shrink_r ? KS_RW - 2 : c_last) &&
+                       r >= (shrink_t ? 1 : r_first) && r <= (shrink_b ? KS_RH - 2 : r_last);
+    if (first) kc[j] = tf_body::load_sweep_consts(uv, hoist, n, (int)g);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+#pragma unroll
+  for (int s = 1; s <= K; ++s) {
+    const float* tu = ts + ((s - 1) & 1) * 2 * PLANE;
+    const float* tv = tu + PLANE;
+    float* dst = ts + (s & 1) * 2 * PLANE;
+    const bool col_ok = tx >= (shrink_l ? s : c_first) && tx <= (shrink_r ? KS_RW - 1 - s : c_last);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int r = ty + KS_TY * j, gy = ry0 + r;
+      if (!col_ok || r < (shrink_t ? s : r_first) || r > (shrink_b ? KS_RH - 1 - s : r_last))
+        continue;
+      const int i = r * KS_RW + tx;
+      const int row = r * KS_RW;
+      const int yp = (gy == h - 1 ? r - 1 : r + 1) * KS_RW + tx;
+      const int ym = (gy == 0 ? r + 1 : r - 1) * KS_RW + tx;
+      const float2 t = tf_body::sweep_vals(kc[j], tu[row + xp], tu[row + xm], tu[yp], tu[ym],
+                                           tv[row + xp], tv[row + xm], tv[yp], tv[ym], tv[i]);
+      dst[i] = t.x;
+      dst[PLANE + i] = t.y;
+    }
+    __syncthreads();
+  }
+
+  // the tile: region columns and rows [K, size - K), inside the image
+  if (tx < K || tx >= KS_RW - K || gx >= w) return;
+  const float* fin = ts + (K & 1) * 2 * PLANE;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int r = ty + KS_TY * j, gy = ry0 + r;
+    if (r < K || r >= KS_RH - K || gy >= h) continue;
+    const size_t g = (size_t)gy * w + gx;
+    T_out[g] = fin[r * KS_RW + tx];
+    T_out[n + g] = fin[PLANE + r * KS_RW + tx];
+  }
+}
+
+template <int K>
+int launch_sweeps(const float* T, const float* uv, const float* hoist, float* T_out, int h,
+                  int w, cudaStream_t stream) {
+  constexpr int TW = KS_RW - 2 * K, TH = KS_RH - 2 * K;
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
+  jacobi_sweeps_kernel<K><<<grid, dim3(KS_RW, KS_TY), 0, stream>>>(T, uv, hoist, T_out, h, w);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // add_median: u + (T - u) (the XLA op order, level_fused.py:433-435), then
 // the R x R window median with reflect boundaries (median_2d.cu:87-299).
-// The window is sorted in registers by a fully unrolled odd-even
-// transposition network: an exact selection, so the result equals the
-// TPU's Batcher network. Each thread recomputes the sum at its R*R window
-// points instead of storing the summed field.
-// Bound: R*R reads of T and u per pixel per plane (L1 serves the overlap).
+// Bound: operations at R = 5 (the selection's min and max), bytes at R = 3.
+// Design: a 32 x 8 block copies T and u over its tile plus an R/2-pixel
+// ring, each entry from its reflected image coordinate, into shared memory
+// by cp.async, and forms the sum once per staged pixel. Each thread then
+// reads its window from the shared tile and selects the median with a
+// compare-exchange network: Paeth's 19 exchanges for 9 values, Devillard's
+// 99 for 25 (TF_MEDIAN_9 and TF_MEDIAN_25 below, the one place they are
+// written; tests/test_torch_median.py reads them there and proves by the 0-1
+// principle that each selects the median). 49 values run the odd-even
+// transposition sort. Min and max are exact, so any exact selection returns
+// the value of the plain version's sort, bit for bit.
+// Needs min(h, w) > R/2, where one reflection stays in the image; the plain
+// version's reflect padding has the same limit.
 // ---------------------------------------------------------------------------
+// (i, j): min to a[i], max to a[j]; the median is then a[4], resp. a[12].
+#define TF_MEDIAN_9(X)                                                                    \
+  X(1, 2) X(4, 5) X(7, 8) X(0, 1) X(3, 4) X(6, 7) X(1, 2) X(4, 5) X(7, 8) X(0, 3) X(5, 8) \
+  X(4, 7) X(3, 6) X(1, 4) X(2, 5) X(4, 7) X(4, 2) X(6, 4) X(4, 2)
+#define TF_MEDIAN_25(X)                                                                    \
+  X(0, 1) X(3, 4) X(2, 4) X(2, 3) X(6, 7) X(5, 7) X(5, 6) X(9, 10) X(8, 10) X(8, 9)        \
+  X(12, 13) X(11, 13) X(11, 12) X(15, 16) X(14, 16) X(14, 15) X(18, 19) X(17, 19)          \
+  X(17, 18) X(21, 22) X(20, 22) X(20, 21) X(23, 24) X(2, 5) X(3, 6) X(0, 6) X(0, 3)        \
+  X(4, 7) X(1, 7) X(1, 4) X(11, 14) X(8, 14) X(8, 11) X(12, 15) X(9, 15) X(9, 12)          \
+  X(13, 16) X(10, 16) X(10, 13) X(20, 23) X(17, 23) X(17, 20) X(21, 24) X(18, 24)          \
+  X(18, 21) X(19, 22) X(8, 17) X(9, 18) X(0, 18) X(0, 9) X(10, 19) X(1, 19) X(1, 10)       \
+  X(11, 20) X(2, 20) X(2, 11) X(12, 21) X(3, 21) X(3, 12) X(13, 22) X(4, 22) X(4, 13)      \
+  X(14, 23) X(5, 23) X(5, 14) X(15, 24) X(6, 24) X(6, 15) X(7, 16) X(7, 19) X(13, 21)      \
+  X(15, 23) X(7, 13) X(7, 15) X(1, 9) X(3, 11) X(5, 17) X(11, 17) X(9, 17) X(4, 10)        \
+  X(6, 12) X(7, 14) X(4, 6) X(4, 7) X(12, 14) X(10, 14) X(6, 7) X(10, 12) X(6, 10)         \
+  X(6, 17) X(12, 17) X(7, 17) X(7, 10) X(12, 18) X(7, 12) X(10, 18) X(12, 20) X(10, 20)    \
+  X(10, 12)
+#define TF_CX(i, j)                         \
+  {                                         \
+    const float lo_ = fminf(a[i], a[j]);    \
+    const float hi_ = fmaxf(a[i], a[j]);    \
+    a[i] = lo_;                             \
+    a[j] = hi_;                             \
+  }
+
 template <int R>
-__global__ void add_median_kernel(const float* __restrict__ T, const float* __restrict__ uv,
-                                  float* __restrict__ out, int h, int w) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const size_t n = (size_t)h * w;
+__device__ __forceinline__ float select_median(float (&a)[R * R]) {
   constexpr int N = R * R;
-  constexpr int R2 = R / 2;
-#pragma unroll 1
-  for (int p = 0; p < 2; ++p) {
-    const float* t = T + p * n;
-    const float* b = uv + p * n;
-    float a[N];
-#pragma unroll
-    for (int dy = 0; dy < R; ++dy) {
-      const int row = refl(y + dy - R2, h) * w;
-#pragma unroll
-      for (int dx = 0; dx < R; ++dx) {
-        const int j = row + refl(x + dx - R2, w);
-        const float base = b[j];
-        a[dy * R + dx] = base + (t[j] - base);
-      }
-    }
+  if constexpr (R == 3) {
+    TF_MEDIAN_9(TF_CX)
+  } else if constexpr (R == 5) {
+    TF_MEDIAN_25(TF_CX)
+  } else {
 #pragma unroll
     for (int pass = 0; pass < N; ++pass) {
 #pragma unroll
-      for (int k = pass & 1; k + 1 < N; k += 2) {
-        const float lo = a[k + 1] < a[k] ? a[k + 1] : a[k];
-        const float hi = a[k + 1] < a[k] ? a[k] : a[k + 1];
-        a[k] = lo;
-        a[k + 1] = hi;
-      }
+      for (int k = pass & 1; k + 1 < N; k += 2) TF_CX(k, k + 1)
     }
-    out[p * n + y * w + x] = a[N / 2];
+  }
+  return a[N / 2];
+}
+
+template <int R>
+__global__ void add_median_kernel(const float* __restrict__ T, const float* __restrict__ uv,
+                                  float* __restrict__ out, int h, int w) {
+  constexpr int R2 = R / 2, SW = BX + 2 * R2, SH = BY + 2 * R2;
+  // st[p][r][c]: plane p of T, then of the sum, at image coordinate
+  // (refl(y0 - R2 + r), refl(x0 - R2 + c)); su: the same of u.
+  __shared__ float st[2][SH][SW];
+  __shared__ float su[2][SH][SW];
+  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * BY;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BX + tx;
+  const size_t n = (size_t)h * w;
+  for (int i = tid; i < SH * SW; i += BX * BY) {
+    const int r = i / SW, c = i % SW;
+    const int gy = y0 - R2 + r, gx = x0 - R2 + c;
+    if (gy > h - 1 + R2 || gx > w - 1 + R2) continue;  // beyond the last row's or column's ring
+    const size_t g = (size_t)refl(gy, h) * w + refl(gx, w);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      cp_async4(&st[p][r][c], T + p * n + g);
+      cp_async4(&su[p][r][c], uv + p * n + g);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int i = tid; i < SH * SW; i += BX * BY) {
+    const int r = i / SW, c = i % SW;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const float base = su[p][r][c];
+      st[p][r][c] = base + (st[p][r][c] - base);
+    }
+  }
+  __syncthreads();
+  const int x = x0 + tx, y = y0 + ty;
+  if (x >= w || y >= h) return;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    float a[R * R];
+#pragma unroll
+    for (int dy = 0; dy < R; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < R; ++dx) a[dy * R + dx] = st[p][ty + dy][tx + dx];
+    }
+    out[p * n + y * w + x] = select_median<R>(a);
   }
 }
 
@@ -426,6 +616,20 @@ int tf_jacobi_sweep(const float* T, const float* uv, const float* hoist, float* 
   jacobi_sweep_kernel<<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
       T, uv, hoist, T_out, h, w);
   return (int)cudaGetLastError();
+}
+
+// k: the sweeps of this launch, 1..KS_KMAX.
+int tf_jacobi_sweeps(const float* T, const float* uv, const float* hoist, float* T_out,
+                     int h, int w, int k, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (k) {
+    case 1: return launch_sweeps<1>(T, uv, hoist, T_out, h, w, s);
+    case 2: return launch_sweeps<2>(T, uv, hoist, T_out, h, w, s);
+    case 3: return launch_sweeps<3>(T, uv, hoist, T_out, h, w, s);
+    case 4: return launch_sweeps<4>(T, uv, hoist, T_out, h, w, s);
+    case 5: return launch_sweeps<5>(T, uv, hoist, T_out, h, w, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // radius: the window side after the reference guards (1, 3, 5 or 7).

@@ -1,5 +1,6 @@
 // Per-pixel bodies of the relaxation, shared by the level kernels
-// (level.cu: outer_prologue_kernel<TENSOR>, jacobi_sweep_kernel) and the
+// (level.cu: outer_prologue_kernel<TENSOR>, jacobi_sweep_kernel,
+// jacobi_sweeps_kernel<K, CONSTS_SHARED>) and the
 // row-sharded relaxation (sharded.cu: relax_sharded_kernel<TENSOR>), so both
 // run the same arithmetic in the same association order.
 //
@@ -149,9 +150,41 @@ __device__ __forceinline__ void prologue_px(const float* __restrict__ T,
                     alpha_hx2, alpha_hy2, e_d2);
 }
 
-// jacobi_sweep at (y, x): one coupled T-form sweep (sweep_core.py:45-79),
-// new_du then new_dv from the fresh new_du, storing T' = u + new_d
-// (level_fused.py:328-341). Reads T, writes T_out.
+// The values one sweep reads at a pixel besides the iterate: the flow the
+// level started from and the 9 per-outer hoists.
+struct SweepConsts {
+  float u, v, pw_xp, pw_xm, pw_yp, pw_ym, a12, a13, a23, dnu, dnv;
+};
+
+__device__ __forceinline__ SweepConsts load_sweep_consts(const float* __restrict__ uv,
+                                                        const float* __restrict__ hoist,
+                                                        size_t n, int c) {
+  return SweepConsts{uv[c],           uv[n + c],       hoist[c],        hoist[n + c],
+                     hoist[2 * n + c], hoist[3 * n + c], hoist[4 * n + c], hoist[5 * n + c],
+                     hoist[6 * n + c], hoist[7 * n + c], hoist[8 * n + c]};
+}
+
+// One coupled T-form sweep at one pixel (sweep_core.py:45-79): new_du, then
+// new_dv from the fresh new_du; returns T' = u + new_d (level_fused.py:328-341)
+// as (tu', tv'). The arguments are T's values at the pixel's four (reflected)
+// neighbours and its tv centre. sweep_px and the k-sweep kernel (level.cu)
+// both call it, so every sweep of the port is this one expression.
+__device__ __forceinline__ float2 sweep_vals(const SweepConsts& k, float tu_xp, float tu_xm,
+                                             float tu_yp, float tu_ym, float tv_xp,
+                                             float tv_xm, float tv_yp, float tv_ym,
+                                             float tv_c) {
+  const float sum_u = k.pw_xp * (tu_xp - k.u) + k.pw_xm * (tu_xm - k.u) +
+                      k.pw_yp * (tu_yp - k.u) + k.pw_ym * (tu_ym - k.u);
+  const float sum_v = k.pw_xp * (tv_xp - k.v) + k.pw_xm * (tv_xm - k.v) +
+                      k.pw_yp * (tv_yp - k.v) + k.pw_ym * (tv_ym - k.v);
+  const float dv_c = tv_c - k.v;
+  const float new_du = (-k.a13 - k.a12 * dv_c + sum_u) / k.dnu;
+  const float new_dv = (-k.a23 - k.a12 * new_du + sum_v) / k.dnv;
+  return make_float2(k.u + new_du, k.v + new_dv);
+}
+
+// jacobi_sweep at (y, x) of a block of h rows: sweep_vals on T read from
+// device memory. Reads T, writes T_out.
 __device__ __forceinline__ void sweep_px(const float* __restrict__ T,
                                          const float* __restrict__ uv,
                                          const float* __restrict__ hoist,
@@ -163,28 +196,10 @@ __device__ __forceinline__ void sweep_px(const float* __restrict__ T,
   const int yp = refl(y + 1, h) * w + x, ym = refl(y - 1, h) * w + x;
   const float* tu = T;
   const float* tv = T + n;
-
-  const float u_c = uv[c];
-  const float v_c = uv[n + c];
-  const float pw_xp = hoist[c];
-  const float pw_xm = hoist[n + c];
-  const float pw_yp = hoist[2 * n + c];
-  const float pw_ym = hoist[3 * n + c];
-  const float a12 = hoist[4 * n + c];
-  const float a13 = hoist[5 * n + c];
-  const float a23 = hoist[6 * n + c];
-  const float dnu = hoist[7 * n + c];
-  const float dnv = hoist[8 * n + c];
-
-  const float sum_u = pw_xp * (tu[xp] - u_c) + pw_xm * (tu[xm] - u_c) +
-                      pw_yp * (tu[yp] - u_c) + pw_ym * (tu[ym] - u_c);
-  const float sum_v = pw_xp * (tv[xp] - v_c) + pw_xm * (tv[xm] - v_c) +
-                      pw_yp * (tv[yp] - v_c) + pw_ym * (tv[ym] - v_c);
-  const float dv_c = tv[c] - v_c;
-  const float new_du = (-a13 - a12 * dv_c + sum_u) / dnu;
-  const float new_dv = (-a23 - a12 * new_du + sum_v) / dnv;
-  T_out[c] = u_c + new_du;
-  T_out[n + c] = v_c + new_dv;
+  const float2 t = sweep_vals(load_sweep_consts(uv, hoist, n, c), tu[xp], tu[xm], tu[yp],
+                              tu[ym], tv[xp], tv[xm], tv[yp], tv[ym], tv[c]);
+  T_out[c] = t.x;
+  T_out[n + c] = t.y;
 }
 
 }  // namespace tf_body

@@ -46,6 +46,7 @@ SIGNATURES = {
     "tf_outer_prologue": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
     "tf_outer_prologue_tensor": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
     "tf_jacobi_sweep": (_P, _P, _P, _P, _I, _I, _P),
+    "tf_jacobi_sweeps": (_P, _P, _P, _P, _I, _I, _I, _P),
     "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
     "tf_roofline_micro": (_P, _P, _P, _I, _I, _I, _I, _P),
     "tf_probe_matmul": (_P, _P, _P, _I, _I, _I, _P),

@@ -1,7 +1,8 @@
 """The level kernels: derivatives, the motion tensor of the gradient and
-log constancies, the per-outer prologue, the coupled Jacobi sweep, and
-add + median. Each is a CUDA kernel (csrc/level.cu) with its plain PyTorch
-version beside it.
+log constancies, the per-outer prologue, the coupled Jacobi sweeps of one
+outer iteration, and add + median. Each is a CUDA kernel (csrc/level.cu)
+with its plain PyTorch version beside it. The one-sweep kernel
+``jacobi_sweep`` is the twin that ``jacobi_sweeps`` is held against.
 
 Together with the warp (ops/warp.py) they compute one pyramid level, for
 all three data constancies: the function of the TPU's five level kernels
@@ -184,8 +185,76 @@ def jacobi_sweep(T, uv, hoist) -> torch.Tensor:
     out = torch.empty_like(T)
     launch("tf_jacobi_sweep", T.data_ptr(), uv.data_ptr(), hoist.data_ptr(),
            out.data_ptr(), h, w)
-    jacobi_sweep.launches += 1
+    # Off the main path, this kernel runs where the relaxation is differenced
+    # in CUDA graphs (tools/roofline.py): a captured call records the launch
+    # and makes none, and the replays launch it without this wrapper.
+    if not torch.cuda.is_current_stream_capturing():
+        jacobi_sweep.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# jacobi_sweeps: the inner loop of one outer iteration (level_fused.py:328-341
+# run ``inner`` times; the k-sweep wavefront of relax_du.py:457)
+# ---------------------------------------------------------------------------
+
+# Sweeps per launch of jacobi_sweeps_kernel, and its region of KSWEEP_RW x
+# KSWEEP_RH pixels: a (KSWEEP_RW - 2k) x (KSWEEP_RH - 2k) output tile and a
+# k-pixel ring (csrc/level.cu: KS_KMAX, KS_RW, KS_RH).
+KMAX = 5
+KSWEEP_RW = 64
+KSWEEP_RH = 32
+
+
+def jacobi_sweeps_plain(T, uv, hoist, inner: int) -> torch.Tensor:
+    """``inner`` sweeps of fixed ``uv`` and ``hoist`` from T."""
+    for _ in range(inner):
+        T = jacobi_sweep_plain(T, uv, hoist)
+    return T
+
+
+def jacobi_sweep_chain(T, uv, hoist, inner: int) -> torch.Tensor:
+    """``inner`` chained launches of the one-sweep kernel: what
+    ``jacobi_sweeps`` computes, one launch per sweep (its twin on the card,
+    and the main path's inner loop before the k-sweep kernel)."""
+    for _ in range(inner):
+        T = jacobi_sweep(T, uv, hoist)
+    return T
+
+
+def ksweep_tiles(h: int, w: int, k: int):
+    """The blocks of one jacobi_sweeps launch of ``k`` sweeps on an (h, w)
+    level, as (region, tile) pairs of (y0, y1, x0, x1) half-open image
+    ranges, both clipped to the image. The region is the tile plus a k-pixel
+    ring: what the block reads of T."""
+    tw, th = KSWEEP_RW - 2 * k, KSWEEP_RH - 2 * k
+    for ty in range(-(-h // th)):
+        for tx in range(-(-w // tw)):
+            y0, x0 = ty * th, tx * tw
+            yield ((max(0, y0 - k), min(h, y0 + th + k), max(0, x0 - k), min(w, x0 + tw + k)),
+                   (y0, min(h, y0 + th), x0, min(w, x0 + tw)))
+
+
+def jacobi_sweeps(T, uv, hoist, inner: int) -> torch.Tensor:
+    """The iterate (2, h, w) after ``inner`` sweeps of fixed ``uv`` and
+    ``hoist`` from T: ceil(inner / KMAX) launches of the k-sweep kernel on
+    the card, each a new buffer; T itself for ``inner`` = 0."""
+    _, h, w = T.shape
+    _check_planes(h, w, T=(T, 2), uv=(uv, 2), hoist=(hoist, N_HOIST))
+    if inner < 0:
+        raise ValueError(f"inner must be >= 0, got {inner}")
+    if not on_cuda(T, uv, hoist):
+        return jacobi_sweeps_plain(T, uv, hoist, inner)
+    if min(h, w) < 2:
+        raise ValueError(f"the mirror boundary needs a level of at least 2x2, got {h}x{w}")
+    for done in range(0, inner, KMAX):
+        k = min(KMAX, inner - done)
+        out = torch.empty_like(T)
+        launch("tf_jacobi_sweeps", T.data_ptr(), uv.data_ptr(), hoist.data_ptr(),
+               out.data_ptr(), h, w, k)
+        jacobi_sweeps.launches += 1
+        T = out
+    return T
 
 
 # ---------------------------------------------------------------------------
@@ -204,13 +273,17 @@ def add_median(T, uv, radius: int) -> torch.Tensor:
     r = effective_radius(radius)
     if not on_cuda(T, uv):
         return add_median_plain(T, uv, r)
+    if min(h, w) <= r // 2:
+        raise ValueError(f"a {r}x{r} reflected window needs a level larger than {r // 2} "
+                         f"on each side, got {h}x{w}")
     out = torch.empty_like(T)
     launch("tf_add_median", T.data_ptr(), uv.data_ptr(), out.data_ptr(), h, w, r)
     add_median.launches += 1
     return out
 
 
-for _fn in (level_derivs, level_tensor, outer_prologue, jacobi_sweep, add_median):
+for _fn in (level_derivs, level_tensor, outer_prologue, jacobi_sweep, jacobi_sweeps,
+            add_median):
     _fn.launches = 0
 outer_prologue.tensor_launches = 0
 
@@ -222,6 +295,7 @@ KERNELS = {
     "outer_prologue": (outer_prologue, "launches"),
     "outer_prologue_tensor": (outer_prologue, "tensor_launches"),
     "jacobi_sweep": (jacobi_sweep, "launches"),
+    "jacobi_sweeps": (jacobi_sweeps, "launches"),
     "add_median": (add_median, "launches"),
 }
 

@@ -19,8 +19,14 @@ times instead both instantiations of ``ops.level.outer_prologue`` (grey,
 and with the tensor J) at each level of the preset's schedule by CUDA-graph
 replay (``roofline.graph_ms``), beside each level's bound, and a yardstick
 of the card's rate for a stream that reads as much as it writes: one
-``Tensor.copy_`` of 9 level-0 planes. Both need a CUDA device, and raise
-without one.
+``Tensor.copy_`` of 9 level-0 planes.
+
+    python -m tpuflow_torch.profile_pair --size 3840x2160 --sweep-levels
+
+times the inner loop of one outer iteration at each level the same way, in
+turns: ``inner`` chained one-sweep launches, and ``ops.level.jacobi_sweeps``
+as the main path runs it; beside the bound of the function and the bytes the
+k-sweep kernel streams. All three need a CUDA device, and raise without one.
 """
 
 from __future__ import annotations
@@ -35,11 +41,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tpuflow_torch import compute_flow, models
-from tpuflow_torch.ops.level import outer_prologue
+from tpuflow_torch.ops.level import jacobi_sweep_chain, jacobi_sweeps, outer_prologue
 from tpuflow_torch.pyramid import level_schedule
 from tpuflow_torch.solver.level import LevelScalars
 from tpuflow_torch.synthetic import textured_pair
-from tpuflow_torch.tools.roofline import device_info, graph_ms, kernel_work, pair_bounds
+from tpuflow_torch.tools.roofline import (
+    device_info, graph_ms, kernel_work, level_launches, pair_bounds,
+)
 
 REPS = 3
 LAYERS = ("gaussian", "resample")
@@ -51,7 +59,8 @@ LEVEL_KERNELS = {
     "level_tensor_log": "level_tensor_kernel<true>",
     "outer_prologue": "outer_prologue_kernel<false>",
     "outer_prologue_tensor": "outer_prologue_kernel<true>",
-    "jacobi_sweep": "jacobi_sweep_kernel(", "add_median": "add_median_kernel<",
+    "jacobi_sweep": "jacobi_sweep_kernel(", "jacobi_sweeps": "jacobi_sweeps_kernel<",
+    "add_median": "add_median_kernel<",
 }
 
 
@@ -106,6 +115,18 @@ def profile_pair(w: int, h: int, preset: str) -> dict:
             "by_kernel_top15": top, "level_kernels_by_gap": level}
 
 
+def _level_fields(w: int, h: int, seed: int) -> dict:
+    """Seeded level-0-sized fields on the card: an iterate T, the flow uv it
+    started from, grey derivatives fxyz and a tensor J."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    uv = torch.from_numpy((rng.standard_normal((2, h, w)) * 2.0).astype(np.float32)).to(dev)
+    T = uv + torch.from_numpy((rng.standard_normal((2, h, w)) * 0.1).astype(np.float32)).to(dev)
+    fxyz = torch.from_numpy((rng.standard_normal((3, h, w)) * 10.0).astype(np.float32)).to(dev)
+    J = torch.from_numpy(rng.standard_normal((5, h, w)).astype(np.float32)).to(dev)
+    return {"T": T, "uv": uv, "fxyz": fxyz, "J": J}
+
+
 def prologue_by_level(w: int, h: int, preset: str = "full_model", seed: int = 0) -> dict:
     """Both prologues at every level of one pair, on seeded fields cut from
     level-0-sized ones: per level [h, w, grey ms, tensor ms, grey bound ms,
@@ -114,12 +135,8 @@ def prologue_by_level(w: int, h: int, preset: str = "full_model", seed: int = 0)
     if not torch.cuda.is_available():
         raise RuntimeError("prologue_by_level times a CUDA card, and none is available")
     cfg = getattr(models, preset)()
-    rng = np.random.default_rng(seed)
-    dev = torch.device("cuda")
-    uv = torch.from_numpy((rng.standard_normal((2, h, w)) * 2.0).astype(np.float32)).to(dev)
-    T = uv + torch.from_numpy((rng.standard_normal((2, h, w)) * 0.1).astype(np.float32)).to(dev)
-    fxyz = torch.from_numpy((rng.standard_normal((3, h, w)) * 10.0).astype(np.float32)).to(dev)
-    J = torch.from_numpy(rng.standard_normal((5, h, w)).astype(np.float32)).to(dev)
+    x = _level_fields(w, h, seed)
+    T, uv, fxyz, J = x["T"], x["uv"], x["fxyz"], x["J"]
     e2 = float(np.float32(cfg.equation_smoothness) * np.float32(cfg.equation_smoothness))
     ed2 = float(np.float32(cfg.equation_data) * np.float32(cfg.equation_data))
     rows = []
@@ -147,15 +164,56 @@ def prologue_by_level(w: int, h: int, preset: str = "full_model", seed: int = 0)
             "timing": "CUDA-graph replay (roofline.graph_ms)", "device": device_info()}
 
 
+def sweeps_by_level(w: int, h: int, preset: str = "full_model", seed: int = 0) -> dict:
+    """The inner loop of one outer at every level of one pair, on seeded
+    fields cut from level-0-sized ones, with hoists from the grey prologue:
+    per level [h, w, chained ms, k-sweep ms, bound ms, design bytes], and
+    the sums over the pair (``outer_iterations_count`` loops per level)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweeps_by_level times a CUDA card, and none is available")
+    cfg = getattr(models, preset)()
+    inner, outer = cfg.inner_iterations_count, cfg.outer_iterations_count
+    # the kernel_work arguments of the loop's launches
+    loop = [kw for name, _, kw in level_launches(cfg) if name == "jacobi_sweeps"]
+    x = _level_fields(w, h, seed)
+    e2 = float(np.float32(cfg.equation_smoothness) * np.float32(cfg.equation_smoothness))
+    ed2 = float(np.float32(cfg.equation_data) * np.float32(cfg.equation_data))
+    rows = []
+    for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor):
+        lh, lw = s.height, s.width
+        t, u, f = (x[k][:, :lh, :lw].contiguous() for k in ("T", "uv", "fxyz"))
+        sc = LevelScalars.make(lw, lh, s.hx, s.hy, cfg.equation_alpha)
+        hoist = outer_prologue(t, u, f, sc.div2hx, sc.div2hy, sc.alpha_hx2, sc.alpha_hy2, e2, ed2)
+        runs = {"chain": lambda: jacobi_sweep_chain(t, u, hoist, inner),
+                "ksweep": lambda: jacobi_sweeps(t, u, hoist, inner)}
+        ms = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            ms[name].append(graph_ms(runs[name], calls=10, replays=3))
+        work = [kernel_work("jacobi_sweeps", lh, lw, **kw) for kw in loop]
+        rows.append([lh, lw, min(ms["chain"]), min(ms["ksweep"]),
+                     sum(wk["bound_ms"] for wk in work), sum(wk["design_bytes"] for wk in work)])
+    return {"shape": [h, w], "preset": preset, "outer": outer, "inner": inner,
+            "pair_ms": {k: outer * sum(r[2 + i] for r in rows)
+                        for i, k in enumerate(("chain", "ksweep"))},
+            "pair_bound_ms": outer * sum(r[4] for r in rows), "levels": rows,
+            "columns": ["h", "w", "chain_ms", "ksweep_ms", "bound_ms", "design_bytes"],
+            "timing": "CUDA-graph replay (roofline.graph_ms), the least of two runs in turns",
+            "device": device_info()}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--size", default="3840x2160", help="WxH")
     parser.add_argument("--preset", default="full_model", help="a function of tpuflow_torch.models")
-    parser.add_argument("--prologue-levels", action="store_true",
-                        help="time the outer prologue at every level instead of profiling")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--prologue-levels", action="store_true",
+                      help="time the outer prologue at every level instead of profiling")
+    mode.add_argument("--sweep-levels", action="store_true",
+                      help="time the inner sweeps at every level instead of profiling")
     args = parser.parse_args(argv)
     w, h = (int(x) for x in args.size.lower().split("x"))
-    run = prologue_by_level if args.prologue_levels else profile_pair
+    run = (prologue_by_level if args.prologue_levels
+           else sweeps_by_level if args.sweep_levels else profile_pair)
     print(json.dumps(run(w, h, args.preset)), flush=True)
     return 0
 

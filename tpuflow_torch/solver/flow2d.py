@@ -50,6 +50,17 @@ class FlowResult:
         return (w * h) / self.seconds / 1e6
 
 
+@contextlib.contextmanager
+def _full_float32():
+    """TF32 off for matmuls and cuDNN inside; the caller's flags after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
                  collect_trace: bool = False, device="cuda", _relax_for=None) -> FlowResult:
     """Dense 2D optical flow from frame_0 to frame_1, two (H, W) frames of
@@ -59,10 +70,11 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
     per level, timed by CUDA events on the card and by the host clock on
     the CPU; the flow is the same with or without it.
 
-    It switches TF32 off for matmuls and cuDNN (a process-wide PyTorch
-    setting): the smoothing and resample matmuls must be full float32, as
-    the JAX package's are (Precision.HIGHEST). ``_relax_for`` is
-    ``solve``'s per-level relaxation, for ``compute_flow_sharded``.
+    It switches TF32 off for matmuls and cuDNN for the solve (the smoothing
+    and resample matmuls must be full float32, as the JAX package's are,
+    Precision.HIGHEST) and gives both process-wide flags back as the caller
+    set them, also when the solve raises. ``_relax_for`` is ``solve``'s
+    per-level relaxation, for ``compute_flow_sharded``.
     """
     cfg = cfg or FlowConfig()
     device = torch.device(device)
@@ -72,11 +84,9 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
     f1 = np.asarray(frame_1, dtype=np.float32)
     if f0.shape != f1.shape or f0.ndim != 2:
         raise ValueError(f"expected two equal (H, W) frames, got {f0.shape} {f1.shape}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     guard = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
     trace = [] if collect_trace else None
-    with guard, Timer() as timer:
+    with _full_float32(), guard, Timer() as timer:
         uv = solve(torch.from_numpy(f0).to(device), torch.from_numpy(f1).to(device), cfg,
                    trace=trace, relax_for=_relax_for)
         uv = uv.cpu().numpy()

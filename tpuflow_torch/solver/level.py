@@ -9,7 +9,7 @@ synchronisation inside the loop. A level is
 
     resample (frames from the full-resolution smoothed pair, flow from the
     previous level) -> warp -> derivatives [-> gradient/log tensor] ->
-    outer x (prologue + inner x sweep) -> add + median
+    outer x (prologue + the inner sweeps) -> add + median
 
 where every step after the resample is a kernel wrapper from
 ``tpuflow_torch.ops``. The data constancy changes only the tensor the
@@ -32,7 +32,7 @@ import torch
 from tpuflow_torch.config import DataConstancy, FlowConfig
 from tpuflow_torch.ops.gaussian import gaussian_smooth
 from tpuflow_torch.ops.level import (
-    add_median, add_median_plain, jacobi_sweep, jacobi_sweep_plain,
+    add_median, add_median_plain, jacobi_sweep_chain, jacobi_sweeps, jacobi_sweeps_plain,
     level_derivs, level_derivs_plain, level_tensor, level_tensor_plain,
     outer_prologue, outer_prologue_plain,
 )
@@ -89,16 +89,19 @@ class Steps(NamedTuple):
     level_derivs: Callable
     level_tensor: Callable
     outer_prologue: Callable
-    jacobi_sweep: Callable
+    jacobi_sweeps: Callable   # (T, uv, hoist, inner) -> T after the inner sweeps
     add_median: Callable
 
 
 # The kernel wrappers (their plain versions on CPU tensors): the main path.
-KERNEL_STEPS = Steps(warp, level_derivs, level_tensor, outer_prologue, jacobi_sweep,
+KERNEL_STEPS = Steps(warp, level_derivs, level_tensor, outer_prologue, jacobi_sweeps,
                      add_median)
 # The plain PyTorch versions on any device, to compare the kernels against.
 PLAIN_STEPS = Steps(warp_plain, level_derivs_plain, level_tensor_plain,
-                    outer_prologue_plain, jacobi_sweep_plain, add_median_plain)
+                    outer_prologue_plain, jacobi_sweeps_plain, add_median_plain)
+# The kernel path with one launch per sweep, the k-sweep kernel's twin: the
+# same flow, bit for bit, at 5x the sweep launches.
+CHAIN_STEPS = KERNEL_STEPS._replace(jacobi_sweeps=jacobi_sweep_chain)
 
 
 def relax(fxyz: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
@@ -113,8 +116,7 @@ def relax(fxyz: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
     for _ in range(cfg.outer_iterations_count):
         hoist = _steps.outer_prologue(T, uv, fxyz, sc.div2hx, sc.div2hy,
                                       sc.alpha_hx2, sc.alpha_hy2, e_s2, e_d2, J)
-        for _ in range(cfg.inner_iterations_count):
-            T = _steps.jacobi_sweep(T, uv, hoist)
+        T = _steps.jacobi_sweeps(T, uv, hoist, cfg.inner_iterations_count)
     return T
 
 

@@ -16,11 +16,13 @@ The port of tools/roofline.py. It decomposes what bounds the sweep:
    ``solver/level.py::relax`` on exact-size fields at inner = 5 and inner =
    2 gives 3 x outer extra sweeps; the slope is the per-sweep device cost
    with the prologue and launch costs cancelled. It runs at 584x388 and
-   3840x2160. At 584x388 a sweep is a few microseconds of device time
-   against tens of host microseconds per launch, so each chain is captured
-   in a CUDA graph and replayed: the events then time the device.
-3. A sweep time predicted from the component rates and the sweep kernel's
-   per-pixel operand counts (``SWEEP_COUNTS``, counted from
+   3840x2160, once with the one-sweep kernel chained (``CHAIN_STEPS``, one
+   launch per sweep) and once with the main path's k-sweep kernel (one
+   launch per outer). At 584x388 a sweep is a few microseconds of device
+   time against tens of host microseconds per launch, so each chain is
+   captured in a CUDA graph and replayed: the events then time the device.
+3. A sweep time predicted from the component rates and the one-sweep
+   kernel's per-pixel operand counts (``SWEEP_COUNTS``, counted from
    ``jacobi_sweep_kernel``), printed against the measurement.
 
 ``kernel_work`` gives every kernel of the port its bytes, operations and
@@ -254,8 +256,23 @@ def _sharded_work(h: int, w: int, n_y: int, k: int, cfg: FlowConfig) -> tuple:
             h * w * outer * (pro_f + inner * sw_f), design)
 
 
+def _ksweep_design_bytes(h: int, w: int, inner: int) -> int:
+    """The bytes one jacobi_sweeps launch of ``inner`` sweeps streams: per
+    block T's 2 planes over its region (the tile and a k-pixel ring), u, v
+    and the 9 hoists over the pixels its first sweep updates (the region
+    less one pixel on each side that is not an image edge), the 2 planes of
+    its tile written."""
+    from tpuflow_torch.ops.level import ksweep_tiles
+
+    total = 0
+    for (ry0, ry1, rx0, rx1), (ty0, ty1, tx0, tx1) in ksweep_tiles(h, w, inner):
+        first = ((ry1 - ry0 - (ry0 > 0) - (ry1 < h)) * (rx1 - rx0 - (rx0 > 0) - (rx1 < w)))
+        total += 2 * (ry1 - ry0) * (rx1 - rx0) + 11 * first + 2 * (ty1 - ty0) * (tx1 - tx0)
+    return total * 4
+
+
 def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: int = 1,
-                cfg: FlowConfig | None = None) -> dict:
+                cfg: FlowConfig | None = None, inner: int = 5) -> dict:
     """What one launch of kernel ``name`` on an (h, w) level needs, and its
     bound on this card: the largest of device-memory bytes over the memory
     rate (each input byte read once, each output byte written once),
@@ -264,7 +281,10 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
     either memory, "operations" for the issue rate; ``resource`` names it.
 
     Names: the keys of ``_LEVEL_WORK``, ``add_median`` (window side
-    ``radius``), ``relax_sharded`` (one level's relaxation under ``cfg``,
+    ``radius``), ``jacobi_sweeps`` (one launch of ``inner`` <= KMAX sweeps:
+    13 planes read and 2 written once, ``inner`` sweeps of arithmetic; its
+    ``design_bytes`` are what the kernel's overlapping tiles stream),
+    ``relax_sharded`` (one level's relaxation under ``cfg``,
     default ``FlowConfig()``, over ``n_y`` shards, halos every ``k`` outers:
     ``_sharded_work``; its ``design_bytes`` are the bytes the kernel streams,
     at one shard those of the unsharded launches), ``roofline_micro_<body>`` (one call of
@@ -277,6 +297,15 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
     if name == "relax_sharded":
         nbytes, instr, flops, extra["design_bytes"] = _sharded_work(h, w, n_y, k,
                                                                     cfg or FlowConfig())
+    elif name == "jacobi_sweeps":
+        from tpuflow_torch.ops.level import KMAX
+
+        if not 1 <= inner <= KMAX:
+            raise ValueError(f"one jacobi_sweeps launch runs 1..{KMAX} sweeps, not {inner}")
+        nbytes = (13 + 2) * npix * 4   # a sweep's planes, each moved once
+        ops = _LEVEL_WORK["jacobi_sweep"][2]
+        instr, flops = (inner * npix * n for n in _instructions_and_flops(ops))
+        extra["design_bytes"] = _ksweep_design_bytes(h, w, inner)
     elif name in _LEVEL_WORK or name == "add_median":
         planes_in, planes_out, ops = (_LEVEL_WORK[name] if name in _LEVEL_WORK
                                       else _median_work(radius))
@@ -303,6 +332,36 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
             "bound_by": "operations" if resource == "float32 issue" else "bytes", **extra}
 
 
+def level_launches(cfg: FlowConfig | None = None) -> list:
+    """The launches one level of the level path (``solver/level.py``) makes
+    under ``cfg`` (default ``FlowConfig()``), as (``kernel_work`` name,
+    launches, ``kernel_work`` keyword arguments): the inner loop of each
+    outer iteration is ceil(inner / KMAX) jacobi_sweeps launches of at most
+    KMAX sweeps each, none for ``inner`` = 0."""
+    from tpuflow_torch.ops.level import KMAX
+    from tpuflow_torch.ops.median import effective_radius
+
+    cfg = cfg or FlowConfig()
+    outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
+    tensor = cfg.data_constancy != DataConstancy.GREY
+    out = [("warp", 1, {}), ("level_derivs", 1, {}),
+           ("add_median", 1, {"radius": effective_radius(cfg.median_radius)}),
+           ("outer_prologue_tensor" if tensor else "outer_prologue", outer, {})]
+    out += [("jacobi_sweeps", outer, {"inner": min(KMAX, inner - done)})
+            for done in range(0, inner, KMAX)]
+    if tensor:
+        log = cfg.data_constancy == DataConstancy.LOG_DERIVATIVES
+        out.append(("level_tensor_log" if log else "level_tensor_gradient", 1, {}))
+    return out
+
+
+def level_bound_ms(h: int, w: int, cfg: FlowConfig | None = None) -> float:
+    """The sum of launches x bound of the launches of one (h, w) level
+    (``level_launches``)."""
+    return sum(n * kernel_work(name, h, w, **kw)["bound_ms"]
+               for name, n, kw in level_launches(cfg))
+
+
 def pair_bounds(w: int, h: int, cfg: FlowConfig | None = None) -> dict:
     """{kernel: {"launches", "bound_ms"}} of one (w, h) pair of the level
     path (``solver/level.py``) under ``cfg`` (default ``FlowConfig()``):
@@ -311,23 +370,15 @@ def pair_bounds(w: int, h: int, cfg: FlowConfig | None = None) -> dict:
     pyramid's levels are smaller than level 0, so this is the bound a pair's
     device time by kernel (``profile_pair``) is read against, not launches
     x the level-0 bound."""
-    from tpuflow_torch.ops.median import effective_radius
     from tpuflow_torch.pyramid import level_schedule
 
     cfg = cfg or FlowConfig()
-    outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
-    tensor = cfg.data_constancy != DataConstancy.GREY
-    per_level = {"warp": 1, "level_derivs": 1, "jacobi_sweep": outer * inner, "add_median": 1,
-                 "outer_prologue_tensor" if tensor else "outer_prologue": outer}
-    if tensor:
-        log = cfg.data_constancy == DataConstancy.LOG_DERIVATIVES
-        per_level["level_tensor_log" if log else "level_tensor_gradient"] = 1
-    radius = effective_radius(cfg.median_radius)
-    out = {name: {"launches": 0, "bound_ms": 0.0} for name in per_level}
+    per_level = level_launches(cfg)
+    out = {name: {"launches": 0, "bound_ms": 0.0} for name, _, _ in per_level}
     for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor):
-        for name, n in per_level.items():
+        for name, n, kw in per_level:
             out[name]["launches"] += n
-            out[name]["bound_ms"] += n * kernel_work(name, s.height, s.width, radius)["bound_ms"]
+            out[name]["bound_ms"] += n * kernel_work(name, s.height, s.width, **kw)["bound_ms"]
     return out
 
 
@@ -418,12 +469,13 @@ def graph_ms(fn: Callable, calls: int = 50, replays: int = 20) -> float:
 
 
 def level_chain_seconds(w: int, h: int, inner: int, k_lo: int, k_hi: int, rounds: int,
-                        seed: int = 0) -> float:
+                        seed: int = 0, chained: bool = False) -> float:
     """Device seconds of one 40 x ``inner`` relaxation (``solver.level.relax``,
     grey) on seeded (h, w) fields: the slope over chains of k relaxations,
-    u += 0.001 du between them, each chain a replayed CUDA graph."""
+    u += 0.001 du between them, each chain a replayed CUDA graph. With
+    ``chained``, the sweeps are one-sweep launches (``CHAIN_STEPS``)."""
     from tpuflow_torch.ops.level import level_derivs
-    from tpuflow_torch.solver.level import LevelScalars, relax
+    from tpuflow_torch.solver.level import CHAIN_STEPS, KERNEL_STEPS, LevelScalars, relax
 
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
@@ -433,11 +485,12 @@ def level_chain_seconds(w: int, h: int, inner: int, k_lo: int, k_hi: int, rounds
     cfg = FlowConfig(inner_iterations_count=inner)
     sc = LevelScalars.make(w, h, 1.0, 1.0, cfg.equation_alpha)
     fxyz = level_derivs(f0, f1, sc.div4hx, sc.div4hy)
+    steps = CHAIN_STEPS if chained else KERNEL_STEPS
 
     def chain(k: int) -> torch.Tensor:
         uv = uv0
         for _ in range(k):
-            uv = uv + 0.001 * (relax(fxyz, uv, sc, cfg) - uv)
+            uv = uv + 0.001 * (relax(fxyz, uv, sc, cfg, _steps=steps) - uv)
         return uv
 
     graphs = {k: _graph(lambda k=k: chain(k)) for k in (k_lo, k_hi)}
@@ -504,15 +557,21 @@ def measure(k_lo: int = 4, k_hi: int = 16, rounds: int = 5, log=print) -> dict:
     c_access = base / 2  # base = 1 load + 1 flop ~ 2 issue slots
 
     # ---- measured production sweep (config differencing) ------------
+    # one-sweep launches chained (the twin), then the main path's k-sweep
+    # kernel, whose sweeps 3..5 are the marginal cost of a sweep in shared
+    # memory
     outer = 40
     sizes = {(584, 388): (k_lo, k_hi, rounds), (3840, 2160): (1, 3, 3)}
-    lvl_s, sweep_us = {}, {}
+    lvl_s, sweep_us, klvl_s, ksweep_us = {}, {}, {}, {}
     for (w, h), (lo, hi, rr) in sizes.items():
         key = f"{w}x{h}"
-        lvl_s[key] = {inner: level_chain_seconds(w, h, inner, lo, hi, rr) for inner in (2, 5)}
-        for inner, s in lvl_s[key].items():
-            log(f"{key} level inner={inner}: {s * 1e3:8.3f} ms per 40x{inner} relaxation")
-        sweep_us[key] = (lvl_s[key][5] - lvl_s[key][2]) / (outer * 3) * 1e6
+        for chained, levels, per_sweep in ((True, lvl_s, sweep_us), (False, klvl_s, ksweep_us)):
+            levels[key] = {inner: level_chain_seconds(w, h, inner, lo, hi, rr, chained=chained)
+                           for inner in (2, 5)}
+            for inner, s in levels[key].items():
+                log(f"{key} level inner={inner} ({'chained' if chained else 'k-sweep'}): "
+                    f"{s * 1e3:8.3f} ms per 40x{inner} relaxation")
+            per_sweep[key] = (levels[key][5] - levels[key][2]) / (outer * 3) * 1e6
 
     # ---- predicted sweep from components (per 392x640 field) ---------
     c = SWEEP_COUNTS
@@ -547,9 +606,13 @@ def measure(k_lo: int = 4, k_hi: int = 16, rounds: int = 5, log=print) -> dict:
         "level_ms": {str(k): v * 1e3 for k, v in lvl_s["584x388"].items()},
         "level_ms_by_size": {s: {str(k): v * 1e3 for k, v in d.items()}
                              for s, d in lvl_s.items()},
+        "ksweep_marginal_us_by_size": ksweep_us,
+        "ksweep_level_ms_by_size": {s: {str(k): v * 1e3 for k, v in d.items()}
+                                    for s, d in klvl_s.items()},
         "bucket": [HB, WB],
         "passes_per_call": PASSES,
-        "timing": "CUDA events; components: K-chained launches; sweep: replayed CUDA graphs",
+        "timing": "CUDA events; components: K-chained launches; sweep: replayed CUDA graphs; "
+                  "sweep_* one-sweep launches chained, ksweep_* the k-sweep kernel",
         "device": device_info(),
     }
 
