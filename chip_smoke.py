@@ -9,8 +9,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   2. build    nvcc builds tpuflow_torch/csrc into tpuflow_torch/_build
   3. kernels  each CUDA kernel against its plain PyTorch version on the card,
               on seeded inputs at 584x388, 1920x1080 and 3840x2160, the two
-              prologue rows bitwise and also at the edge shapes of their
-              tiles (PROLOGUE_SHAPES); times at 1920x1080 and 3840x2160.
+              prologue rows and the log tensor bitwise and also at the edge
+              shapes of their tiles (PROLOGUE_SHAPES, and LOG_TILE_SHAPES for
+              the log tensor's taller tile); times at 1920x1080 and
+              3840x2160 (the log tensor also by CUDA-graph replay).
               Then jacobi_sweeps (the k-sweep kernel) at inner 1, 2, 5 and
               7 > KMAX: bitwise against as many chained launches of the
               one-sweep kernel and within 1e-5 of its plain version, at those
@@ -52,12 +54,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
  11. trace    compute_flow(full_model(), collect_trace=True) at 3840x2160:
               the per-level ms against the per-level bound, the flow bit for
               bit against an untraced run; profiling.trace at 584x388
- 12. sharded  the row-sharded relaxation kernel (csrc/sharded.cu) against its
-              plain version and against the unsharded kernels at 584x388,
-              1920x1080 and 3840x2160 (4 shards, k = 1; 3 shards, k = 2;
-              grey, and gradient at 1920x1080); its ms at 1, 2 and 4 shards
-              on the level-0 shapes of 1920x1080 and 3840x2160 beside its
-              bound, the bytes it streams, and the unsharded relax;
+ 12. sharded  the row-sharded relaxation kernel (csrc/sharded.cu) bitwise
+              against its plain version and against the unsharded kernels at
+              SHARDED_CHECKS (584x388 to 3840x2160; 1 to 8 shards; k = 1, 2,
+              3; inner 1, 5, 7; grey, gradient and log; a level whose edge
+              shards hold fewer rows than a k-sweep region), each launch's
+              grid syncs, counted on the card, equal to
+              halo_kernel.grid_syncs; its ms at 1, 2 and 4 shards on the
+              level-0 shapes of 1920x1080 and 3840x2160 beside its bound,
+              its counted syncs, the bytes it streams, and the unsharded
+              relax;
               compute_flow_sharded(full_model()) at
               1920x1080 on 4 shards and on 1 against compute_flow, the shift
               and the launch counts, timed in turns with compute_flow; grey
@@ -110,27 +116,35 @@ ZERO_FLOW_EPE = float(np.hypot(1.25, -0.75))
 # Kernel vs plain on the card. Both sides round every operation as IEEE
 # float32 in the same association (no FMA contraction in the kernels), so
 # these bounds are loose; warp's taps gather differently-rounded weights.
-# level_derivs is bounded elementwise relative; the level tensors relative
-# to max|plain| over the whole field, because the card's log1pf and
-# torch.log1p are not bitwise equal. A bound of 0.0 is bitwise (max abs):
-# the median selects, and the prologue's tiles must give every value that
-# the plain version computes.
-BOUNDS = {"warp": 1e-4, "level_derivs": 1e-5, "level_tensor": 1e-5, "outer_prologue": 0.0,
-          "outer_prologue_tensor": 0.0, "jacobi_sweep": 1e-5, "jacobi_sweeps": 1e-5,
-          "add_median": 0.0}
+# level_derivs is bounded elementwise relative, the gradient tensor relative
+# to max|plain| over the whole field. A bound of 0.0 is bitwise (max abs):
+# the median selects, and the tiles of the prologues and of the log tensor
+# must give every value that the plain version computes (the log tensor: the
+# same log1pf of the same float in the same expression). One bound a row of
+# phase 3; the level tensor's two rows are one kernel's two constancies.
+BOUNDS = {"warp": 1e-4, "level_derivs": 1e-5, "level_tensor_gradient": 1e-5,
+          "level_tensor_log": 0.0, "outer_prologue": 0.0, "outer_prologue_tensor": 0.0,
+          "jacobi_sweep": 1e-5, "jacobi_sweeps": 1e-5, "add_median": 0.0}
+# The kernels by the names of their launch counts (the kernels line's rows).
+KERNELS = ("warp", "level_derivs", "level_tensor", "outer_prologue", "outer_prologue_tensor",
+           "jacobi_sweep", "jacobi_sweeps", "add_median")
 # jacobi_sweeps against as many chained one-sweep launches: the same
 # expression on the same operands, bitwise.
 CHAIN_BOUND = 0.0
 # The kernels of the main path; the one-sweep kernel is the k-sweep kernel's
 # twin and runs on phase 9's measurement path.
-MAIN_PATH = tuple(name for name in BOUNDS if name != "jacobi_sweep")
+MAIN_PATH = tuple(name for name in KERNELS if name != "jacobi_sweep")
 ELEMENTWISE_RELATIVE = ("level_derivs",)
-FIELD_RELATIVE = ("level_tensor_gradient", "level_tensor_log")
-# The prologue rows also run at the edge shapes of its 32 x 8 tiles (w = 2
-# and h = 2 among them; the default schedule's coarsest level is 22 x 13)
-# and at 2268 x 1276, a level of the 4K schedule whose h * w is odd.
-PROLOGUE_ROWS = ("outer_prologue", "outer_prologue_tensor")
+FIELD_RELATIVE = ("level_tensor_gradient",)
+# The prologue rows and the log tensor also run at the edge shapes of the
+# prologue's 32 x 8 tile (w = 2 and h = 2 among them; the default schedule's
+# coarsest level is 22 x 13) and at 2268 x 1276, a level of the 4K schedule
+# whose h * w is odd; the log tensor also at the edges of its 32 x 16 tile
+# (csrc/level.cu: LT_TH): one row short, one tile, one row more, two tiles
+# and one more.
+PROLOGUE_ROWS = ("outer_prologue", "outer_prologue_tensor", "level_tensor_log")
 PROLOGUE_SHAPES = ((2, 2), (5, 3), (22, 13), (33, 9), (65, 17), (97, 31), (2268, 1276))
+LOG_TILE_SHAPES = ((31, 15), (33, 16), (32, 17), (2, 32), (65, 33))
 # The k-sweep kernel's region is 64 x 32 (a 54 x 22 tile at 5 sweeps): levels
 # narrower and shorter than a region, one tile exactly, one pixel more or less
 # in each direction, and the same about a 54 x 14 tile
@@ -147,7 +161,13 @@ REDESIGNED = {"outer_prologue": PHI_TILE, "outer_prologue_tensor": PHI_TILE,
               "jacobi_sweeps": "the inner loop in one launch: k sweeps of a shared-memory tile "
                                "and its ring, replacing k one-sweep launches",
               "add_median": "a 99-exchange selection (19 at 3x3) over a shared tile of the sum, "
-                            "replacing a 300-exchange sort over device memory"}
+                            "replacing a 300-exchange sort over device memory",
+              "level_tensor_log": "log1pf once per staged frame value from a 32 x 16 shared "
+                                  "tile, where the stencil of each neighbour evaluated it "
+                                  "anew",
+              "relax_sharded": "the prologue's phi tiles and the k-sweep's regions inside the "
+                               "cooperative launch: 2 grid syncs an outer (3 with a push) in "
+                               "place of 6, loops over tiles in place of pixels"}
 RELAX = ("tpuflow/ops/pallas/relax_bucket.py:400; tpuflow/ops/pallas/relax_bucket.py:176; "
          "tpuflow/ops/pallas/relax_du.py:457; tpuflow/ops/pallas/relax_du.py:874; "
          "tpuflow/ops/pallas/relax_du.py:241")
@@ -275,16 +295,17 @@ def warp_twin(x: dict):
 
 def phase_kernels(shapes=(SIZES[0], SIZES[1], SIZE_4K), timed=(SIZES[1], SIZE_4K)):
     """Each kernel vs its plain version at ``shapes``, and the prologue rows
-    also at PROLOGUE_SHAPES; timed at ``timed``. Returns {row name:
-    {max_abs_err, ms, plain_ms, ms_4k, plain_ms_4k}}: the times at 1920x1080
-    and 3840x2160, the largest error over the shapes; for warp also its near
-    twin's (``near_twin_ms``)."""
+    also at PROLOGUE_SHAPES (the log tensor also at LOG_TILE_SHAPES); timed
+    at ``timed``. Returns {row name: {max_abs_err, ms, plain_ms, ms_4k,
+    plain_ms_4k}}: the times at 1920x1080 and 3840x2160, the largest error
+    over the shapes; for warp also its near twin's (``near_twin_ms``)."""
     import torch
 
-    from tpuflow_torch.tools.roofline import cuda_ms
+    from tpuflow_torch.tools.roofline import cuda_ms, graph_ms
 
     table = {}
-    runs = [(s, None) for s in shapes] + [(s, PROLOGUE_ROWS) for s in PROLOGUE_SHAPES]
+    runs = ([(s, None) for s in shapes] + [(s, PROLOGUE_ROWS) for s in PROLOGUE_SHAPES]
+            + [(s, ("level_tensor_log",)) for s in LOG_TILE_SHAPES])
     for (w, h), only in runs:
         x = kernel_inputs(w, h)
         for name, (kern, plain) in kernel_pairs(x).items():
@@ -302,7 +323,7 @@ def phase_kernels(shapes=(SIZES[0], SIZES[1], SIZE_4K), timed=(SIZES[1], SIZE_4K
                 check = err / max(float(want.abs().max()), 1e-30)
             else:
                 check = err
-            bound = BOUNDS[name if name in BOUNDS else "level_tensor"]
+            bound = BOUNDS[name]
             row = {"phase": "kernel", "name": name, "shape": [h, w], "max_abs_err": err,
                    "checked": check, "bound": bound, "ok": check <= bound}
             entry = table.setdefault(name, {"max_abs_err": 0.0})
@@ -314,6 +335,9 @@ def phase_kernels(shapes=(SIZES[0], SIZES[1], SIZE_4K), timed=(SIZES[1], SIZE_4K
                 if name == "warp":
                     row["near_twin_ms"] = entry["near_twin_ms" + suffix] = cuda_ms(
                         warp_twin(x), 20)
+                if name == "level_tensor_log":
+                    row["graph_ms"] = entry["graph_ms" + suffix] = graph_ms(kern, calls=20,
+                                                                           replays=5)
             emit(row)
             if not row["ok"]:
                 raise AssertionError(f"{name} at {w}x{h}: {check} > {bound}")
@@ -699,18 +723,22 @@ LEVEL_WORK = ("warp", "level_derivs", "level_tensor_gradient", "level_tensor_log
 
 
 def phase_sass(lib_path) -> None:
-    """Static SASS counts of the k-sweep kernel (5 sweeps) and the 5x5 median (roofline.sass_counts): all instructions,
-    the float32 arithmetic (FADD, FMUL, FFMA, MUFU), FMNMX, shared-memory
-    loads and stores, and per pixel-sweep (per pixel for the median: two
-    planes) of the code that one thread runs, every branch counted once."""
+    """Static SASS counts (roofline.sass_counts) of the k-sweep kernel (5
+    sweeps), the 5x5 median, the log tensor and the sharded kernel: all
+    instructions, the float32 arithmetic (FADD, FMUL, FFMA, MUFU), FMNMX,
+    shared-memory loads and stores, and per unit of the code that one thread
+    runs, every branch counted once: a pixel-sweep for the k-sweep, a pixel
+    (two planes) for the median; the whole kernel for the other two, whose
+    loops run a data-dependent number of times."""
     from tpuflow_torch.ops.level import KMAX, KSWEEP_RH
     from tpuflow_torch.tools.roofline import sass_counts
 
-    kinds = {"float32": ("FADD", "FMUL", "FFMA", "MUFU"), "fmnmx": ("FMNMX",),
-             "shared": ("LDS", "STS")}
-    # a k-sweep thread sweeps KSWEEP_RH / 8 pixels (csrc/level.cu: KS_TY)
+    kinds = {"float32": ("FADD", "FMUL", "FFMA", "MUFU"), "mufu": ("MUFU",),
+             "fmnmx": ("FMNMX",), "shared": ("LDS", "STS")}
+    # a k-sweep thread sweeps KSWEEP_RH / 8 pixels (csrc/level_body.cuh: KS_TY)
     wanted = {f"jacobi_sweeps_kernelILi{KMAX}E": KSWEEP_RH // 8 * KMAX,
-              "add_median_kernelILi5E": 1}
+              "add_median_kernelILi5E": 1, "level_tensor_log_kernel": 1,
+              "relax_sharded_kernelILb0E": 1, "relax_sharded_kernelILb1E": 1}
     for fn, c in sass_counts(lib_path).items():
         for key, units in wanted.items():
             if key in fn:
@@ -791,12 +819,23 @@ def phase_trace(w: int, h: int, bounds: dict):
                              f"profiler kernels {row['profiling_trace_kernel_events']}")
 
 
-# Phase 12: (width, height, shards, k, constancy) of the kernel-vs-plain
-# checks, all at the default 40 x 5.
-SHARDED_CHECKS = ((584, 388, 4, 1, "grey"), (1920, 1080, 4, 1, "grey"),
-                  (1920, 1080, 3, 2, "grey"), (1920, 1080, 4, 1, "gradient"),
-                  (3840, 2160, 4, 1, "grey"))
+# Phase 12: (width, height, shards, k, constancy, inner) of the
+# kernel-vs-plain checks, 40 outers each; log at xray_log(alpha=LOG_ALPHA).
+# At 300 x 64 on 4 shards every shard owns the gate's 16 rows: the edge
+# shards' padded rows are 22 and the inner ones' 28, fewer than a k-sweep
+# region's 32. Inner 7 runs a pass of 5 sweeps and one of 2.
+SHARDED_CHECKS = ((584, 388, 4, 1, "grey", 5), (584, 388, 4, 1, "grey", 1),
+                  (584, 388, 4, 1, "gradient", 7), (584, 388, 3, 2, "grey", 7),
+                  (300, 64, 4, 1, "grey", 5), (300, 64, 4, 1, "log", 5),
+                  (1920, 1080, 4, 1, "grey", 5), (1920, 1080, 3, 2, "grey", 5),
+                  (1920, 1080, 3, 3, "grey", 5), (1920, 1080, 8, 1, "grey", 5),
+                  (1920, 1080, 4, 1, "gradient", 5), (1920, 1080, 4, 1, "log", 5),
+                  (3840, 2160, 4, 1, "grey", 5))
+# The owned rows are bitwise those of the plain version and of relax.
+SHARDED_BOUND = 0.0
 SHARDED_TIMED_N_Y = (1, 2, 4)
+# rounds of the 1920x1080 pairs timed in turns
+SHARDED_ROUNDS = 5
 SHARDED_REPLACES = "tpuflow/parallel/halo_kernel.py:100 (relax_sharded_kernel; pl.pallas_call :384)"
 
 
@@ -822,39 +861,50 @@ def phase_sharded_kernel(card: str) -> dict:
     """relax_sharded_kernel against its plain version and against the
     unsharded kernels (launches not counted on the main path), and the
     kernel's times. Returns the kernels-line row without ``launches``."""
+    import dataclasses
+
     import torch
 
+    from tpuflow_torch import models
     from tpuflow_torch.config import FlowConfig
-    from tpuflow_torch.models import full_model
+    from tpuflow_torch.ops.level import level_tensor_plain
     from tpuflow_torch.parallel import make_mesh, relax_sharded, relax_sharded_kernel
+    from tpuflow_torch.parallel.halo_kernel import grid_syncs
     from tpuflow_torch.solver.level import relax
     from tpuflow_torch.tools.roofline import PEAK_BYTES_PER_S, cuda_ms, kernel_work
 
-    bound = BOUNDS["jacobi_sweep"]
+    bound = SHARDED_BOUND
     max_err, inputs = 0.0, {}
-    for w, h, n_y, k, constancy in SHARDED_CHECKS:
+    for w, h, n_y, k, constancy, inner in SHARDED_CHECKS:
         if (w, h) not in inputs:
             inputs.clear()
             torch.cuda.empty_cache()
             inputs[(w, h)] = kernel_inputs(w, h)
         x = inputs[(w, h)]
-        cfg = full_model() if constancy == "gradient" else FlowConfig()
-        J = x["J"] if constancy == "gradient" else None
+        cfg = {"grey": FlowConfig(), "gradient": models.full_model(),
+               "log": models.xray_log(alpha=LOG_ALPHA)}[constancy]
+        cfg = dataclasses.replace(cfg, inner_iterations_count=inner)
+        J = {"grey": None, "gradient": x["J"],
+             "log": level_tensor_plain(x["f0"], x["f1"], x["fxyz"], x["sc"], True)}[constancy]
         mesh = make_mesh(n_y)
         args = (x["fxyz"], x["uvf"], x["sc"], cfg, mesh, k)
-        got = relax_sharded_kernel(*args, J=J)
+        syncs = torch.zeros(1, dtype=torch.int32, device="cuda")
+        got = relax_sharded_kernel(*args, J=J, syncs=syncs)
         plain = relax_sharded(*args, J=J)
         unsharded = relax(x["fxyz"], x["uvf"], x["sc"], cfg, J=J)
         torch.cuda.synchronize()
         err = float((got - plain).abs().max())
         vs_relax = float((got - unsharded).abs().max())
-        max_err = max(max_err, err)
+        max_err = max(max_err, err, vs_relax)
         row = {"phase": "sharded_kernel", "shape": [h, w], "n_y": n_y, "k": k,
-               "constancy": constancy, "max_abs_err": err, "bound": bound,
+               "constancy": constancy, "inner": inner, "grid_syncs": int(syncs.item()),
+               "grid_syncs_expected": grid_syncs(cfg, n_y, k),
+               "max_abs_err": err, "bound": bound,
                "bitwise_plain": bool(torch.equal(got, plain)),
                "max_abs_vs_unsharded_kernels": vs_relax,
                "finite": bool(torch.isfinite(got).all())}
-        row["ok"] = row["finite"] and err <= bound and vs_relax <= bound
+        row["ok"] = (row["finite"] and err <= bound and vs_relax <= bound
+                     and row["grid_syncs"] == row["grid_syncs_expected"])
         emit(row)
         if not row["ok"]:
             raise AssertionError(f"relax_sharded at {w}x{h}, {n_y} shards, k={k}: {row}")
@@ -872,13 +922,18 @@ def phase_sharded_kernel(card: str) -> dict:
         for n_y in SHARDED_TIMED_N_Y:
             args = (x["fxyz"], x["uvf"], x["sc"], cfg, make_mesh(n_y))
             work = kernel_work("relax_sharded", h, w, n_y=n_y)
+            syncs = torch.zeros(1, dtype=torch.int32, device="cuda")
+            relax_sharded_kernel(*args, syncs=syncs)
             ms = cuda_ms(lambda: relax_sharded_kernel(*args), 3)
             row = {"phase": "sharded_time", "shape": [h, w], "n_y": n_y, "k": 1, "card": card,
                    "ms": ms, "plain_ms": cuda_ms(lambda: relax_sharded(*args), 1, warmup=False),
                    "unsharded_relax_ms": relax_ms, **work, "share": work["bound_ms"] / ms,
-                   "design_share": work["design_bytes"] / PEAK_BYTES_PER_S * 1e3 / ms}
+                   "design_share": work["design_bytes"] / PEAK_BYTES_PER_S * 1e3 / ms,
+                   "grid_syncs": int(syncs.item()), "grid_syncs_expected": grid_syncs(cfg, n_y)}
             times[(w, h, n_y)] = row
             emit(row)
+            if row["grid_syncs"] != row["grid_syncs_expected"]:
+                raise AssertionError(f"relax_sharded at {w}x{h}, {n_y} shards: {row}")
         if (w, h) == SIZES[1]:
             pair = sharded_pair_levels(x, card)
     del x
@@ -892,10 +947,15 @@ def phase_sharded_kernel(card: str) -> dict:
             "design_bytes": at_4k["design_bytes"], "design_share": at_4k["design_share"],
             "library_ms": None,
             "library": "none", "ms_1080p": at_1080p["ms"], "plain_ms_1080p": at_1080p["plain_ms"],
+            "design_share_1080p": at_1080p["design_share"],
             "unsharded_relax_ms": at_4k["unsharded_relax_ms"],
+            "grid_syncs_counted": {n: times[SIZE_4K + (n,)]["grid_syncs"]
+                                   for n in SHARDED_TIMED_N_Y},
+            "redesigned": REDESIGNED["relax_sharded"],
             "ms_by_n_y": {f"{w}x{h}": {n: times[(w, h, n)]["ms"] for n in SHARDED_TIMED_N_Y}
                           for w, h in (SIZES[1], SIZE_4K)},
-            "pair_ms_sum": pair["ms_sum"], "pair_bound_ms_sum": pair["bound_ms_sum"]}
+            "pair_ms_sum": pair["ms_sum"], "pair_bound_ms_sum": pair["bound_ms_sum"],
+            "pair_design_share": pair["design_share"]}
 
 
 def sharded_pair_levels(x: dict, card: str) -> dict:
@@ -907,22 +967,25 @@ def sharded_pair_levels(x: dict, card: str) -> dict:
     from tpuflow_torch.parallel import kernel_halo_applicable, make_mesh, relax_sharded_kernel
     from tpuflow_torch.pyramid import level_schedule
     from tpuflow_torch.solver.level import LevelScalars
-    from tpuflow_torch.tools.roofline import cuda_ms, kernel_work
+    from tpuflow_torch.tools.roofline import PEAK_BYTES_PER_S, cuda_ms, kernel_work
 
     cfg, mesh = full_model(), make_mesh(4)
     levels = [s for s in level_schedule(*SIZES[1], cfg.warp_levels_count, cfg.warp_scale_factor)
               if kernel_halo_applicable(s.height, mesh.n_y, cfg)]
-    ms = bound = 0.0
+    ms = bound = design = 0.0
     for s in levels:
         h, w = s.height, s.width
         fields = [x[key][:, :h, :w].contiguous() for key in ("fxyz", "uvf", "J")]
         sc = LevelScalars.make(w, h, 1.0, 1.0, cfg.equation_alpha)
         ms += cuda_ms(lambda: relax_sharded_kernel(fields[0], fields[1], sc, cfg, mesh,
                                                    J=fields[2]), 3)
-        bound += kernel_work("relax_sharded", h, w, n_y=mesh.n_y, cfg=cfg)["bound_ms"]
+        work = kernel_work("relax_sharded", h, w, n_y=mesh.n_y, cfg=cfg)
+        bound += work["bound_ms"]
+        design += work["design_bytes"] / PEAK_BYTES_PER_S * 1e3
     row = {"phase": "sharded_pair_levels", "shape": list(SIZES[1][::-1]), "card": card,
            "config": "models.full_model()", "n_y": mesh.n_y, "sharded_levels": len(levels),
-           "ms_sum": ms, "bound_ms_sum": bound, "share": bound / ms}
+           "ms_sum": ms, "bound_ms_sum": bound, "share": bound / ms,
+           "design_ms_sum": design, "design_share": design / ms}
     emit(row)
     return row
 
@@ -930,8 +993,8 @@ def sharded_pair_levels(x: dict, card: str) -> dict:
 def phase_sharded_e2e(card: str, unsharded_times: dict) -> int:
     """compute_flow_sharded(full_model()) at 1920x1080 on 4 shards and on 1
     (main path: counts 0 just before, read just after) against compute_flow,
-    the true shift and the expected launch counts; the three timed in turns;
-    then grey 584x388 on 4 shards against the oracle. Returns the 4-shard
+    the true shift and the expected launch counts; the three paths timed in
+    turns; then grey 584x388 on 4 shards against the oracle. Returns the 4-shard
     run's relax_sharded launches."""
     import torch
 
@@ -970,7 +1033,7 @@ def phase_sharded_e2e(card: str, unsharded_times: dict) -> int:
             launches = counts["relax_sharded"]
         runs[n_y] = mesh
 
-    # Pairs timed in turns: unsharded, 4 shards, 1 shard, three rounds.
+    # Pairs timed in turns: unsharded, 4 shards, 1 shard, SHARDED_ROUNDS rounds.
     paths = {"unsharded": lambda: compute_flow(f0, f1, cfg, device="cuda")}
     for n_y, mesh in runs.items():
         paths[f"sharded_{n_y}"] = lambda m=mesh: compute_flow_sharded(f0, f1, cfg, mesh=m,
@@ -978,7 +1041,7 @@ def phase_sharded_e2e(card: str, unsharded_times: dict) -> int:
     for fn in paths.values():
         fn()  # warm-up pair
     ms = {name: [] for name in paths}
-    for _ in range(3):
+    for _ in range(SHARDED_ROUNDS):
         for name, fn in paths.items():
             ms[name].append(cuda_ms(fn, 1, warmup=False))
     row = {"phase": "sharded_times", "shape": [h, w], "card": card,
@@ -987,6 +1050,8 @@ def phase_sharded_e2e(card: str, unsharded_times: dict) -> int:
     for name, v in ms.items():
         row[f"{name}_ms_median"] = statistics.median(v)
         row[f"{name}_ms_all"] = v
+    # a gap the host's spread between runs cannot explain
+    row["sharded_4_below_every_unsharded"] = max(ms["sharded_4"]) < min(ms["unsharded"])
     emit(row)
 
     # Grey 584x388, reduced schedule, 4 shards, against the oracle.
@@ -1085,7 +1150,7 @@ def main() -> int:
 
     # The kernels line: times and bounds at 3840x2160 (1920x1080 beside them).
     rows = []
-    for name in BOUNDS:
+    for name in KERNELS:
         t = table["level_tensor_gradient" if name == "level_tensor" else name]
         b = bounds["level_tensor_gradient" if name == "level_tensor" else name]
         row = {"name": name, "route": "cuda", "source": "tpuflow_torch/csrc/level.cu",
@@ -1115,9 +1180,13 @@ def main() -> int:
         if name == "level_tensor":
             log, blog = table["level_tensor_log"], bounds["level_tensor_log"]
             row.update(max_abs_err=max(t["max_abs_err"], log["max_abs_err"]),
+                       log_max_abs_err=log["max_abs_err"],
                        log_ms=log["ms_4k"], log_plain_ms=log["plain_ms_4k"],
+                       log_graph_ms=log["graph_ms_4k"], log_ms_1080p=log["ms"],
+                       log_graph_ms_1080p=log["graph_ms"],
                        log_bound_ms=blog["bound_ms"], log_bound_by=blog["bound_by"],
-                       log_resource=blog["resource"], log_share=blog["share"])
+                       log_resource=blog["resource"], log_share=blog["share"],
+                       log_redesigned=REDESIGNED["level_tensor_log"])
         rows.append(row)
     for name, p in probes.items():
         rows.append({"name": name, "route": "cuda", "replaces": REPLACES[name], **p})

@@ -243,7 +243,7 @@ def test_one_block_per_tile_of_the_launch_grid(h, w, k, blocks):
 
 
 def test_geometry_constants_match_the_kernel_source():
-    src = (Path(CSRC) / "level.cu").read_text()
+    src = (Path(CSRC) / "level_body.cuh").read_text()
     consts = {m.group(1): int(m.group(2))
               for m in re.finditer(r"constexpr int (KS_\w+) = (\d+);", src)}
     assert consts["KS_KMAX"] == L.KMAX

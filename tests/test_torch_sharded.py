@@ -309,7 +309,7 @@ def test_bad_arguments_raise():
         make_mesh(MAX_SHARDS + 1, device="cpu")
     with pytest.raises(ValueError, match="shards"):
         Mesh(0, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1, multiple GPUs"):
         make_mesh(2, device=["cuda:0", "cuda:1"])
     assert make_mesh(2, device=["cpu", "cpu"]) == Mesh(2, torch.device("cpu"))
 
@@ -342,16 +342,33 @@ def test_cuda_without_cuda_raises():
 # ---------------------------------------------------------------------------
 
 
+def tiles_design(h, w, n_y, k, tensor, outer=40, inner=5):
+    """What the kernel's tile bodies stream over every shard's padded rows:
+    per outer one pass of 64-wide prologue tiles and one of k-sweep regions
+    (csrc/sharded.cu)."""
+    rows = [sh.padded for sh in row_split(h, n_y, k * (inner + 1))]
+    return sum(outer * (R._prologue_design_bytes(p, w, tensor, 64)
+                        + R._ksweep_design_bytes(p, w, inner)) for p in rows)
+
+
 @pytest.mark.parametrize("constancy", CONSTANCIES)
 def test_work_at_one_shard_is_the_unsharded_relax(constancy):
     h, w, outer, inner = 1080, 1920, 40, 5
     _, cfg = cfgs(constancy)
+    tensor = constancy != "grey"
     work = R.kernel_work("relax_sharded", h, w, n_y=1, cfg=cfg)
     pro = R.kernel_work("outer_prologue" if constancy == "grey" else "outer_prologue_tensor", h, w)
     sweep = R.kernel_work("jacobi_sweep", h, w)
-    # the kernel streams what the 40 + 200 unsharded launches stream, and
-    # does their arithmetic
-    assert work["design_bytes"] == outer * pro["bytes"] + outer * inner * sweep["bytes"]
+    # the kernel streams the tiles and regions of the 40 + 40 unsharded
+    # launches (its prologue tiles 64 wide where the launch's are 32), and
+    # copies the level's planes in and T out once
+    consts = 5 + (5 if tensor else 0)
+    copies = (consts + (consts + 2) + 2 + 2) * h * w * 4
+    assert work["design_bytes"] == copies + tiles_design(h, w, 1, 1, tensor)
+    unsharded = outer * (R._prologue_design_bytes(h, w, tensor, 32)
+                         + R._ksweep_design_bytes(h, w, inner))
+    assert 1.0 < work["design_bytes"] / unsharded < 1.02
+    # and does their arithmetic
     for key in ("instructions", "flops"):
         assert work[key] == outer * pro[key] + outer * inner * sweep[key]
     # but the function reads uv, fxyz (and J) once and writes T once, so
@@ -369,10 +386,11 @@ def test_work_of_four_shards_adds_the_margin_and_the_exchanges():
     four = R.kernel_work("relax_sharded", h, w, n_y=4, k=k)
     halo = k * (inner + 1)
     margin = 2 * halo * 3                        # two halos at each of 3 boundaries
-    per_row = (outer * 16 + outer * inner * 17) * w * 4
+    assert sum(sh.padded for sh in row_split(h, 4, halo)) == h + margin
     plane_halos = 3 * 2 * halo * w * 4 * 2      # boundaries x ways x rows x w x 4 B, r + w
     assert four["design_bytes"] - one["design_bytes"] == (
-        margin * per_row + outer * 2 * plane_halos + 5 * plane_halos)
+        tiles_design(h, w, 4, k, False) - tiles_design(h, w, 1, k, False)
+        + outer * 2 * plane_halos + 5 * plane_halos)
     # the margin and the exchanges are the design's, not the function's
     for key in ("bytes", "instructions", "flops", "bound_ms"):
         assert four[key] == one[key]
@@ -381,11 +399,12 @@ def test_work_of_four_shards_adds_the_margin_and_the_exchanges():
     no_outer = R.kernel_work("relax_sharded", h, w, n_y=4, k=2,
                              cfg=FlowConfig(outer_iterations_count=0))
     assert k2["design_bytes"] - no_outer["design_bytes"] == (
-        (h + 2 * margin) * per_row + (outer // 2) * 2 * (2 * plane_halos))
-    # the gradient/log tensor: 5 more planes per prologue, and J's halos once
+        tiles_design(h, w, 4, 2, False) + (outer // 2) * 2 * (2 * plane_halos))
+    # the gradient/log tensor: 5 more planes per prologue pixel, J's halos
+    # once, and J copied in
     grad = R.kernel_work("relax_sharded", h, w, n_y=4, cfg=cfgs("gradient")[1])
     assert grad["design_bytes"] - four["design_bytes"] == (
-        (h + margin) * outer * 5 * w * 4 + 5 * plane_halos)
+        (h + margin) * outer * 5 * w * 4 + 5 * plane_halos + 2 * 5 * h * w * 4)
     assert grad["bytes"] - four["bytes"] == 5 * h * w * 4
 
 

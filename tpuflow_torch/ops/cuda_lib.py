@@ -50,7 +50,7 @@ SIGNATURES = {
     "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
     "tf_roofline_micro": (_P, _P, _P, _I, _I, _I, _I, _P),
     "tf_probe_matmul": (_P, _P, _P, _I, _I, _I, _P),
-    "tf_relax_sharded": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "tf_relax_sharded": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _F, _P),
 }
 

@@ -93,6 +93,9 @@ def level_tensor(f0_l, f1_w, fxyz, sc, log: bool) -> torch.Tensor:
     _check_planes(h, w, fxyz=(fxyz, 3))
     if not on_cuda(f0_l, f1_w, fxyz):
         return level_tensor_plain(f0_l, f1_w, fxyz, sc, log)
+    if log and min(h, w) < 2:
+        raise ValueError(f"the log tensor's reflect stencil needs a level of at least 2x2, "
+                         f"got {h}x{w}")
     J = torch.empty((N_TENSOR, h, w), dtype=torch.float32, device=f0_l.device)
     launch("tf_level_tensor", f0_l.data_ptr(), f1_w.data_ptr(), fxyz.data_ptr(),
            J.data_ptr(), h, w, float(sc.div4hx), float(sc.div4hy), float(sc.hx_1),
@@ -133,6 +136,25 @@ def outer_prologue_plain(T, uv, fxyz, div2hx, div2hy, alpha_hx2, alpha_hy2,
         ksi * J12, ksi * J13, ksi * J23,
         ksi * J11 + sum_h, ksi * J22 + sum_h,
     ])
+
+
+# The prologue kernel's tile: PROLOGUE_TW x PROLOGUE_TH pixels, one thread
+# each (csrc/level.cu: PRO_TW; csrc/level_body.cuh: PRO_TH).
+PROLOGUE_TW = 32
+PROLOGUE_TH = 8
+
+
+def prologue_tiles(h: int, w: int, tw: int = PROLOGUE_TW):
+    """The tiles of one prologue launch on an (h, w) level, or of one pass of
+    the sharded kernel's tw-wide tiles over a shard's padded rows, as
+    ((y0, y1, x0, x1) of T staged, (y0, y1, x0, x1) of the tile): half-open
+    image ranges clipped to the image. T is staged over the tile plus a
+    2-pixel ring."""
+    for y0 in range(0, h, PROLOGUE_TH):
+        for x0 in range(0, w, tw):
+            y1, x1 = min(h, y0 + PROLOGUE_TH), min(w, x0 + tw)
+            yield ((max(0, y0 - 2), min(h, y1 + 2), max(0, x0 - 2), min(w, x1 + 2)),
+                   (y0, y1, x0, x1))
 
 
 def outer_prologue(T, uv, fxyz, div2hx, div2hy, alpha_hx2, alpha_hy2,
@@ -200,7 +222,7 @@ def jacobi_sweep(T, uv, hoist) -> torch.Tensor:
 
 # Sweeps per launch of jacobi_sweeps_kernel, and its region of KSWEEP_RW x
 # KSWEEP_RH pixels: a (KSWEEP_RW - 2k) x (KSWEEP_RH - 2k) output tile and a
-# k-pixel ring (csrc/level.cu: KS_KMAX, KS_RW, KS_RH).
+# k-pixel ring (csrc/level_body.cuh: KS_KMAX, KS_RW, KS_RH).
 KMAX = 5
 KSWEEP_RW = 64
 KSWEEP_RH = 32

@@ -9,8 +9,8 @@ spatial path with ``halo="kernel"``).
   * ``tpuflow_torch.solver.sharded.compute_flow_sharded``: the pipeline.
 
 Data parallelism, the explicit exchange, the dp x sp hybrid, the cost
-router and meshes over several cards are not ported yet (ROADMAP Queue 1
-item 10).
+router and meshes over several cards are not ported yet (ROADMAP Queue 1,
+multiple GPUs).
 """
 
 from tpuflow_torch.parallel.halo import halo_applicable, relax_sharded, row_split  # noqa: F401

@@ -4,7 +4,7 @@ The JAX package lays a ``("data", "y")`` mesh over chips, and shards image
 rows over ``y``. In the port a mesh is ``n_y`` row shards on one explicit
 device: all shards of a level live on one card, and the sharded relaxation
 kernel (csrc/sharded.cu) exchanges their halos inside one launch. A mesh
-over several cards is not ported yet (ROADMAP Queue 1 item 10).
+over several cards is not ported yet (ROADMAP Queue 1, multiple GPUs).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def make_mesh(n_y: int, device: Union[Device, Sequence[Device]] = "cuda") -> Mes
     if len(distinct) > 1:
         raise NotImplementedError(
             f"a mesh over several devices ({sorted(map(str, distinct))}) is not ported yet: "
-            "ROADMAP Queue 1 item 10 (peer pointers in the shard struct, or the explicit "
+            "ROADMAP Queue 1, multiple GPUs (peer pointers in the shard struct, or the explicit "
             "exchange over torch.distributed)")
     if len(devices) > 1 and len(devices) != n_y:
         raise ValueError(f"{len(devices)} devices for {n_y} shards")

@@ -26,7 +26,16 @@ of the card's rate for a stream that reads as much as it writes: one
 times the inner loop of one outer iteration at each level the same way, in
 turns: ``inner`` chained one-sweep launches, and ``ops.level.jacobi_sweeps``
 as the main path runs it; beside the bound of the function and the bytes the
-k-sweep kernel streams. All three need a CUDA device, and raise without one.
+k-sweep kernel streams.
+
+    python -m tpuflow_torch.profile_pair --size 3840x2160 --relax-levels
+
+times a level's whole relaxation at each level that the sharded kernel's
+gate admits at one shard: ``solver.level.relax`` (``outer`` prologue and
+k-sweep launches, paced by the host) against one launch of
+``relax_sharded_kernel`` on a one-shard mesh, in turns, by CUDA events; and
+names the largest level where the one launch wins. All four need a CUDA
+device, and raise without one.
 """
 
 from __future__ import annotations
@@ -41,12 +50,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tpuflow_torch import compute_flow, models
+from tpuflow_torch.config import DataConstancy
 from tpuflow_torch.ops.level import jacobi_sweep_chain, jacobi_sweeps, outer_prologue
+from tpuflow_torch.parallel import kernel_halo_applicable, make_mesh, relax_sharded_kernel
 from tpuflow_torch.pyramid import level_schedule
-from tpuflow_torch.solver.level import LevelScalars
+from tpuflow_torch.solver.level import LevelScalars, relax
 from tpuflow_torch.synthetic import textured_pair
 from tpuflow_torch.tools.roofline import (
-    device_info, graph_ms, kernel_work, level_launches, pair_bounds,
+    cuda_ms, device_info, graph_ms, kernel_work, level_launches, pair_bounds,
 )
 
 REPS = 3
@@ -55,8 +66,8 @@ PROFILER_OVERHEAD = ("Activity Buffer Request",)  # CUPTI's own device records
 # roofline.kernel_work names -> the demangled kernel name in csrc/level.cu
 LEVEL_KERNELS = {
     "warp": "warp_kernel(", "level_derivs": "level_derivs_kernel(",
-    "level_tensor_gradient": "level_tensor_kernel<false>",
-    "level_tensor_log": "level_tensor_kernel<true>",
+    "level_tensor_gradient": "level_tensor_kernel(",
+    "level_tensor_log": "level_tensor_log_kernel(",
     "outer_prologue": "outer_prologue_kernel<false>",
     "outer_prologue_tensor": "outer_prologue_kernel<true>",
     "jacobi_sweep": "jacobi_sweep_kernel(", "jacobi_sweeps": "jacobi_sweeps_kernel<",
@@ -201,6 +212,46 @@ def sweeps_by_level(w: int, h: int, preset: str = "full_model", seed: int = 0) -
             "device": device_info()}
 
 
+def relax_by_level(w: int, h: int, preset: str = "full_model", seed: int = 0,
+                   reps: int = 5) -> dict:
+    """A level's relaxation at every level of one pair that
+    ``kernel_halo_applicable(h, 1, cfg)`` admits, on seeded fields cut from
+    level-0-sized ones: per level [level, h, w, relax ms, one-launch ms],
+    each the least of two runs of ``reps`` calls in turns (relax, one
+    launch, one launch, relax), host-paced as the main path runs them; the
+    sums over those levels; and the largest level (by pixels) where the one
+    launch is faster."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("relax_by_level times a CUDA card, and none is available")
+    cfg = getattr(models, preset)()
+    tensor = cfg.data_constancy != DataConstancy.GREY
+    x = _level_fields(w, h, seed)
+    mesh = make_mesh(1)
+    rows = []
+    for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor):
+        lh, lw = s.height, s.width
+        if not kernel_halo_applicable(lh, 1, cfg):
+            continue
+        u, f, j = (x[k][:, :lh, :lw].contiguous() for k in ("uv", "fxyz", "J"))
+        J = j if tensor else None
+        sc = LevelScalars.make(lw, lh, s.hx, s.hy, cfg.equation_alpha)
+        runs = {"relax": lambda: relax(f, u, sc, cfg, J=J),
+                "one_launch": lambda: relax_sharded_kernel(f, u, sc, cfg, mesh, J=J)}
+        ms = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            ms[name].append(cuda_ms(runs[name], reps))
+        rows.append([s.level, lh, lw, min(ms["relax"]), min(ms["one_launch"])])
+    wins = [r for r in rows if r[4] < r[3]]
+    largest = max(wins, key=lambda r: r[1] * r[2]) if wins else None
+    return {"shape": [h, w], "preset": preset, "constancy": cfg.data_constancy.value,
+            "levels": rows, "columns": ["level", "h", "w", "relax_ms", "one_launch_ms"],
+            "sum_ms": {"relax": sum(r[3] for r in rows), "one_launch": sum(r[4] for r in rows)},
+            "levels_where_one_launch_wins": [r[0] for r in wins],
+            "largest_level_where_one_launch_wins": largest,
+            "timing": f"CUDA events over {reps} host-paced calls, the least of two runs in turns",
+            "device": device_info()}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--size", default="3840x2160", help="WxH")
@@ -210,10 +261,13 @@ def main(argv=None) -> int:
                       help="time the outer prologue at every level instead of profiling")
     mode.add_argument("--sweep-levels", action="store_true",
                       help="time the inner sweeps at every level instead of profiling")
+    mode.add_argument("--relax-levels", action="store_true",
+                      help="time relax against the one-shard sharded kernel at every level")
     args = parser.parse_args(argv)
     w, h = (int(x) for x in args.size.lower().split("x"))
     run = (prologue_by_level if args.prologue_levels
-           else sweeps_by_level if args.sweep_levels else profile_pair)
+           else sweeps_by_level if args.sweep_levels
+           else relax_by_level if args.relax_levels else profile_pair)
     print(json.dumps(run(w, h, args.preset)), flush=True)
     return 0
 

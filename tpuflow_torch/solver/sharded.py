@@ -26,8 +26,8 @@ from tpuflow_torch.solver.level import relax
 
 # The halo modes of the JAX pipeline that the port does not run.
 NOT_PORTED = {
-    "explicit": "the exchange outside the kernel is ROADMAP Queue 1 item 10",
-    "auto": "the cost router is ROADMAP Queue 1 item 10",
+    "explicit": "the exchange outside the kernel is ROADMAP Queue 1 (multiple GPUs)",
+    "auto": "the cost router is ROADMAP Queue 1 (multiple GPUs)",
     "gspmd": "compiler-partitioned stencils are on ROADMAP's 'Do not port' list",
 }
 

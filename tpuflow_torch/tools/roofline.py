@@ -235,25 +235,49 @@ def _sharded_work(h: int, w: int, n_y: int, k: int, cfg: FlowConfig) -> tuple:
     gradient/log tensor, J read once, T written once, and ``outer``
     prologues and ``outer * inner`` sweeps of arithmetic over the h x w
     owned pixels, whatever the shard count. The design bytes are what the
-    kernel streams: the prologues and sweeps over every shard's padded rows
-    (halo = k (inner + 1) rows toward each neighbour shard), counted as the
-    unsharded kernels count them; plus the iterate's halos (2 planes, each
-    way across each of the n_y - 1 shard boundaries, read and written) once
-    every k outers, and the constants' halos (uv, fxyz, J) once."""
+    kernel streams (csrc/sharded.cu): the copy-in and copy-out of the owned
+    rows; per outer, over every shard's padded rows (halo = k (inner + 1)
+    rows toward each neighbour shard), its prologue tiles
+    (``_prologue_design_bytes``, 64 wide) and ceil(inner / KMAX) passes of
+    k-sweep regions (``_ksweep_design_bytes``); and the pushes: the
+    iterate's halos (2 planes, each way across each of the n_y - 1 shard
+    boundaries, read and written) once every k outers, the constants' (uv,
+    fxyz, J) once."""
+    from tpuflow_torch.ops.level import KMAX
+    from tpuflow_torch.parallel.halo import row_split
+    from tpuflow_torch.parallel.halo_kernel import SHARDED_PROLOGUE_TW
+
     outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
     tensor = cfg.data_constancy != DataConstancy.GREY
     halo = k * (inner + 1)
-    px = (h + 2 * halo * (n_y - 1)) * w
-    pro_in, pro_out, pro_ops = _LEVEL_WORK["outer_prologue_tensor" if tensor else "outer_prologue"]
-    sw_in, sw_out, sw_ops = _LEVEL_WORK["jacobi_sweep"]
-    design = outer * (pro_in + pro_out) * px * 4 + outer * inner * (sw_in + sw_out) * px * 4
+    consts = 2 + 3 + (5 if tensor else 0)
+    passes = [min(KMAX, inner - done) for done in range(0, inner, KMAX)]
+    design = (consts + (consts + 2) + 2 + 2) * h * w * 4   # copy-in, copy-out
+    for sh in row_split(h, n_y, halo):
+        design += outer * (_prologue_design_bytes(sh.padded, w, tensor, SHARDED_PROLOGUE_TW)
+                           + sum(_ksweep_design_bytes(sh.padded, w, kk) for kk in passes))
     plane_halos = (n_y - 1) * 2 * halo * w * 4 * 2   # boundaries x ways x rows x w x 4 B, r + w
-    design += -(-outer // k) * 2 * plane_halos + (2 + 3 + (5 if tensor else 0)) * plane_halos
-    nbytes = (2 + 3 + (5 if tensor else 0) + 2) * h * w * 4
+    design += -(-outer // k) * 2 * plane_halos + consts * plane_halos
+    nbytes = (consts + 2) * h * w * 4
+    pro_ops = _LEVEL_WORK["outer_prologue_tensor" if tensor else "outer_prologue"][2]
     pro_i, pro_f = _instructions_and_flops(pro_ops)
-    sw_i, sw_f = _instructions_and_flops(sw_ops)
+    sw_i, sw_f = _instructions_and_flops(_LEVEL_WORK["jacobi_sweep"][2])
     return (nbytes, h * w * outer * (pro_i + inner * sw_i),
             h * w * outer * (pro_f + inner * sw_f), design)
+
+
+def _prologue_design_bytes(h: int, w: int, tensor: bool, tw: int) -> int:
+    """The bytes one pass of tw x 8 prologue tiles over an (h, w) block
+    streams: per tile T's 2 planes over the tile and its 2-pixel ring, the
+    5 (grey) or 10 (with J) planes read once over the tile, the 9 hoists
+    written."""
+    from tpuflow_torch.ops.level import prologue_tiles
+
+    once = 5 + (5 if tensor else 0) + 9
+    total = 0
+    for (sy0, sy1, sx0, sx1), (y0, y1, x0, x1) in prologue_tiles(h, w, tw):
+        total += 2 * (sy1 - sy0) * (sx1 - sx0) + once * (y1 - y0) * (x1 - x0)
+    return total * 4
 
 
 def _ksweep_design_bytes(h: int, w: int, inner: int) -> int:
@@ -286,8 +310,8 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
     ``design_bytes`` are what the kernel's overlapping tiles stream),
     ``relax_sharded`` (one level's relaxation under ``cfg``,
     default ``FlowConfig()``, over ``n_y`` shards, halos every ``k`` outers:
-    ``_sharded_work``; its ``design_bytes`` are the bytes the kernel streams,
-    at one shard those of the unsharded launches), ``roofline_micro_<body>`` (one call of
+    ``_sharded_work``; its ``design_bytes`` are the bytes the kernel streams:
+    its tiles, regions, pushes and copies), ``roofline_micro_<body>`` (one call of
     ``PASSES`` passes on an (h, w) field, one shared-memory load per pass by
     the probe's design) and ``probe_matmul`` ((h, H0) @ (H0, w), one FFMA
     per product)."""
