@@ -68,8 +68,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               1920x1080 on 4 shards and on 1 against compute_flow, the shift
               and the launch counts, timed in turns with compute_flow; grey
               584x388 on 4 shards against the oracle (reduced schedule)
+ 13. sequence process_sequence on 6 pairs of seeded 1920x1080 f32 RAW frames
+              (FlowConfig()) with chain=1 and chain=3, byte for byte against
+              compute_flow per pair followed by the same writers; a resume
+              from a manifest of the first three pairs (exactly the other
+              three complete); the wall per pair of each mode
+ 14. batch    compute_flow on a (3, 388, 584) stack, bitwise three single calls
+ 15. warp     compute_flow_warp_report on the blobs of tests/test_bucketed.py
+              at 584x388 moved by 0.8 px (every tier 0) and 6.5 px (tier 1 at
+              least once), the flow bitwise compute_flow's
+ 16. async    with a 3840x2160 full_model() pair and a 0.5 s device sleep
+              queued, the next pair's staged upload returns while they still
+              run, where a pageable upload waits; the presmooth's matrices
+              come from the device cache; how many launches the host queues
+              ahead of the card before one waits
+ 17. bench    python -m tpuflow_torch.bench's line (bench.main, in this
+              process) for 584x388 grey (with --epe: the full-schedule EPE
+              against the oracle for grey, full_model() and
+              xray_log(alpha=1e-3), gated at 0.05 px), 1920x1080 grey and
+              3840x2160 full_model()
 
-Each main-path run of phases 4-6, 11 and 12, and the measurement path of
+Each main-path run of phases 4-6, 11-15 and 17, and the measurement path of
 phase 9, sets every launch count to 0 just before it and reads the counts
 just after. The one-sweep kernel (jacobi_sweep) is off the main path: its
 launches are those of phase 9's measurement path, which differences the
@@ -1075,6 +1094,300 @@ def phase_sharded_e2e(card: str, unsharded_times: dict) -> int:
     return launches
 
 
+# Phases 13-17: the streaming path. The sequence: SEQ_FRAMES seeded 1920x1080
+# textured frames, each moved by SEQ_STEP px from the one before, as f32 RAW.
+SEQ_FRAMES = 7
+SEQ_STEP = (0.6, -0.4)
+SEQ_CHAINS = (1, 3)
+BATCH = 3
+# The warp report on the blobs of tests/test_bucketed.py:365-400 at 584x388,
+# moved by 0.8 px (every tier 0) and by 6.5 px (tier 1 at a fine level),
+# with that test's schedule, which tracks the motion.
+WARP_SHIFTS = (0.8, 6.5)
+WARP_CFG = dict(warp_levels_count=8, warp_scale_factor=0.6, outer_iterations_count=30,
+                inner_iterations_count=5, equation_alpha=10.0, median_radius=3,
+                gaussian_sigma=1.5)
+# The bench's cells (PERF.md section 4), cut in runs and chain lengths to fit
+# the smoke run; the 584x388 grey cell also takes --epe.
+BENCH_CELLS = (("584x388", "grey", 5, 16, True), ("1920x1080", "grey", 3, 12, False),
+               ("3840x2160", "full_model", 3, 8, False))
+
+
+def check_counts(label: str, counts: dict, want: dict, counts_total: dict) -> None:
+    """The main path's counts of one run against ``want``; added to the totals."""
+    emit({"phase": "launches", "run": label, "counts": counts,
+          "expected": {k: want.get(k, 0) for k in counts}})
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {n} times, expected "
+                                 f"{want.get(name, 0)}")
+        counts_total[name] = counts_total.get(name, 0) + n
+
+
+def scaled(want: dict, n: int) -> dict:
+    return {k: v * n for k, v in want.items()}
+
+
+def same_files(a: str, b: str, names) -> bool:
+    import filecmp
+
+    return all(filecmp.cmp(os.path.join(a, n), os.path.join(b, n), shallow=False)
+               for n in names)
+
+
+def phase_sequence(card: str, counts_total: dict) -> None:
+    """process_sequence at 1920x1080 grey with chain 1 and chain 3 against
+    compute_flow per pair followed by the same writers, byte for byte; a
+    resume from a manifest of the first three pairs; the wall per pair of
+    each mode."""
+    from tpuflow_torch import FlowConfig, compute_flow
+    from tpuflow_torch.io import read_frame, write_raw_f32
+    from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
+    from tpuflow_torch.parallel.multihost import SequenceManifest, process_sequence, write_pair
+    from tpuflow_torch.synthetic import textured_frames
+
+    w, h = SIZES[1]
+    cfg = FlowConfig()
+    frames = textured_frames(w, h, [(i * SEQ_STEP[0], i * SEQ_STEP[1])
+                                    for i in range(SEQ_FRAMES)])
+    n = SEQ_FRAMES - 1
+    ids = [f"{i:05d}_" for i in range(n)]
+    per_pair = expected_launches(w, h, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"frame_{i:03d}.raw") for i in range(SEQ_FRAMES)]
+        for p, f in zip(paths, frames):
+            write_raw_f32(p, f)
+        pairs = list(zip(paths[:-1], paths[1:]))
+        ref = os.path.join(tmp, "per_pair")
+        os.makedirs(ref)
+        solve_s = 0.0
+        t0 = time.perf_counter()
+        for pid, (p0, p1) in zip(ids, pairs):
+            res = compute_flow(read_frame(p0, w, h), read_frame(p1, w, h), cfg, device="cuda")
+            solve_s += res.seconds
+            write_pair(ref, pid, res.u, res.v, w, h)
+        ref_s = time.perf_counter() - t0
+        names = sorted(os.listdir(ref))
+        row = {"phase": "sequence", "shape": [h, w], "config": "FlowConfig()", "pairs": n,
+               "card": card, "files": len(names),
+               "compute_flow_ms_per_pair": solve_s / n * 1e3,
+               "compute_flow_and_writers_ms_per_pair": ref_s / n * 1e3}
+        ok = True
+        for chain in SEQ_CHAINS:
+            out = os.path.join(tmp, f"chain{chain}")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            done = process_sequence(pairs, w, h, out, cfg, chain=chain, device="cuda")
+            row[f"chain{chain}_ms_per_pair"] = (time.perf_counter() - t0) / n * 1e3
+            check_counts(f"sequence chain={chain}", launch_counts(), scaled(per_pair, n),
+                         counts_total)
+            row[f"chain{chain}_completed"] = done
+            row[f"chain{chain}_bytewise_equal"] = same_files(ref, out, names)
+            row[f"chain{chain}_manifest"] = sorted(SequenceManifest(
+                os.path.join(out, "manifest.jsonl")).done())
+            ok &= (done == ids and row[f"chain{chain}_bytewise_equal"]
+                   and row[f"chain{chain}_manifest"] == ids)
+        # Resume: a manifest that holds the first three pairs.
+        out = os.path.join(tmp, "resume")
+        os.makedirs(out)
+        manifest = SequenceManifest(os.path.join(out, "manifest.jsonl"))
+        for pid in ids[:3]:
+            manifest.record(pid, 0.0)
+        reset_launch_counts()
+        done = process_sequence(pairs, w, h, out, cfg, chain=SEQ_CHAINS[-1], device="cuda")
+        check_counts("sequence resume", launch_counts(), scaled(per_pair, n - 3), counts_total)
+        rest = [nm for nm in names if nm[:6] in ids[3:]]
+        row.update(resume_completed=done, resume_bytewise_equal=same_files(ref, out, rest),
+                   resume_rewrote_none=not any(nm[:6] in ids[:3] for nm in os.listdir(out)))
+        ok &= done == ids[3:] and row["resume_bytewise_equal"] and row["resume_rewrote_none"]
+    row["ok"] = bool(ok)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"sequence: {row}")
+
+
+def phase_batch(counts_total: dict) -> None:
+    """compute_flow on a (BATCH, 388, 584) stack, bitwise three single calls."""
+    from tpuflow_torch import FlowConfig, compute_flow
+    from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
+    from tpuflow_torch.synthetic import textured_frames
+
+    w, h = SIZES[0]
+    cfg = FlowConfig()
+    frames = np.stack(textured_frames(w, h, [(i * 1.25, i * -0.75) for i in range(BATCH + 1)]))
+    reset_launch_counts()
+    res = compute_flow(frames[:-1], frames[1:], cfg, device="cuda")
+    check_counts("batch", launch_counts(), scaled(expected_launches(w, h, cfg), BATCH),
+                 counts_total)
+    single = [compute_flow(frames[i], frames[i + 1], cfg, device="cuda") for i in range(BATCH)]
+    same = [res.u[i].tobytes() == s.u.tobytes() and res.v[i].tobytes() == s.v.tobytes()
+            for i, s in enumerate(single)]
+    row = {"phase": "batch", "shape": [BATCH, h, w], "config": "FlowConfig()",
+           "out_shape": list(res.u.shape), "bitwise_equal_to_single_calls": same,
+           "batch_s": res.seconds, "single_s": [s.seconds for s in single]}
+    row["ok"] = all(same) and res.u.shape == (BATCH, h, w)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"batch: {row}")
+
+
+def phase_warp_report(counts_total: dict) -> None:
+    """compute_flow_warp_report on the blobs moved by WARP_SHIFTS: the small
+    shift every tier 0, the large one tier 1 at least once, the flow bitwise
+    compute_flow's."""
+    from tpuflow_torch import FlowConfig, compute_flow, compute_flow_warp_report
+    from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
+
+    w, h = SIZES[0]
+    cfg = FlowConfig(**WARP_CFG)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+
+    def blobs(dx):
+        return (200.0 * np.exp(-((ys - 36) ** 2 + (xs - 48 - dx) ** 2) / 60.0)
+                + 150.0 * np.exp(-((ys - 20) ** 2 + (xs - 20 - dx) ** 2) / 40.0)
+                ).astype(np.float32)
+
+    reports = {}
+    for dx in WARP_SHIFTS:
+        reset_launch_counts()
+        u, v, rep = compute_flow_warp_report(blobs(0), blobs(dx), cfg, device="cuda")
+        check_counts(f"warp_report dx={dx}", launch_counts(), expected_launches(w, h, cfg),
+                     counts_total)
+        plain = compute_flow(blobs(0), blobs(dx), cfg, device="cuda")
+        reports[dx] = {"tiers": rep["tiers"].tolist(), "levels": rep["levels"],
+                       "n_wide": rep["n_wide"], "n_gather": rep["n_gather"],
+                       "max_abs_u": float(np.abs(u).max()),
+                       "bitwise_equal_to_compute_flow": (u.tobytes() == plain.u.tobytes()
+                                                         and v.tobytes() == plain.v.tobytes())}
+    small, large = (reports[dx] for dx in WARP_SHIFTS)
+    row = {"phase": "warp_report", "shape": [h, w], "config": WARP_CFG,
+           "reports": {str(dx): r for dx, r in reports.items()}}
+    row["ok"] = (all(t == 0 for t in small["tiers"]) and large["n_wide"] >= 1
+                 and all(r["bitwise_equal_to_compute_flow"] for r in reports.values()))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"warp_report: {row}")
+
+
+# Cycles of torch.cuda._sleep queued behind a pair in phase 16, about 0.5 s
+# on an H100: the card stays busy past the next upload whatever the host's
+# pace. LAUNCH_PROBE one-element launches behind such a sleep find how many
+# launches the host can queue before a launch waits (a pair makes thousands).
+SLEEP_CYCLES = 1_000_000_000
+LAUNCH_PROBE = 4096
+
+
+def phase_async(card: str) -> None:
+    """compute_flow_async's upload does not wait for the card: with a
+    3840x2160 full_model() pair and SLEEP_CYCLES queued, the next pair's
+    staged upload returns while they still run, where a pageable upload in
+    the same place waits; the presmooth's matrices come from the device
+    cache; the second pair's flow is bitwise the first's. Also how many
+    launches the host can queue ahead of the card before a launch waits."""
+    import torch
+
+    from tpuflow_torch import compute_flow_async, models
+    from tpuflow_torch.ops import gaussian
+    from tpuflow_torch.solver import flow2d
+    from tpuflow_torch.synthetic import textured_pair
+
+    w, h = SIZE_4K
+    cfg = models.full_model()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    f0, f1 = textured_pair(w, h)
+    compute_flow_async(f0, f1, cfg)          # warm: staging ring, caches
+    torch.cuda.synchronize()
+    before = gaussian._device_matrix.cache_info()
+    queued = torch.cuda.Event()
+    t0 = time.perf_counter()
+    first = compute_flow_async(f0, f1, cfg)
+    t1 = time.perf_counter()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    queued.record()
+    t2 = time.perf_counter()
+    flow2d._upload(f0, f1, dev)
+    t3 = time.perf_counter()
+    upload_behind_queue = not queued.query()
+    second = compute_flow_async(f0, f1, cfg)
+    t4 = time.perf_counter()
+    second_behind_queue = not queued.query()
+    after = gaussian._device_matrix.cache_info()
+    torch.cuda.synchronize()
+    same = torch.equal(first, second)
+    # the contrast: a pageable upload behind the same queue
+    compute_flow_async(f0, f1, cfg)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    queued.record()
+    t5 = time.perf_counter()
+    torch.from_numpy(f0).to(dev)
+    t6 = time.perf_counter()
+    pageable_waited = queued.query()
+    torch.cuda.synchronize()
+    # how far the host runs ahead: one-element launches behind a sleep
+    x = torch.zeros(1, device=dev)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    depth, last = None, time.perf_counter()
+    for i in range(LAUNCH_PROBE):
+        x.add_(1.0)
+        now = time.perf_counter()
+        if now - last > 0.05:
+            depth = i
+            break
+        last = now
+    torch.cuda.synchronize()
+    row = {"phase": "async", "shape": [h, w], "config": "models.full_model()", "card": card,
+           "sleep_cycles": SLEEP_CYCLES, "submit_ms": (t1 - t0) * 1e3,
+           "upload_ms": (t3 - t2) * 1e3, "upload_returned_while_queue_ran": upload_behind_queue,
+           "pageable_upload_ms": (t6 - t5) * 1e3,
+           "pageable_upload_waited_for_the_queue": pageable_waited,
+           "second_submit_ms": (t4 - t3) * 1e3,
+           "second_submit_returned_while_queue_ran": second_behind_queue,
+           "launches_per_pair": sum(expected_launches(w, h, cfg)[k] for k in MAIN_PATH),
+           "launches_queued_before_a_launch_waits": depth,
+           "second_flow_bitwise_first": same,
+           "gaussian_matrix_uploads": after.misses - before.misses,
+           "gaussian_matrix_cache_hits": after.hits - before.hits}
+    row["ok"] = (upload_behind_queue and pageable_waited and same
+                 and row["gaussian_matrix_uploads"] == 0
+                 and row["gaussian_matrix_cache_hits"] == 4)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"async: {row}")
+
+
+def phase_bench(card: str, counts_total: dict) -> list:
+    """The bench's line for each of BENCH_CELLS (in this process, the main
+    path's counts 0 before each and read after), the 584x388 grey cell with
+    the full-schedule EPE against the oracle for three constancies."""
+    from tpuflow_torch import bench, models
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
+
+    lines = []
+    for size, preset, runs, pairs, epe in BENCH_CELLS:
+        argv = ["--size", size, "--preset", preset, "--runs", str(runs), "--pairs", str(pairs)]
+        reset_launch_counts()
+        rec = bench.main(argv + (["--epe"] if epe else []))
+        w, h = (int(x) for x in size.split("x"))
+        n = 1 + runs * (pairs + max(1, pairs // 4)) + runs
+        want = scaled(expected_launches(w, h, bench.preset_config(preset)), n)
+        if epe:
+            for c in (FlowConfig(), models.full_model(), models.xray_log(alpha=bench.EPE_LOG_ALPHA)):
+                for k, v in expected_launches(*bench.EPE_SIZE, c).items():
+                    want[k] += v
+        check_counts(f"bench {size} {preset}", launch_counts(), want, counts_total)
+        ok = (set(bench.KEYS) <= set(rec) and rec["card"] == card and rec["value"] > 0
+              and rec["epe_ok"] is not False and (rec["epe_px"] is not None
+                                                  or bool(rec.get("epe_reason"))))
+        if epe:
+            ok &= rec["epe_oracle_ok"] is True
+        emit({"phase": "bench", "size": size, "preset": preset, "ok": bool(ok)})
+        if not ok:
+            raise AssertionError(f"bench {size} {preset}: {rec}")
+        lines.append(rec)
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -1147,6 +1460,16 @@ def main() -> int:
     emit({"phase": "sharded_done", "seconds": time.perf_counter() - t_sharded})
     if sharded_row["launches"] == 0:
         raise AssertionError("relax_sharded was never launched on the sharded path")
+
+    # The streaming path: each run sets the counts to 0 just before it and
+    # checks them just after (check_counts); they join the kernels line's.
+    t_stream = time.perf_counter()
+    phase_sequence(card, counts)
+    phase_batch(counts)
+    phase_warp_report(counts)
+    phase_async(card)
+    phase_bench(card, counts)
+    emit({"phase": "streaming_done", "seconds": time.perf_counter() - t_stream})
 
     # The kernels line: times and bounds at 3840x2160 (1920x1080 beside them).
     rows = []

@@ -1,8 +1,9 @@
 """tpuflow_torch.cli on the CPU (``--device cpu``): the cases of
 tests/test_cli.py (settings file, positional with counter, parameter
-sweep, f32 autodetect, bad usage), outputs against tpuflow.cli's and
-against an in-process compute_flow, the constancy flag, the flags that are
-not ported yet, the CUDA default, and an import that loads no JAX."""
+sweep, f32 autodetect, bad usage, the sequence mode), outputs against
+tpuflow.cli's and against an in-process compute_flow, the constancy flag,
+--chain and --warp-report, the CUDA default, and imports that load no
+JAX."""
 
 import os
 import subprocess
@@ -146,11 +147,110 @@ def test_bad_usage(argv):
         main(argv + ["--device", "cpu"])
 
 
-@pytest.mark.parametrize("flags", [["--sequence", "x_*.raw", "--size", "24x16", "--out", "o"],
-                                   ["--chain", "2"], ["--warp-report"]])
-def test_unported_flags_exit(tmp_path, flags):
+SEQ_W, SEQ_H = 24, 16
+
+
+def make_sequence(d, n=3):
+    """tests/test_cli.py:115's frames: a blob moving 0.5 px a frame."""
+    ys, xs = np.mgrid[0:SEQ_H, 0:SEQ_W].astype(np.float32)
+    for i in range(n):
+        img = 200.0 * np.exp(-((ys - 8) ** 2 + (xs - 12 - 0.5 * i) ** 2) / 18.0)
+        write_raw_u8(os.path.join(d, f"seq_{i:03d}.raw"), img)
+    return str(d / "seq_*.raw")
+
+
+def sequence_argv(glob, out, *extra):
+    return ["--sequence", glob, "--size", f"{SEQ_W}x{SEQ_H}", "--out", str(out), "--quiet",
+            "--device", "cpu", *extra]
+
+
+def test_sequence_mode_writes_files_and_manifest(tmp_path):
+    out = tmp_path / "seqout"
+    assert main(sequence_argv(make_sequence(tmp_path), out)) == 0
+    files = os.listdir(out)
+    for pid in ("00000_", "00001_"):
+        for stem in (f"flow-u-{SEQ_W}-{SEQ_H}.raw", f"flow-v-{SEQ_W}-{SEQ_H}.raw", "res.pgm",
+                     f"amp-{SEQ_W}-{SEQ_H}.raw"):
+            assert pid + stem in files
+    assert "manifest.jsonl" in files and len(files) == 9
+    with open(out / "manifest.jsonl") as f:
+        assert [line.split('"')[3] for line in f] == ["00000_", "00001_"]
+    # a second run resumes: nothing left to solve
+    assert main(sequence_argv(make_sequence(tmp_path), out)) == 0
+    assert len((out / "manifest.jsonl").read_text().splitlines()) == 2
+
+
+@pytest.mark.parametrize("drop", ["--size", "--out", "both"])
+def test_sequence_mode_requires_size_and_out(tmp_path, drop):
+    argv = sequence_argv(str(tmp_path / "x_*.raw"), tmp_path / "o")
+    for flag in (["--size", "--out"] if drop == "both" else [drop]):
+        i = argv.index(flag)
+        del argv[i:i + 2]
+    with pytest.raises(SystemExit, match="--size WxH and --out DIR"):
+        main(argv)
+
+
+def test_sequence_mode_needs_two_frames(tmp_path):
+    make_sequence(tmp_path, n=1)
+    with pytest.raises(SystemExit, match="matched 1 files"):
+        main(sequence_argv(str(tmp_path / "seq_*.raw"), tmp_path / "o"))
+
+
+@pytest.mark.parametrize("chain", ["2", "3"])
+def test_sequence_chain_bytewise_chain_1(tmp_path, chain):
+    glob = make_sequence(tmp_path, n=4)
+    out1, outc = tmp_path / "out1", tmp_path / "outc"
+    assert main(sequence_argv(glob, out1)) == 0
+    assert main(sequence_argv(glob, outc, "--chain", chain)) == 0
+    names = sorted(n for n in os.listdir(out1) if n != "manifest.jsonl")
+    assert len(names) == 12 and sorted(os.listdir(outc)) == sorted(os.listdir(out1))
+    for name in names:
+        assert (out1 / name).read_bytes() == (outc / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("n_frames", [3, 4])
+def test_sequence_matches_tpuflow_cli(tmp_path, n_frames):
+    # the CLI's configuration: FlowConfig(), grey, the default schedule
+    glob = make_sequence(tmp_path, n=n_frames)
+    out, jout = tmp_path / "out", tmp_path / "jout"
+    assert main(sequence_argv(glob, out)) == 0
+    assert jmain(["--sequence", glob, "--size", f"{SEQ_W}x{SEQ_H}", "--out", str(jout),
+                  "--quiet"]) == 0
+    assert sorted(os.listdir(out)) == sorted(os.listdir(jout))
+    for pid in (f"{i:05d}_" for i in range(n_frames - 1)):
+        got, want = ([np.fromfile(d / f"{pid}flow-{c}-{SEQ_W}-{SEQ_H}.raw", dtype="<f4")
+                      for c in "uv"] for d in (out, jout))
+        assert np.isfinite(got).all()
+        assert endpoint_error(*got, *want) <= 1e-4, pid
+
+
+def test_warp_report_prints_its_line(tmp_path, capsys):
+    settings, inp, out = settings_file(tmp_path)
+    assert main([str(settings), "--device", "cpu", "--warp-report"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    report = [line for line in lines if line.startswith("warp-report: ")]
+    assert report == ["warp-report: every level within the ±4 px displacement class"]
+    # the files are compute_flow's, bit for bit
+    u, v = check_outputs(out)
+    res = compute_flow(read_frame(str(inp / "a.raw"), W, H), read_frame(str(inp / "b.raw"), W, H),
+                       FlowConfig(**SETTINGS_CFG), device="cpu")
+    assert u.tobytes() == res.u.tobytes() and v.tobytes() == res.v.tobytes()
+
+
+def test_warp_report_quiet_still_reports(tmp_path, capsys):
+    settings, _, _ = settings_file(tmp_path)
+    assert main([str(settings), "--device", "cpu", "--warp-report", "--quiet"]) == 0
+    assert capsys.readouterr().out.startswith("warp-report: ")
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--chain", "2"], "--chain applies to --sequence only"),
+    (["--sequence", "x_*.raw", "--size", "24x16", "--out", "o", "--warp-report"],
+     "does not apply to --sequence"),
+])
+def test_flag_misuse_exits(tmp_path, flags, message):
     settings, _, out = settings_file(tmp_path)
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match=message):
         main([str(settings), "--device", "cpu", *flags])
     assert not out.exists()
 
@@ -178,7 +278,10 @@ def test_module_entry_point_runs(tmp_path):
 
 def test_cli_import_loads_no_jax():
     code = (
-        "import sys, tpuflow_torch.cli, tpuflow_torch.io\n"
+        "import sys, tpuflow_torch.cli, tpuflow_torch.io, tpuflow_torch.bench\n"
+        "import tpuflow_torch.io.loader, tpuflow_torch.io.vtk\n"
+        "import tpuflow_torch.parallel.multihost, tpuflow_torch.utils.diagnostics\n"
+        "from tpuflow_torch import compute_flow_async, compute_flow_warp_report\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'tpuflow' or m.startswith('tpuflow.')]\n"
         "assert not bad, bad\n"

@@ -9,9 +9,14 @@ wrote in Pallas for the TPU is a CUDA kernel for ``sm_90a`` here
 constancies (grey, gradient, log-derivative) run; ``python -m
 tpuflow_torch.cli`` is the reference-compatible command line, and
 ``tpuflow_torch.io`` reads and writes its RAW and PPM files.
-``compute_flow_sharded`` shards each level's relaxation by rows over a
-``make_mesh(n_y)`` of one card. Importing this package imports neither JAX
-nor ``tpuflow``.
+``compute_flow`` also takes (B, H, W) stacks of pairs;
+``compute_flow_async`` leaves the flow on the device without a fence, the
+block of ``parallel.multihost.process_sequence``, which streams a sequence
+of RAW frames to files, resumably; ``compute_flow_warp_report`` adds each
+level's displacement class. ``compute_flow_sharded`` shards each level's
+relaxation by rows over a ``make_mesh(n_y)`` of one card. ``python -m
+tpuflow_torch.bench`` prints the throughput line. Importing this package
+imports neither JAX nor ``tpuflow``.
 """
 
 __version__ = "0.1.0"
@@ -20,7 +25,8 @@ from tpuflow_torch.config import (  # noqa: F401
     DataConstancy, FlowConfig, IOConfig, from_jax_config, load_settings_xml,
 )
 from tpuflow_torch.solver.flow2d import (  # noqa: F401
-    FlowResult, LevelTrace, compute_flow, endpoint_error,
+    FlowResult, LevelTrace, compute_flow, compute_flow_async, compute_flow_warp_report,
+    endpoint_error,
 )
 from tpuflow_torch.parallel.mesh import make_mesh  # noqa: F401
 from tpuflow_torch.solver.sharded import compute_flow_sharded  # noqa: F401

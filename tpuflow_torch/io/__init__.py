@@ -1,4 +1,5 @@
-"""I/O: RAW frame readers and writers, flow visualisation (numpy)."""
+"""I/O: RAW frame readers and writers, flow visualisation, the frame loader
+and VTK export (numpy)."""
 
 from tpuflow_torch.io.flow_viz import (  # noqa: F401
     flow_to_rgb,
@@ -12,3 +13,5 @@ from tpuflow_torch.io.raw import (  # noqa: F401
     write_raw_f32,
     write_raw_u8,
 )
+from tpuflow_torch.io.loader import FrameLoader  # noqa: F401
+from tpuflow_torch.io.vtk import write_flow_vtk  # noqa: F401

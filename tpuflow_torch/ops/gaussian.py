@@ -6,7 +6,9 @@ the zero-padded 1-D convolutions are banded Toeplitz matrices
 (tpuflow/ops/gaussian.py:74-89) applied rows first, then columns
 (tpuflow/ops/gaussian.py:114-118). It runs once per frame pair, outside
 any kernel, as in the JAX package; the matmuls are float32 (TF32 is
-switched off by ``compute_flow``).
+switched off by ``compute_flow``). The matrices are built on the host and
+kept on the device per (n, sigma, device): an upload from pageable memory
+on every call would wait for all the work queued before it.
 """
 
 from __future__ import annotations
@@ -57,6 +59,11 @@ def conv_matrix(n: int, sigma: float) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=64)
+def _device_matrix(n: int, sigma: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(conv_matrix(n, sigma)).to(device)
+
+
 def gaussian_smooth(img: torch.Tensor, sigma: float) -> torch.Tensor:
     """Smooth the last two dims of ``img`` (rows, then columns).
 
@@ -66,6 +73,6 @@ def gaussian_smooth(img: torch.Tensor, sigma: float) -> torch.Tensor:
         return img
     h, w = img.shape[-2:]
     with record_function("gaussian"):  # the layer's range in a profile
-        mx = torch.from_numpy(conv_matrix(w, float(sigma))).to(img.device)
-        my = torch.from_numpy(conv_matrix(h, float(sigma))).to(img.device)
+        mx = _device_matrix(w, float(sigma), img.device)
+        my = _device_matrix(h, float(sigma), img.device)
         return torch.matmul(my, torch.matmul(img, mx.T)).contiguous()

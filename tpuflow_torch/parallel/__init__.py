@@ -6,7 +6,9 @@ spatial path with ``halo="kernel"``).
     halos exchanged by tensor copies;
   * ``relax_sharded_kernel``: the same in one cooperative CUDA launch
     (csrc/sharded.cu), gated by ``kernel_halo_applicable``;
-  * ``tpuflow_torch.solver.sharded.compute_flow_sharded``: the pipeline.
+  * ``tpuflow_torch.solver.sharded.compute_flow_sharded``: the pipeline;
+  * ``parallel.multihost``: ``SequenceManifest`` and ``process_sequence``,
+    the resumable streaming loop, split over processes by pair index.
 
 Data parallelism, the explicit exchange, the dp x sp hybrid, the cost
 router and meshes over several cards are not ported yet (ROADMAP Queue 1,

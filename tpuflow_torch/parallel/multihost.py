@@ -1,0 +1,157 @@
+"""Streaming sequences: the resumable manifest and ``process_sequence`` (the
+port of tpuflow/parallel/multihost.py:51-263, without ``mesh=``).
+
+Frame pairs are independent, so recovery is re-processing: the manifest
+records a pair only after its four files are written, and ``resume`` skips
+the pairs it holds. Several processes split a sequence by pair index, with
+the rank and world size of an initialised ``torch.distributed`` group.
+
+On the card the host overlaps the device. The main thread reads the frames
+and submits each pair with ``compute_flow_async`` (uploads from pinned
+staging buffers, no fence); each flow (or each chunk of ``chain`` flows,
+stacked on the device) goes down on a copy stream of its own, which waits
+only for that work, into pinned memory; one writer thread waits for that
+copy and writes the files, in order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tpuflow_torch.config import FlowConfig
+from tpuflow_torch.io import FrameLoader, write_flow_image_rgb, write_magnitude_f32, write_raw_f32
+from tpuflow_torch.solver.flow2d import _device, _full_float32, _on, compute_flow_async
+
+
+@dataclasses.dataclass
+class SequenceManifest:
+    """Completed-pair ledger for resumable streaming runs."""
+
+    path: str
+
+    def done(self) -> set:
+        if not os.path.exists(self.path):
+            return set()
+        with open(self.path) as f:
+            return {json.loads(line)["pair"] for line in f if line.strip()}
+
+    def record(self, pair_id: str, seconds: float) -> None:
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"pair": pair_id, "seconds": seconds}) + "\n")
+
+
+def process_rank() -> Tuple[int, int]:
+    """(rank, world size) of the initialised ``torch.distributed`` group,
+    else (0, 1)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def write_pair(output_dir: str, counter: str, u: np.ndarray, v: np.ndarray, width: int,
+               height: int, flow_max_scale: float = 10.0) -> None:
+    """The four files of one pair in the reference's names, ``counter``
+    before each (a sequence's pair id): flow-u, flow-v, amp RAW and the
+    res.pgm colour circle (reference: src/main.cpp:205-213)."""
+    suffix = f"-{width}-{height}.raw"
+    write_raw_f32(os.path.join(output_dir, f"{counter}flow-u{suffix}"), u)
+    write_raw_f32(os.path.join(output_dir, f"{counter}flow-v{suffix}"), v)
+    write_flow_image_rgb(u, v, flow_max_scale, os.path.join(output_dir, f"{counter}res.pgm"))
+    write_magnitude_f32(u, v, os.path.join(output_dir, f"{counter}amp{suffix}"))
+
+
+def _download(flows: torch.Tensor, copy_stream):
+    """Start the copy of ``flows`` to the host; returns (host tensor, event
+    that completes with the copy, or None on the CPU)."""
+    if flows.device.type != "cuda":
+        return flows, None
+    solved = torch.cuda.Event()
+    solved.record()
+    with torch.cuda.stream(copy_stream):
+        copy_stream.wait_event(solved)
+        host = torch.empty(flows.shape, dtype=flows.dtype, pin_memory=True)
+        host.copy_(flows, non_blocking=True)
+        # the allocator must not hand the flow's memory to later pairs on the
+        # default stream until this copy has read it
+        flows.record_stream(copy_stream)
+        copied = torch.cuda.Event()
+        copied.record(copy_stream)
+    return host, copied
+
+
+def process_sequence(pairs: Sequence[Tuple[str, str]], width: int, height: int,
+                     output_dir: str, cfg: Optional[FlowConfig] = None, *,
+                     resume: bool = True, flow_max_scale: float = 10.0, chain: int = 1,
+                     mesh=None, device="cuda") -> List[str]:
+    """Stream a sequence of frame-pair files through the solver; returns the
+    pair ids this process completed, in order.
+
+    Pair ``idx`` is written as ``{idx:05d}_flow-u-W-H.raw``, ``flow-v``,
+    ``amp`` and ``res.pgm`` in ``output_dir``, and then recorded in its
+    ``manifest.jsonl``; this process takes the pairs with ``idx % world ==
+    rank``. ``resume`` drops the recorded pairs before the rest is chunked.
+
+    ``chain=N`` submits N pairs back to back, stacks their flows on the
+    device and fetches them in one copy; the files are byte for byte those
+    of ``chain=1``. ``mesh=`` (data-parallel streaming over several cards)
+    raises NotImplementedError. ``device="cuda"`` raises without CUDA.
+    """
+    if mesh is not None:
+        raise NotImplementedError("process_sequence(mesh=...): streaming over several cards "
+                                  "is ROADMAP Queue 1 item 4 (multiple GPUs)")
+    if chain < 1:
+        raise ValueError(f"chain must be at least 1, got {chain}")
+    cfg = cfg or FlowConfig()
+    device = _device(device)
+    os.makedirs(output_dir, exist_ok=True)
+    manifest = SequenceManifest(os.path.join(output_dir, "manifest.jsonl"))
+    done = manifest.done() if resume else set()
+    rank, world = process_rank()
+    mine = [(f"{idx:05d}_", p0, p1) for idx, (p0, p1) in enumerate(pairs)
+            if idx % world == rank and f"{idx:05d}_" not in done]
+    completed: List[str] = []
+
+    def drain(ids, host, copied, t_submit):
+        if copied is not None:
+            copied.synchronize()
+        flows = host.numpy()
+        # a chunk shares one submit time and one copy: its time per pair
+        per_pair = (time.perf_counter() - t_submit) / len(ids)
+        for pair_id, (u, v) in zip(ids, flows):
+            write_pair(output_dir, pair_id, u, v, width, height, flow_max_scale)
+            manifest.record(pair_id, per_pair)
+            completed.append(pair_id)
+
+    if not mine:
+        return completed
+    # chunks being copied or written behind the one being submitted (the
+    # JAX package's bounded queues)
+    in_flight = 6 if chain == 1 else 3
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    files = [p for _, p0, p1 in mine for p in (p0, p1)]
+    with _full_float32(), _on(device), FrameLoader(files, width, height) as loader, \
+            ThreadPoolExecutor(max_workers=1) as writer:
+        futures = []
+        for c0 in range(0, len(mine), chain):
+            chunk = mine[c0:c0 + chain]
+            t_submit = time.perf_counter()
+            flows = [compute_flow_async(loader.next(), loader.next(), cfg, device=device)
+                     for _ in chunk]
+            stacked = torch.stack(flows) if len(flows) > 1 else flows[0][None]
+            host, copied = _download(stacked, copy_stream)
+            futures.append(writer.submit(drain, [pid for pid, _, _ in chunk], host, copied,
+                                         t_submit))
+            if len(futures) > in_flight:
+                futures.pop(0).result()
+        for f in futures:
+            f.result()
+    return completed

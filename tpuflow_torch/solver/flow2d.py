@@ -1,23 +1,33 @@
-"""The public front door: ``compute_flow``, ``FlowResult``, ``LevelTrace``,
-``endpoint_error`` (the port of tpuflow/solver/flow2d.py:33-60, :99, :354).
+"""The public front door: ``compute_flow``, ``compute_flow_async``,
+``compute_flow_warp_report``, ``FlowResult``, ``LevelTrace``,
+``endpoint_error`` (the port of tpuflow/solver/flow2d.py:33-60, :99-228,
+:230, :354 and tpuflow/solver/bucketed.py:1249-1283).
 
-One pair per call, with the data constancy of ``cfg.data_constancy``
-(grey, gradient or log-derivative). The device is explicit:
-``device="cuda"`` runs the CUDA kernels and raises on a machine without
-CUDA; it never falls back to the CPU. ``device="cpu"`` runs the kernels'
-plain PyTorch versions.
+One pair, or a (B, H, W) stack of pairs solved in order, with the data
+constancy of ``cfg.data_constancy`` (grey, gradient or log-derivative). The
+device is explicit: ``device="cuda"`` runs the CUDA kernels and raises on a
+machine without CUDA; it never falls back to the CPU. ``device="cpu"`` runs
+the kernels' plain PyTorch versions.
+
+On the card a pair is submitted without a host fence: the frames go up
+through a ring of pinned staging buffers (a copy from pageable memory would
+wait for every pair queued before it), the presmooth's and resample's
+matrices stay on the device, and ``solve`` has no synchronisation inside.
+``compute_flow`` waits for the card once, in its final copy to the host.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from tpuflow_torch.config import FlowConfig
+from tpuflow_torch.pyramid import level_schedule
 from tpuflow_torch.solver.level import solve
 from tpuflow_torch.utils.timing import Timer
 
@@ -35,9 +45,10 @@ class LevelTrace:
 
 @dataclasses.dataclass
 class FlowResult:
-    """Final flow in original-pixel units, on the host (numpy).
-    ``seconds`` covers upload, the solve and the download; ``levels`` holds
-    the per-level records when a trace was asked for."""
+    """Final flow in original-pixel units, on the host (numpy): (H, W), or
+    (B, H, W) for a stack. ``seconds`` covers upload, the solve and the
+    download; ``levels`` holds the per-level records when a trace was asked
+    for."""
 
     u: np.ndarray
     v: np.ndarray
@@ -46,8 +57,7 @@ class FlowResult:
 
     @property
     def megapixels_per_second(self) -> float:
-        h, w = self.u.shape
-        return (w * h) / self.seconds / 1e6
+        return self.u.size / self.seconds / 1e6
 
 
 @contextlib.contextmanager
@@ -61,14 +71,99 @@ def _full_float32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' was asked for, but CUDA is not available")
+    return device
+
+
+def _on(device: torch.device):
+    """The CUDA device guard for ``device``; nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _frames(frame_0, frame_1, stacks: bool = False):
+    f0 = np.asarray(frame_0, dtype=np.float32)
+    f1 = np.asarray(frame_1, dtype=np.float32)
+    if f0.shape != f1.shape or f0.ndim not in ((2, 3) if stacks else (2,)):
+        want = "(H, W) frames or (B, H, W) stacks" if stacks else "(H, W) frames"
+        raise ValueError(f"expected two equal {want}, got {f0.shape} {f1.shape}")
+    return f0, f1
+
+
+# Pinned staging buffers per frame shape and device. Each upload takes the
+# next slot of its ring and first waits for the copy that last read that
+# slot, so the host runs at most STAGING_SLOTS pairs ahead of the card.
+STAGING_SLOTS = 3
+_STAGING_SHAPES = 4
+_staging: dict = {}
+_staging_lock = threading.Lock()
+
+
+def _upload(f0: np.ndarray, f1: np.ndarray, device: torch.device) -> torch.Tensor:
+    """[f0, f1] as one (2, H, W) float32 tensor on ``device``. On the card
+    the copy is asynchronous, from a pinned buffer."""
+    if device.type != "cuda":
+        return torch.from_numpy(np.stack([f0, f1])).to(device)
+    key = (f0.shape, device)
+    with _staging_lock:
+        ring = _staging.pop(key, None)
+        if ring is None:
+            if len(_staging) >= _STAGING_SHAPES:
+                # the oldest shape's buffers; the host allocator keeps a block
+                # whose copy is still pending until that copy has completed
+                _staging.pop(next(iter(_staging)))
+            ring = {"slots": [[torch.empty((2, *f0.shape), dtype=torch.float32,
+                                           pin_memory=True), None]
+                              for _ in range(STAGING_SLOTS)], "next": 0}
+        _staging[key] = ring   # the most recent shape last
+        slot = ring["slots"][ring["next"]]
+        ring["next"] = (ring["next"] + 1) % STAGING_SLOTS
+        host, copied = slot
+        if copied is not None:
+            copied.synchronize()   # the card has read this slot's last frames
+        staged = host.numpy()
+        staged[0], staged[1] = f0, f1
+        frames = torch.empty(host.shape, dtype=torch.float32, device=device)
+        frames.copy_(host, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+    return frames
+
+
+def _submit(f0: np.ndarray, f1: np.ndarray, cfg: FlowConfig, device: torch.device,
+            **solve_kw) -> torch.Tensor:
+    """Upload one pair and queue its solve; (2, H, W) on ``device``. The
+    caller holds the TF32 flags and the device guard."""
+    frames = _upload(f0, f1, device)
+    return solve(frames[0], frames[1], cfg, **solve_kw)
+
+
+def compute_flow_async(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
+                       device="cuda") -> torch.Tensor:
+    """The flow of one pair as a (2, H, W) float32 tensor [u, v] on
+    ``device``, returned without waiting for the card: the streaming
+    building block. Submit pairs back to back and fetch once; each flow is
+    bitwise ``compute_flow``'s."""
+    cfg = cfg or FlowConfig()
+    device = _device(device)
+    f0, f1 = _frames(frame_0, frame_1)
+    with _full_float32(), _on(device):
+        return _submit(f0, f1, cfg, device)
+
+
 def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
                  collect_trace: bool = False, device="cuda", _relax_for=None) -> FlowResult:
     """Dense 2D optical flow from frame_0 to frame_1, two (H, W) frames of
-    any real dtype; computation is float32 on ``device``.
+    any real dtype, or two (B, H, W) stacks of independent pairs, solved in
+    order (each pair's flow bitwise that of a call on the pair alone); the
+    computation is float32 on ``device``.
 
     ``collect_trace`` fills ``FlowResult.levels`` with one ``LevelTrace``
     per level, timed by CUDA events on the card and by the host clock on
-    the CPU; the flow is the same with or without it.
+    the CPU; the flow is the same with or without it. A stack takes no
+    trace: it raises.
 
     It switches TF32 off for matmuls and cuDNN for the solve (the smoothing
     and resample matmuls must be full float32, as the JAX package's are,
@@ -77,21 +172,55 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
     per-level relaxation, for ``compute_flow_sharded``.
     """
     cfg = cfg or FlowConfig()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' was asked for, but CUDA is not available")
-    f0 = np.asarray(frame_0, dtype=np.float32)
-    f1 = np.asarray(frame_1, dtype=np.float32)
-    if f0.shape != f1.shape or f0.ndim != 2:
-        raise ValueError(f"expected two equal (H, W) frames, got {f0.shape} {f1.shape}")
-    guard = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+    device = _device(device)
+    f0, f1 = _frames(frame_0, frame_1, stacks=True)
+    if f0.ndim == 3:
+        if collect_trace:
+            raise ValueError("collect_trace=True traces one pair; a (B, H, W) stack "
+                             "takes no trace")
+        with _full_float32(), _on(device), Timer() as timer:
+            flows = [_submit(a, b, cfg, device, relax_for=_relax_for) for a, b in zip(f0, f1)]
+            uv = torch.stack(flows, dim=1).cpu().numpy()
+        return FlowResult(u=uv[0], v=uv[1], seconds=timer.seconds)
     trace = [] if collect_trace else None
-    with _full_float32(), guard, Timer() as timer:
-        uv = solve(torch.from_numpy(f0).to(device), torch.from_numpy(f1).to(device), cfg,
-                   trace=trace, relax_for=_relax_for)
-        uv = uv.cpu().numpy()
+    with _full_float32(), _on(device), Timer() as timer:
+        uv = _submit(f0, f1, cfg, device, trace=trace, relax_for=_relax_for).cpu().numpy()
     return FlowResult(u=uv[0], v=uv[1], seconds=timer.seconds,
                       levels=[LevelTrace(*t) for t in trace or ()])
+
+
+def compute_flow_warp_report(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
+                             device="cuda"):
+    """The flow of one pair (numpy u, v, bitwise ``compute_flow``'s) and its
+    per-level displacement report, a dict:
+
+      tiers  -- (n_levels,) int32, coarsest level first: 0 when the
+                prolongated flow moves no pixel's bilinear base by more than
+                ``WARP_MAX_DISP`` level pixels in x or y, 1 within twice
+                that, 2 beyond (``solver.level.warp_tier``, the JAX package's
+                ``warp_small_pred``);
+      levels -- (width, height) of each level;
+      n_wide, n_gather -- the levels of tier 1 and of tier 2.
+
+    On the TPU the tiers chose the warp's code path; the port's warp is one
+    exact gather at any displacement, so here they say which levels saw
+    motion beyond ±4 and ±8 px. They are taken on the device, level by
+    level, and fetched once after the last level.
+    """
+    cfg = cfg or FlowConfig()
+    device = _device(device)
+    f0, f1 = _frames(frame_0, frame_1)
+    tiers: list = []
+    with _full_float32(), _on(device):
+        uv = _submit(f0, f1, cfg, device, tiers=tiers).cpu().numpy()
+        tier = torch.stack(tiers).cpu().numpy()
+    h, w = f0.shape
+    report = {"tiers": tier,
+              "levels": [(s.width, s.height) for s in level_schedule(
+                  w, h, cfg.warp_levels_count, cfg.warp_scale_factor)],
+              "n_wide": int((tier == 1).sum()),
+              "n_gather": int((tier == 2).sum())}
+    return uv[0], uv[1], report
 
 
 def endpoint_error(u_a, v_a, u_b, v_b) -> float:

@@ -167,15 +167,45 @@ def _seconds(start, end) -> float:
     return start.elapsed_time(end) * 1e-3
 
 
+# The displacement window of the TPU warp's fast path, in level pixels
+# (tpuflow/solver/bucketed.py:179, the default of TPUFLOW_WARP_DISP).
+WARP_MAX_DISP = 4
+
+
+def warp_tier(uv: torch.Tensor, inv_hx: float, inv_hy: float,
+              disp: int = WARP_MAX_DISP) -> torch.Tensor:
+    """The displacement class of a level's prolongated flow ``uv`` (2, h, w)
+    as a 0-dim int32 tensor on its device, computed there: 0 when no pixel's
+    bilinear base ``floor(x + u inv_hx) - x`` (and in y) moves by more than
+    ``disp``, 1 within ``2 disp``, else 2. A target outside the level or NaN
+    counts as 0, as in the warp, which copies f0 there. The tiers of
+    ``warp_small_pred`` and ``_warp_coords`` (tpuflow/solver/bucketed.py:182-233)."""
+    h, w = uv.shape[-2:]
+    xs = torch.arange(w, dtype=torch.float32, device=uv.device)[None, :]
+    ys = torch.arange(h, dtype=torch.float32, device=uv.device)[:, None]
+    x_f = xs + uv[0] * inv_hx
+    y_f = ys + uv[1] * inv_hy
+    invalid = ((x_f < 0.0) | (x_f > w - 1) | (y_f < 0.0) | (y_f > h - 1)
+               | torch.isnan(x_f) | torch.isnan(y_f))
+    zero = torch.zeros((), dtype=torch.float32, device=uv.device)
+    dxq = torch.where(invalid, zero, torch.floor(x_f) - xs)
+    dyq = torch.where(invalid, zero, torch.floor(y_f) - ys)
+    most = torch.maximum(dxq.abs().amax(), dyq.abs().amax())
+    return (most > disp).int() + (most > 2 * disp).int()
+
+
 def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
           _steps: Steps = KERNEL_STEPS, trace: Optional[list] = None,
-          relax_for: Optional[Callable[[int, int], RelaxFn]] = None) -> torch.Tensor:
+          relax_for: Optional[Callable[[int, int], RelaxFn]] = None,
+          tiers: Optional[list] = None) -> torch.Tensor:
     """The coarse-to-fine solve on f0's device; returns (u, v) as (2, h, w).
 
     With a list ``trace``, appends one ``(level, width, height, seconds)``
     per level, the resample included. On the card each level is timed by
     CUDA events, read once after the last level, so the trace adds no host
     synchronisation inside the solve and leaves the flow unchanged.
+    With a list ``tiers``, appends each level's ``warp_tier`` of its
+    prolongated flow, a tensor on the device (no synchronisation).
     ``relax_for(h, w)`` gives each (h, w) level's relaxation (by default
     ``relax``); the sharded pipeline routes levels with it. ``_steps`` is for comparing
     the kernels with their plain versions end to end; callers leave it
@@ -198,6 +228,8 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
             uv = torch.zeros((2, ch, cw), dtype=torch.float32, device=f0.device)
         else:
             uv = resample(uv, cw, ch)
+        if tiers is not None:
+            tiers.append(warp_tier(uv, sc.inv_hx, sc.inv_hy))
         relax_fn = relax_for(ch, cw) if relax_for is not None else None
         uv = level_step(frames_l, uv, sc, cfg, _steps, relax_fn)
         if marks is not None:

@@ -16,6 +16,8 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
+import numpy as np
+
 from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.ops.level import launch_counts as level_launch_counts
 from tpuflow_torch.ops.level import reset_launch_counts as reset_level_launch_counts
@@ -46,6 +48,10 @@ def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, 
         raise ValueError(f"unknown halo mode {halo!r}")
     if k_outer < 1:
         raise ValueError(f"k_outer must be at least 1, got {k_outer}")
+    if np.ndim(frame_0) == 3:
+        raise NotImplementedError("compute_flow_sharded on a (B, H, W) stack: data parallelism "
+                                  "and the dp x sp hybrid are ROADMAP Queue 1 item 4 "
+                                  "(multiple GPUs); compute_flow takes stacks on one card")
     cfg = cfg or FlowConfig()
     if resolve_device(device) != mesh.device:
         raise ValueError(f"device {str(device)!r} is not the mesh's device, {mesh.device}")

@@ -1,7 +1,8 @@
 """A synthetic frame pair with a known answer: band-limited noise and its
 copy translated by a sub-pixel shift, and the mean end-point error of a
-flow against that shift. ``chip_smoke.py`` and ``profile_pair`` drive the
-solver with it."""
+flow against that shift; and a sequence of such frames for the streaming
+path. ``chip_smoke.py``, ``profile_pair`` and the bench drive the solver
+with them."""
 
 from __future__ import annotations
 
@@ -14,16 +15,23 @@ MARGIN = 24             # border px left out of the shift check
 def textured_pair(w: int, h: int, shift=SHIFT, seed: int = 0, corr: float = 2.5):
     """Gaussian-filtered noise scaled to 0-255 and its copy translated by
     ``shift`` (band-limited, periodic, so the translation is exact)."""
+    f0, f1 = textured_frames(w, h, [(0.0, 0.0), shift], seed, corr)
+    return f0, f1
+
+
+def textured_frames(w: int, h: int, shifts, seed: int = 0, corr: float = 2.5) -> list:
+    """The texture of ``textured_pair`` translated by each of ``shifts``
+    ((u, v) px), all scaled to 0-255 by the untranslated texture's range: a
+    sequence whose consecutive frames move by the differences of the shifts."""
     rng = np.random.default_rng(seed)
     ky = np.fft.fftfreq(h)[:, None]
     kx = np.fft.fftfreq(w)[None, :]
     spec = np.fft.fft2(rng.standard_normal((h, w)))
     spec *= np.exp(-2.0 * (np.pi * corr) ** 2 * (kx ** 2 + ky ** 2))
     t0 = np.real(np.fft.ifft2(spec))
-    t1 = np.real(np.fft.ifft2(spec * np.exp(-2j * np.pi * (kx * shift[0] + ky * shift[1]))))
     lo, hi = t0.min(), t0.max()
-    scale = lambda t: ((t - lo) / (hi - lo) * 255.0).astype(np.float32)  # noqa: E731
-    return scale(t0), scale(t1)
+    return [((np.real(np.fft.ifft2(spec * np.exp(-2j * np.pi * (kx * su + ky * sv)))) - lo)
+             / (hi - lo) * 255.0).astype(np.float32) for su, sv in shifts]
 
 
 def shift_epe(u, v, shift=SHIFT, margin=MARGIN) -> float:
