@@ -87,10 +87,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               against the oracle for grey, full_model() and
               xray_log(alpha=1e-3), gated at 0.05 px), 1920x1080 grey and
               3840x2160 full_model()
+ 18. mesh_explicit  relax_sharded_explicit (one stream a shard, halos copied
+              after CUDA events) bitwise against relax_sharded and relax in
+              the SHARDED_CHECKS cases on 4 positions of cuda:0 (and dealt
+              over the cards where there are several), launches and copies
+              exact; a race case with a device sleep queued on one shard's
+              stream before each of its sweeps; the prologue kernel on row
+              blocks (row0, height) bitwise against its plain version
+ 19. mesh_e2e a 1920x1080 full_model() pair through compute_flow(...,
+              mesh=make_mesh(4, ["cuda:0"] * 4)) and compute_flow_sharded
+              with halo explicit, kernel and auto: bitwise compute_flow,
+              counts exact, the auto plan by level, timed in turns
+ 20. mesh_dp  a (4, 388, 584) grey stack through compute_flow(..., mesh=)
+              on 4 data positions and compute_flow_hybrid on 4 y positions,
+              and a ragged B of 3: bitwise per-pair compute_flow, counts
+              exact; timed against the stack without a mesh
+ 21. mesh_sequence  process_sequence(mesh=) on phase 13's six pairs, byte
+              for byte the files of chain=1; a resume
+ 22. report_scaling  the cost model's constants measured on the card
+              (--link), the --project table, the measured dp and sp line
+              with its count of distinct cards; "auto" routes no level of a
+              one-card mesh to the explicit route
 
-Each main-path run of phases 4-6, 11-15 and 17, and the measurement path of
-phase 9, sets every launch count to 0 just before it and reads the counts
-just after. The one-sweep kernel (jacobi_sweep) is off the main path: its
+Each main-path run of phases 4-6, 11-15, 17 and 19-21, and the measurement
+path of phase 9, sets every launch count to 0 just before it and reads the
+counts just after. The one-sweep kernel (jacobi_sweep) is off the main path: its
 launches are those of phase 9's measurement path, which differences the
 relaxation with it chained. Then come the kernels table as one JSON line, the done line with the
 total seconds, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -1135,11 +1156,12 @@ def same_files(a: str, b: str, names) -> bool:
                for n in names)
 
 
-def phase_sequence(card: str, counts_total: dict) -> None:
+def phase_sequence(card: str, counts_total: dict, tmp: str) -> list:
     """process_sequence at 1920x1080 grey with chain 1 and chain 3 against
     compute_flow per pair followed by the same writers, byte for byte; a
     resume from a manifest of the first three pairs; the wall per pair of
-    each mode."""
+    each mode. The frames and each mode's files stay in ``tmp``; returns
+    the pairs of frame files."""
     from tpuflow_torch import FlowConfig, compute_flow
     from tpuflow_torch.io import read_frame, write_raw_f32
     from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
@@ -1153,57 +1175,57 @@ def phase_sequence(card: str, counts_total: dict) -> None:
     n = SEQ_FRAMES - 1
     ids = [f"{i:05d}_" for i in range(n)]
     per_pair = expected_launches(w, h, cfg)
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = [os.path.join(tmp, f"frame_{i:03d}.raw") for i in range(SEQ_FRAMES)]
-        for p, f in zip(paths, frames):
-            write_raw_f32(p, f)
-        pairs = list(zip(paths[:-1], paths[1:]))
-        ref = os.path.join(tmp, "per_pair")
-        os.makedirs(ref)
-        solve_s = 0.0
-        t0 = time.perf_counter()
-        for pid, (p0, p1) in zip(ids, pairs):
-            res = compute_flow(read_frame(p0, w, h), read_frame(p1, w, h), cfg, device="cuda")
-            solve_s += res.seconds
-            write_pair(ref, pid, res.u, res.v, w, h)
-        ref_s = time.perf_counter() - t0
-        names = sorted(os.listdir(ref))
-        row = {"phase": "sequence", "shape": [h, w], "config": "FlowConfig()", "pairs": n,
-               "card": card, "files": len(names),
-               "compute_flow_ms_per_pair": solve_s / n * 1e3,
-               "compute_flow_and_writers_ms_per_pair": ref_s / n * 1e3}
-        ok = True
-        for chain in SEQ_CHAINS:
-            out = os.path.join(tmp, f"chain{chain}")
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            done = process_sequence(pairs, w, h, out, cfg, chain=chain, device="cuda")
-            row[f"chain{chain}_ms_per_pair"] = (time.perf_counter() - t0) / n * 1e3
-            check_counts(f"sequence chain={chain}", launch_counts(), scaled(per_pair, n),
-                         counts_total)
-            row[f"chain{chain}_completed"] = done
-            row[f"chain{chain}_bytewise_equal"] = same_files(ref, out, names)
-            row[f"chain{chain}_manifest"] = sorted(SequenceManifest(
-                os.path.join(out, "manifest.jsonl")).done())
-            ok &= (done == ids and row[f"chain{chain}_bytewise_equal"]
-                   and row[f"chain{chain}_manifest"] == ids)
-        # Resume: a manifest that holds the first three pairs.
-        out = os.path.join(tmp, "resume")
-        os.makedirs(out)
-        manifest = SequenceManifest(os.path.join(out, "manifest.jsonl"))
-        for pid in ids[:3]:
-            manifest.record(pid, 0.0)
+    paths = [os.path.join(tmp, f"frame_{i:03d}.raw") for i in range(SEQ_FRAMES)]
+    for p, f in zip(paths, frames):
+        write_raw_f32(p, f)
+    pairs = list(zip(paths[:-1], paths[1:]))
+    ref = os.path.join(tmp, "per_pair")
+    os.makedirs(ref)
+    solve_s = 0.0
+    t0 = time.perf_counter()
+    for pid, (p0, p1) in zip(ids, pairs):
+        res = compute_flow(read_frame(p0, w, h), read_frame(p1, w, h), cfg, device="cuda")
+        solve_s += res.seconds
+        write_pair(ref, pid, res.u, res.v, w, h)
+    ref_s = time.perf_counter() - t0
+    names = sorted(os.listdir(ref))
+    row = {"phase": "sequence", "shape": [h, w], "config": "FlowConfig()", "pairs": n,
+           "card": card, "files": len(names),
+           "compute_flow_ms_per_pair": solve_s / n * 1e3,
+           "compute_flow_and_writers_ms_per_pair": ref_s / n * 1e3}
+    ok = True
+    for chain in SEQ_CHAINS:
+        out = os.path.join(tmp, f"chain{chain}")
         reset_launch_counts()
-        done = process_sequence(pairs, w, h, out, cfg, chain=SEQ_CHAINS[-1], device="cuda")
-        check_counts("sequence resume", launch_counts(), scaled(per_pair, n - 3), counts_total)
-        rest = [nm for nm in names if nm[:6] in ids[3:]]
-        row.update(resume_completed=done, resume_bytewise_equal=same_files(ref, out, rest),
-                   resume_rewrote_none=not any(nm[:6] in ids[:3] for nm in os.listdir(out)))
-        ok &= done == ids[3:] and row["resume_bytewise_equal"] and row["resume_rewrote_none"]
+        t0 = time.perf_counter()
+        done = process_sequence(pairs, w, h, out, cfg, chain=chain, device="cuda")
+        row[f"chain{chain}_ms_per_pair"] = (time.perf_counter() - t0) / n * 1e3
+        check_counts(f"sequence chain={chain}", launch_counts(), scaled(per_pair, n),
+                     counts_total)
+        row[f"chain{chain}_completed"] = done
+        row[f"chain{chain}_bytewise_equal"] = same_files(ref, out, names)
+        row[f"chain{chain}_manifest"] = sorted(SequenceManifest(
+            os.path.join(out, "manifest.jsonl")).done())
+        ok &= (done == ids and row[f"chain{chain}_bytewise_equal"]
+               and row[f"chain{chain}_manifest"] == ids)
+    # Resume: a manifest that holds the first three pairs.
+    out = os.path.join(tmp, "resume")
+    os.makedirs(out)
+    manifest = SequenceManifest(os.path.join(out, "manifest.jsonl"))
+    for pid in ids[:3]:
+        manifest.record(pid, 0.0)
+    reset_launch_counts()
+    done = process_sequence(pairs, w, h, out, cfg, chain=SEQ_CHAINS[-1], device="cuda")
+    check_counts("sequence resume", launch_counts(), scaled(per_pair, n - 3), counts_total)
+    rest = [nm for nm in names if nm[:6] in ids[3:]]
+    row.update(resume_completed=done, resume_bytewise_equal=same_files(ref, out, rest),
+               resume_rewrote_none=not any(nm[:6] in ids[:3] for nm in os.listdir(out)))
+    ok &= done == ids[3:] and row["resume_bytewise_equal"] and row["resume_rewrote_none"]
     row["ok"] = bool(ok)
     emit(row)
     if not ok:
         raise AssertionError(f"sequence: {row}")
+    return pairs
 
 
 def phase_batch(counts_total: dict) -> None:
@@ -1388,6 +1410,435 @@ def phase_bench(card: str, counts_total: dict) -> list:
     return lines
 
 
+# Phases 18-22: meshes. Every position has a stream of its own; on one card
+# the mesh's positions are streams of cuda:0, and where the machine has
+# several cards, phase 18's cases also run with the positions dealt over them.
+MESH_N = 4
+# Cycles of torch.cuda._sleep queued on one shard's stream before each of its
+# sweeps in phase 18's race case (about 1 ms on an H100): its neighbours'
+# halo copies must wait for it.
+RACE_SLEEP_CYCLES = 2_000_000
+RACE_CASE = (1920, 1080, 4, 1, "grey", 5)
+# Row blocks of the prologue kernel: the shards of a 4-way split with a
+# 6-row halo at these level sizes, and at the prologue tile's edge shapes
+# blocks that start at row 0, end at the level's last row, or neither
+# (row0, rows below the block).
+PROLOGUE_BLOCK_SIZES = (SIZES[0], SIZES[1], SIZE_4K)
+PROLOGUE_BLOCK_PLACES = ((0, 5), (5, 0), (3, 4))
+MESH_ROUNDS = 5
+DP_FRAMES = 5            # phase 20: 4 pairs of 584x388, grey
+DP_ROUNDS = 3
+
+
+def mesh_devices(n: int) -> list:
+    """n positions on cuda:0, and n positions dealt over the visible cards
+    when there are several."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    out = [["cuda:0"] * n]
+    if cards > 1:
+        out.append([f"cuda:{i % cards}" for i in range(n)])
+    return out
+
+
+def prologue_blocks(card: str) -> dict:
+    """outer_prologue with row0 and height on row blocks (grey and tensor)
+    against outer_prologue_plain, bitwise. Returns the largest error."""
+    import torch
+
+    from tpuflow_torch.ops.level import outer_prologue, outer_prologue_plain
+    from tpuflow_torch.parallel import row_split
+
+    cases = []
+    for w, h in PROLOGUE_BLOCK_SIZES:
+        cases += [(w, h, sh.first, sh.padded) for sh in row_split(h, MESH_N, 6)]
+    for w, h in PROLOGUE_SHAPES:
+        cases += [(w, h + r0 + below, r0, h) for r0, below in PROLOGUE_BLOCK_PLACES]
+    err, n = 0.0, 0
+    inputs = {}
+    for w, height, row0, rows in cases:
+        if (w, height) not in inputs:
+            inputs.clear()
+            torch.cuda.empty_cache()
+            inputs[(w, height)] = kernel_inputs(w, height)
+        x = inputs[(w, height)]
+        cut = lambda t: t[:, row0:row0 + rows].contiguous()  # noqa: E731
+        T, uv, fxyz, J = cut(x["T"]), cut(x["uvf"]), cut(x["fxyz"]), cut(x["J"])
+        for tensor in (None, J):
+            got = outer_prologue(T, uv, fxyz, *x["pro"], J=tensor, row0=row0, height=height)
+            want = outer_prologue_plain(T, uv, fxyz, *x["pro"], J=tensor, row0=row0,
+                                        height=height)
+            e = float((got - want).abs().max())
+            err, n = max(err, e), n + 1
+            if not (e == 0.0 and torch.isfinite(got).all()):
+                raise AssertionError(f"outer_prologue on rows {row0}..{row0 + rows} of a "
+                                     f"{height}x{w} level (J={tensor is not None}): {e}")
+    inputs.clear()
+    torch.cuda.empty_cache()
+    row = {"phase": "prologue_row_blocks", "card": card, "blocks": n, "max_abs_err": err,
+           "bound": 0.0, "ok": err == 0.0}
+    emit(row)
+    return row
+
+
+def phase_mesh_explicit(card: str) -> dict:
+    """Phase 18: relax_sharded_explicit bitwise against relax_sharded and
+    relax in the SHARDED_CHECKS cases, one stream a shard, its launches and
+    copies counted exactly; the race case; the prologue on row blocks."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch import models
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.ops.level import (
+        KMAX, launch_counts, level_tensor_plain, reset_launch_counts,
+    )
+    from tpuflow_torch.parallel import halo as halo_mod
+    from tpuflow_torch.parallel import make_mesh, relax_sharded
+    from tpuflow_torch.parallel.halo import explicit_copies, relax_sharded_explicit
+    from tpuflow_torch.solver.level import relax
+
+    t0 = time.perf_counter()
+    max_err, inputs, cases = 0.0, {}, 0
+    for case in SHARDED_CHECKS + (RACE_CASE + ("race",),):
+        w, h, n_y, k, constancy, inner = case[:6]
+        race = len(case) > 6
+        if (w, h) not in inputs:
+            inputs.clear()
+            torch.cuda.empty_cache()
+            inputs[(w, h)] = kernel_inputs(w, h)
+        x = inputs[(w, h)]
+        cfg = {"grey": FlowConfig(), "gradient": models.full_model(),
+               "log": models.xray_log(alpha=LOG_ALPHA)}[constancy]
+        cfg = dataclasses.replace(cfg, inner_iterations_count=inner)
+        J = {"grey": None, "gradient": x["J"],
+             "log": level_tensor_plain(x["f0"], x["f1"], x["fxyz"], x["sc"], True)}[constancy]
+        args = (x["fxyz"], x["uvf"], x["sc"], cfg)
+        plain = relax_sharded(*args, make_mesh(n_y), k, J=J)
+        unsharded = relax(*args, J=J)
+        for devices in mesh_devices(n_y):
+            mesh = make_mesh(n_y, devices)
+            sweeps = halo_mod.jacobi_sweeps
+            if race:
+                victim = mesh.stream(mesh.row(0)[1])
+
+                def slow(T, uv, hoist, inner_):
+                    if torch.cuda.current_stream() == victim:
+                        torch.cuda._sleep(RACE_SLEEP_CYCLES)
+                    return sweeps(T, uv, hoist, inner_)
+
+                halo_mod.jacobi_sweeps = slow
+            reset_launch_counts()
+            relax_sharded_explicit.copies = 0
+            try:
+                got = relax_sharded_explicit(*args, mesh, k, J=J)
+            finally:
+                halo_mod.jacobi_sweeps = sweeps
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            outer = cfg.outer_iterations_count
+            prologue = "outer_prologue" if J is None else "outer_prologue_tensor"
+            want = {prologue: n_y * outer,
+                    "jacobi_sweeps": n_y * outer * -(-inner // KMAX),
+                    "copies": explicit_copies(h, cfg, n_y, k, J is not None)}
+            have = {prologue: counts[prologue], "jacobi_sweeps": counts["jacobi_sweeps"],
+                    "copies": relax_sharded_explicit.copies}
+            err = float((got - plain).abs().max())
+            vs_relax = float((got - unsharded).abs().max())
+            max_err = max(max_err, err, vs_relax)
+            cases += 1
+            row = {"phase": "mesh_explicit", "shape": [h, w], "n_y": n_y, "k": k,
+                   "constancy": constancy, "inner": inner, "race": race,
+                   "devices": devices, "max_abs_err": err, "bound": SHARDED_BOUND,
+                   "max_abs_vs_relax": vs_relax, "counts": have, "expected": want,
+                   "finite": bool(torch.isfinite(got).all())}
+            row["ok"] = (row["finite"] and err <= SHARDED_BOUND and vs_relax <= SHARDED_BOUND
+                         and have == want)
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"relax_sharded_explicit: {row}")
+    inputs.clear()
+    torch.cuda.empty_cache()
+    blocks = prologue_blocks(card)
+    row = {"phase": "mesh_explicit_done", "card": card, "cases": cases,
+           "max_abs_err": max_err, "seconds": time.perf_counter() - t0}
+    emit(row)
+    return {"explicit_max_abs_err": max_err, "prologue_blocks": blocks}
+
+
+def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1) -> dict:
+    """Launch counts of compute_flow_sharded on ``halo``'s routes, and the
+    explicit route's copies."""
+    from tpuflow_torch.ops.level import KMAX
+    from tpuflow_torch.parallel.halo import explicit_copies
+    from tpuflow_torch.solver.sharded import sharded_plan
+
+    want = expected_launches(w, h, cfg)
+    prologue = "outer_prologue" if want["outer_prologue"] else "outer_prologue_tensor"
+    outer, passes = cfg.outer_iterations_count, -(-cfg.inner_iterations_count // KMAX)
+    want.update({prologue: 0, "jacobi_sweeps": 0, "relax_sharded": 0, "copies": 0})
+    for lh, _, route, kk in sharded_plan(w, h, cfg, mesh, halo, k):
+        if route == "kernel":
+            want["relax_sharded"] += 1
+            continue
+        n = mesh.n_y if route == "explicit" else 1
+        want[prologue] += n * outer
+        want["jacobi_sweeps"] += n * outer * passes
+        if route == "explicit":
+            want["copies"] += explicit_copies(lh, cfg, mesh.n_y, kk, prologue != "outer_prologue")
+    return want
+
+
+def sharded_counts() -> dict:
+    from tpuflow_torch.parallel.halo import relax_sharded_explicit
+    from tpuflow_torch.solver import sharded
+
+    return {**sharded.launch_counts(), "copies": relax_sharded_explicit.copies}
+
+
+def phase_mesh_e2e(card: str, counts_total: dict) -> dict:
+    """Phase 19: a 1920x1080 full_model() pair through compute_flow(...,
+    mesh=) and compute_flow_sharded with halo explicit, kernel (shards on
+    one card) and auto on MESH_N positions of cuda:0, and of the cards
+    where there are several: bitwise compute_flow, exact counts, the auto
+    plan; the routes timed in turns with compute_flow. Returns the last
+    mesh's row."""
+    from tpuflow_torch import compute_flow, make_mesh, models
+    from tpuflow_torch.synthetic import textured_pair
+
+    w, h = SIZES[1]
+    cfg = models.full_model()
+    f0, f1 = textured_pair(w, h)
+    base = compute_flow(f0, f1, cfg, device="cuda")
+    for devices in mesh_devices(MESH_N):
+        row = mesh_e2e_run(card, counts_total, make_mesh(MESH_N, devices), f0, f1, base)
+    return row
+
+
+def mesh_e2e_run(card: str, counts_total: dict, mesh, f0, f1, base) -> dict:
+    """Phase 19 on one mesh."""
+    from tpuflow_torch import compute_flow, compute_flow_sharded, models, plan_parallel
+    from tpuflow_torch.solver import sharded
+    from tpuflow_torch.solver.sharded import sharded_plan
+    from tpuflow_torch.tools.roofline import cuda_ms
+
+    w, h = SIZES[1]
+    cfg = models.full_model()
+    route = plan_parallel((h, w), False, cfg, mesh)
+    paths = {"mesh": lambda: compute_flow(f0, f1, cfg, mesh=mesh, device="cuda")}
+    for halo in ("explicit", "kernel", "auto"):
+        if halo == "kernel" and mesh.cards > 1:
+            continue
+        paths[halo] = lambda hl=halo: compute_flow_sharded(f0, f1, cfg, mesh=mesh, halo=hl,
+                                                           device="cuda")
+    row = {"phase": "mesh_e2e", "shape": [h, w], "config": "models.full_model()", "card": card,
+           "devices": [str(d) for d in mesh.devices], "plan_parallel": route,
+           "auto_plan": [f"{lh}x{lw}:{r}" + (f"@k={k}" if r != "replicated" else "")
+                         for lh, lw, r, k in sharded_plan(w, h, cfg, mesh, "auto")]}
+    ok = True
+    for name, fn in paths.items():
+        sharded.reset_launch_counts()
+        res = fn()
+        counts = sharded_counts()
+        halo = {"mesh": "auto" if route == "sp" else None}.get(name, name)
+        want = (expected_sharded_counts(w, h, cfg, mesh, halo) if halo
+                else dict(expected_launches(w, h, cfg), relax_sharded=0, copies=0))
+        want = {key: want.get(key, 0) for key in counts}
+        same = res.u.tobytes() == base.u.tobytes() and res.v.tobytes() == base.v.tobytes()
+        row[f"{name}_counts"], row[f"{name}_bitwise"] = counts, same
+        ok &= same and counts == want
+        if counts != want:
+            row[f"{name}_expected"] = want
+        for key in MAIN_PATH:
+            counts_total[key] = counts_total.get(key, 0) + counts[key]
+    ms = {"compute_flow": [], **{name: [] for name in paths}}
+    runs = {"compute_flow": lambda: compute_flow(f0, f1, cfg, device="cuda"), **paths}
+    for _ in range(MESH_ROUNDS):
+        for name, fn in runs.items():
+            ms[name].append(cuda_ms(fn, 1, warmup=False))
+    for name, v in ms.items():
+        row[f"{name}_ms_median"] = statistics.median(v)
+        row[f"{name}_ms_all"] = v
+    row["ok"] = bool(ok)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"mesh_e2e: {row}")
+    return row
+
+
+def phase_mesh_dp(card: str, counts_total: dict) -> dict:
+    """Phase 20: a (4, 388, 584) grey stack through compute_flow(...,
+    mesh=) on 4 data positions and through compute_flow_hybrid on 4 y
+    positions, of cuda:0 and of the cards where there are several, and a
+    ragged B of 3: bitwise per-pair compute_flow, exact counts; timed in
+    turns with the stack without a mesh. Returns the last layout's row."""
+    from tpuflow_torch import FlowConfig, compute_flow, make_mesh
+    from tpuflow_torch.synthetic import textured_frames
+
+    w, h = SIZES[0]
+    cfg = FlowConfig()
+    frames = np.stack(textured_frames(w, h, [(i * 1.25, i * -0.75) for i in range(DP_FRAMES)]))
+    F0, F1 = frames[:-1], frames[1:]
+    singles = [compute_flow(a, b, cfg, device="cuda") for a, b in zip(F0, F1)]
+    for devices in mesh_devices(MESH_N):
+        row = mesh_dp_run(card, counts_total, make_mesh((MESH_N, 1), devices),
+                          make_mesh(MESH_N, devices), F0, F1, singles)
+    return row
+
+
+def mesh_dp_run(card: str, counts_total: dict, dp, hyb, F0, F1, singles) -> dict:
+    """Phase 20 on one layout of the positions."""
+    from tpuflow_torch import FlowConfig, compute_flow, compute_flow_hybrid
+    from tpuflow_torch.parallel.hybrid import hybrid_split_level
+    from tpuflow_torch.solver import sharded
+    from tpuflow_torch.solver.sharded import sharded_plan
+    from tpuflow_torch.tools.roofline import cuda_ms
+
+    w, h = SIZES[0]
+    cfg = FlowConfig()
+    split = hybrid_split_level(w, h, cfg, hyb)
+    plan = sharded_plan(w, h, cfg, hyb, "auto")
+    per_pair = expected_launches(w, h, cfg)
+    hyb_want = expected_sharded_counts(w, h, cfg, hyb, "auto")
+    row = {"phase": "mesh_dp", "shape": [len(F0), h, w], "config": "FlowConfig()", "card": card,
+           "devices": [str(d) for d in hyb.devices], "hybrid_split_level": split,
+           "hybrid_phase_b_plan": [f"{lh}x{lw}:{r}" for lh, lw, r, _ in plan[split:]]}
+    ok = True
+    for b in (len(F0), len(F0) - 1):
+        for name, fn, want in (
+                ("dp", lambda: compute_flow(F0[:b], F1[:b], cfg, mesh=dp, device="cuda"),
+                 dict(scaled(per_pair, b), relax_sharded=0, copies=0)),
+                ("hybrid", lambda: compute_flow_hybrid(F0[:b], F1[:b], cfg, mesh=hyb,
+                                                       device="cuda"),
+                 scaled(hyb_want, b))):
+            sharded.reset_launch_counts()
+            res = fn()
+            counts = sharded_counts()
+            want = {key: want.get(key, 0) for key in counts}
+            same = [res.u[i].tobytes() == s.u.tobytes() and res.v[i].tobytes() == s.v.tobytes()
+                    for i, s in enumerate(singles[:b])]
+            row[f"{name}_B{b}_bitwise"], row[f"{name}_B{b}_counts"] = same, counts
+            ok &= all(same) and res.u.shape == (b, h, w) and counts == want
+            if counts != want:
+                row[f"{name}_B{b}_expected"] = want
+            for key in MAIN_PATH:
+                counts_total[key] = counts_total.get(key, 0) + counts[key]
+    runs = {"stack": lambda: compute_flow(F0, F1, cfg, device="cuda"),
+            "dp": lambda: compute_flow(F0, F1, cfg, mesh=dp, device="cuda"),
+            "hybrid": lambda: compute_flow_hybrid(F0, F1, cfg, mesh=hyb, device="cuda")}
+    ms = {name: [] for name in runs}
+    for _ in range(DP_ROUNDS):
+        for name, fn in runs.items():
+            ms[name].append(cuda_ms(fn, 1, warmup=False))
+    for name, v in ms.items():
+        row[f"{name}_ms_median"] = statistics.median(v)
+        row[f"{name}_ms_all"] = v
+    row["ok"] = bool(ok)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"mesh_dp: {row}")
+    return row
+
+
+def phase_mesh_sequence(card: str, counts_total: dict, tmp: str, pairs: list) -> None:
+    """Phase 21: process_sequence(mesh=) on phase 13's six 1920x1080 pairs
+    over MESH_N data positions of cuda:0 (and of the cards where there are
+    several), byte for byte the files of chain=1; a resume from a manifest
+    of the first three pairs."""
+    from tpuflow_torch import FlowConfig, make_mesh
+    from tpuflow_torch.ops.level import launch_counts, reset_launch_counts
+    from tpuflow_torch.parallel.multihost import SequenceManifest, process_sequence
+
+    w, h = SIZES[1]
+    cfg = FlowConfig()
+    layouts = mesh_devices(MESH_N)
+    mesh = make_mesh((MESH_N, 1), layouts[0])
+    ref = os.path.join(tmp, "chain1")
+    names = sorted(nm for nm in os.listdir(ref) if nm != "manifest.jsonl")
+    n = len(pairs)
+    ids = [f"{i:05d}_" for i in range(n)]
+    per_pair = expected_launches(w, h, cfg)
+    out = os.path.join(tmp, "mesh")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    done = process_sequence(pairs, w, h, out, cfg, mesh=mesh, device="cuda")
+    row = {"phase": "mesh_sequence", "shape": [h, w], "config": "FlowConfig()", "pairs": n,
+           "card": card, "positions": f"{MESH_N} data positions of cuda:0",
+           "ms_per_pair": (time.perf_counter() - t0) / n * 1e3, "completed": done,
+           "bytewise_equal_chain1": same_files(ref, out, names),
+           "manifest": sorted(SequenceManifest(os.path.join(out, "manifest.jsonl")).done())}
+    check_counts("mesh sequence", launch_counts(), scaled(per_pair, n), counts_total)
+    cards_ok = True
+    for devices in layouts[1:]:
+        out = os.path.join(tmp, "mesh_cards")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        done_cards = process_sequence(pairs, w, h, out, cfg, device="cuda",
+                                      mesh=make_mesh((MESH_N, 1), devices))
+        row.update(cards_devices=devices, cards_completed=done_cards,
+                   cards_ms_per_pair=(time.perf_counter() - t0) / n * 1e3,
+                   cards_bytewise_equal_chain1=same_files(ref, out, names))
+        check_counts("mesh sequence over the cards", launch_counts(), scaled(per_pair, n),
+                     counts_total)
+        cards_ok = done_cards == ids and row["cards_bytewise_equal_chain1"]
+    out = os.path.join(tmp, "mesh_resume")
+    os.makedirs(out)
+    manifest = SequenceManifest(os.path.join(out, "manifest.jsonl"))
+    for pid in ids[:3]:
+        manifest.record(pid, 0.0)
+    reset_launch_counts()
+    resumed = process_sequence(pairs, w, h, out, cfg, mesh=mesh, device="cuda")
+    check_counts("mesh sequence resume", launch_counts(), scaled(per_pair, n - 3), counts_total)
+    rest = [nm for nm in names if nm[:6] in ids[3:]]
+    row.update(resume_completed=resumed, resume_bytewise_equal=same_files(ref, out, rest),
+               resume_rewrote_none=not any(nm[:6] in ids[:3] for nm in os.listdir(out)))
+    row["ok"] = bool(done == ids and row["bytewise_equal_chain1"] and row["manifest"] == ids
+                     and resumed == ids[3:] and row["resume_bytewise_equal"]
+                     and row["resume_rewrote_none"] and cards_ok)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"mesh_sequence: {row}")
+
+
+def phase_report_scaling(card: str) -> dict:
+    """Phase 22: report_scaling's --link constants, its --project table
+    (summarised), and the measured dp and sp line on MESH_N positions; with
+    the measured constants and with the model's own, "auto" routes no level
+    of a one-card mesh to the explicit route."""
+    from tpuflow_torch import FlowConfig
+    from tpuflow_torch.parallel.model import ICIParams, ONE_CARD, plan_level
+    from tpuflow_torch.pyramid import level_schedule
+    from tpuflow_torch.tools import report_scaling
+
+    link = report_scaling.measure_link()
+    emit({"phase": "report_scaling_link", **link})
+    measured = ICIParams(bandwidth_bytes_s=link["bandwidth_bytes_s"],
+                         hop_latency_s=link["hop_latency_s"], dispatch_s=link["dispatch_s"],
+                         launch_s=link["launch_s"])
+    cfg = FlowConfig()
+    explicit = []
+    for ici in (measured, ONE_CARD):
+        for w, h in SIZES + (SIZE_4K,):
+            for n_y in (2, 4, 8):
+                for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor):
+                    path = plan_level(s.height, s.width, cfg, n_y, ici, cards=1)[0]
+                    if path == "explicit":
+                        explicit.append((w, h, n_y, s.height, s.width))
+    summary = [{k: r[k] for k in ("case", "cards", "n_y", "path", "tn_ms", "t1_ms", "efficiency")
+                if k in r} for r in report_scaling.project()
+               if r["path"] in ("auto", "hybrid", "explicit", "kernel")]
+    emit({"phase": "report_scaling_project", "rows": summary})
+    line = report_scaling.measure(MESH_N, SIZES[0], reps=3, k=4)
+    row = {"phase": "report_scaling", **line, "auto_explicit_levels_one_card": explicit}
+    row["ok"] = not explicit and line["distinct_cards"] >= 1
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"report_scaling: {row}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -1464,12 +1915,22 @@ def main() -> int:
     # The streaming path: each run sets the counts to 0 just before it and
     # checks them just after (check_counts); they join the kernels line's.
     t_stream = time.perf_counter()
-    phase_sequence(card, counts)
-    phase_batch(counts)
-    phase_warp_report(counts)
-    phase_async(card)
-    phase_bench(card, counts)
-    emit({"phase": "streaming_done", "seconds": time.perf_counter() - t_stream})
+    with tempfile.TemporaryDirectory() as seq_tmp:
+        seq_pairs = phase_sequence(card, counts, seq_tmp)
+        phase_batch(counts)
+        phase_warp_report(counts)
+        phase_async(card)
+        phase_bench(card, counts)
+        emit({"phase": "streaming_done", "seconds": time.perf_counter() - t_stream})
+
+        # The meshes: the same kernels, driven over MESH_N positions.
+        t_mesh = time.perf_counter()
+        mesh = phase_mesh_explicit(card)
+        phase_mesh_e2e(card, counts)
+        phase_mesh_dp(card, counts)
+        phase_mesh_sequence(card, counts, seq_tmp, seq_pairs)
+        phase_report_scaling(card)
+        emit({"phase": "mesh_done", "seconds": time.perf_counter() - t_mesh})
 
     # The kernels line: times and bounds at 3840x2160 (1920x1080 beside them).
     rows = []
@@ -1500,6 +1961,11 @@ def main() -> int:
             row.update(near_twin=WARP_TWIN, near_twin_ms=t["near_twin_ms_4k"])
         if name in REDESIGNED:
             row["redesigned"] = REDESIGNED[name]
+        if name in ("outer_prologue", "outer_prologue_tensor"):
+            blocks = mesh["prologue_blocks"]
+            row.update(row_blocks_checked=blocks["blocks"],
+                       row_block_max_abs_err=blocks["max_abs_err"],
+                       max_abs_err=max(row["max_abs_err"], blocks["max_abs_err"]))
         if name == "level_tensor":
             log, blog = table["level_tensor_log"], bounds["level_tensor_log"]
             row.update(max_abs_err=max(t["max_abs_err"], log["max_abs_err"]),
@@ -1513,6 +1979,7 @@ def main() -> int:
         rows.append(row)
     for name, p in probes.items():
         rows.append({"name": name, "route": "cuda", "replaces": REPLACES[name], **p})
+    sharded_row["explicit_route_max_abs_err"] = mesh["explicit_max_abs_err"]
     rows.append(sharded_row)
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

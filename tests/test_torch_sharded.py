@@ -291,9 +291,17 @@ def test_launch_counts_cover_the_sharded_kernel():
 
 @pytest.mark.parametrize("halo", ["explicit", "auto", "gspmd"])
 def test_unported_halo_modes_raise(halo):
+    # explicit and auto are ported (bitwise compute_flow); only gspmd raises
     f0, f1 = blob_pair()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        compute_flow_sharded(f0, f1, mesh=make_mesh(4, device="cpu"), halo=halo, device="cpu")
+    _, tcfg = cfgs(**PIPE_CFG)
+    mesh = make_mesh(4, device="cpu")
+    if halo == "gspmd":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            compute_flow_sharded(f0, f1, tcfg, mesh=mesh, halo=halo, device="cpu")
+        return
+    got = compute_flow_sharded(f0, f1, tcfg, mesh=mesh, halo=halo, device="cpu")
+    want = compute_flow(f0, f1, tcfg, device="cpu")
+    assert got.u.tobytes() == want.u.tobytes() and got.v.tobytes() == want.v.tobytes()
 
 
 def test_bad_arguments_raise():
@@ -309,8 +317,13 @@ def test_bad_arguments_raise():
         make_mesh(MAX_SHARDS + 1, device="cpu")
     with pytest.raises(ValueError, match="shards"):
         Mesh(0, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match=r"Queue 1, multiple GPUs"):
-        make_mesh(2, device=["cuda:0", "cuda:1"])
+    # a mesh over distinct devices is accepted (make_mesh resolves them, so
+    # without CUDA it refuses "cuda:1" for that reason only)
+    spread = Mesh(2, devices=["cuda:0", "cuda:1"])
+    assert spread.cards == 2 and spread.devices[1] == torch.device("cuda", 1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_mesh(2, device=["cuda:0", "cuda:1"])
     assert make_mesh(2, device=["cpu", "cpu"]) == Mesh(2, torch.device("cpu"))
 
 
@@ -416,6 +429,9 @@ def test_work_of_four_shards_adds_the_margin_and_the_exchanges():
 def test_sharded_modules_import_no_jax():
     code = (
         "import sys, tpuflow_torch.parallel, tpuflow_torch.solver.sharded\n"
+        "import tpuflow_torch.parallel.model, tpuflow_torch.parallel.hybrid\n"
+        "import tpuflow_torch.parallel.multihost, tpuflow_torch.tools.report_scaling\n"
+        "import tpuflow_torch.ops.device_cache\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tpuflow')]\n"
         "assert not bad, bad\n"
     )

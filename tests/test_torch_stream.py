@@ -139,11 +139,24 @@ def test_process_sequence_resume(tmp_path, chain):
 
 
 def test_process_sequence_mesh_raises(tmp_path):
-    pairs = make_seq(str(tmp_path), n=3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        process_sequence(pairs, W, H, str(tmp_path / "out"), CFG, mesh=make_mesh(2, "cpu"),
+    # process_sequence(mesh=) runs: groups of n_data pairs, one a data
+    # position, byte for byte the files of chain=1; with a chain it raises
+    pairs = make_seq(str(tmp_path), n=5)
+    ref, out = str(tmp_path / "ref"), str(tmp_path / "out")
+    assert process_sequence(pairs, W, H, ref, CFG, device="cpu") == [
+        f"{i:05d}_" for i in range(4)]
+    mesh = make_mesh((3, 1), ["cpu"] * 3)
+    assert process_sequence(pairs, W, H, out, CFG, mesh=mesh, device="cpu") == [
+        f"{i:05d}_" for i in range(4)]
+    for name in sorted(os.listdir(ref)):
+        if name != "manifest.jsonl":
+            with open(os.path.join(ref, name), "rb") as a, open(os.path.join(out, name),
+                                                              "rb") as b:
+                assert a.read() == b.read(), name
+    with pytest.raises(ValueError, match="exclude each other"):
+        process_sequence(pairs, W, H, str(tmp_path / "o2"), CFG, chain=2, mesh=mesh,
                          device="cpu")
-    assert not os.path.exists(tmp_path / "out")
+    assert not os.path.exists(tmp_path / "o2")
 
 
 def test_process_sequence_bad_chain(tmp_path):
@@ -221,9 +234,14 @@ def test_front_door_rejects_mismatched_shapes(shapes):
 
 
 def test_sharded_rejects_a_stack():
+    # a stack goes through compute_flow(..., mesh=), bitwise the stack
+    # without a mesh; compute_flow_sharded refuses it and names that call
     f0, f1 = pair_frames(np.random.default_rng(0), b=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match=r"compute_flow\(\.\.\., mesh=\)"):
         compute_flow_sharded(f0, f1, CFG, mesh=make_mesh(2, "cpu"), device="cpu")
+    got = compute_flow(f0, f1, CFG, mesh=make_mesh(2, "cpu"), device="cpu")
+    want = compute_flow(f0, f1, CFG, device="cpu")
+    assert got.u.tobytes() == want.u.tobytes() and got.v.tobytes() == want.v.tobytes()
 
 
 @pytest.mark.parametrize("constancy", CONSTANCIES)

@@ -13,8 +13,12 @@ tpuflow_torch.cli`` is the reference-compatible command line, and
 ``compute_flow_async`` leaves the flow on the device without a fence, the
 block of ``parallel.multihost.process_sequence``, which streams a sequence
 of RAW frames to files, resumably; ``compute_flow_warp_report`` adds each
-level's displacement class. ``compute_flow_sharded`` shards each level's
-relaxation by rows over a ``make_mesh(n_y)`` of one card. ``python -m
+level's displacement class. ``make_mesh`` lays a ``("data", "y")`` grid of
+positions over one card or several: ``compute_flow(..., mesh=)`` deals a
+stack's pairs over it or shards one pair's rows, ``compute_flow_sharded``
+shards each level's relaxation by rows (``halo="kernel"``, ``"explicit"``
+or ``"auto"``), ``compute_flow_hybrid`` runs a stack's coarse levels one
+pair a position and its fine levels sharded. ``python -m
 tpuflow_torch.bench`` prints the throughput line. Importing this package
 imports neither JAX nor ``tpuflow``.
 """
@@ -26,7 +30,8 @@ from tpuflow_torch.config import (  # noqa: F401
 )
 from tpuflow_torch.solver.flow2d import (  # noqa: F401
     FlowResult, LevelTrace, compute_flow, compute_flow_async, compute_flow_warp_report,
-    endpoint_error,
+    endpoint_error, plan_parallel,
 )
 from tpuflow_torch.parallel.mesh import make_mesh  # noqa: F401
 from tpuflow_torch.solver.sharded import compute_flow_sharded  # noqa: F401
+from tpuflow_torch.parallel.hybrid import compute_flow_hybrid  # noqa: F401

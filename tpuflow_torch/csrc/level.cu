@@ -294,11 +294,12 @@ template <bool TENSOR>
 __global__ void __launch_bounds__(PRO_THREADS, 6)
     outer_prologue_kernel(const float* __restrict__ T, const float* __restrict__ uv,
                           const float* __restrict__ fxyz, const float* __restrict__ J,
-                          float* __restrict__ hoist, int h, int w, float div2hx, float div2hy,
-                          float alpha_hx2, float alpha_hy2, float e_s2, float e_d2) {
+                          float* __restrict__ hoist, int h, int w, int gy0, int gh,
+                          float div2hx, float div2hy, float alpha_hx2, float alpha_hy2,
+                          float e_s2, float e_d2) {
   __shared__ tf_body::ProTile<PRO_TW, TENSOR> sm;
   tf_body::prologue_tile<PRO_TW, TENSOR>(sm, T, uv, fxyz, J, hoist, blockIdx.x * PRO_TW,
-                                         blockIdx.y * tf_body::PRO_TH, h, w, 0, h, div2hx,
+                                         blockIdx.y * tf_body::PRO_TH, h, w, gy0, gh, div2hx,
                                          div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
 }
 
@@ -500,22 +501,27 @@ int tf_level_tensor(const float* f0, const float* f1, const float* fxyz, float* 
   return (int)cudaGetLastError();
 }
 
+// The h rows are rows gy0 .. gy0 + h - 1 of a level gh rows high (a shard's
+// padded block; gy0 = 0, gh = h for a whole level): the free-boundary
+// weights take the level's rows, the mirror boundary the block's.
 int tf_outer_prologue(const float* T, const float* uv, const float* fxyz, float* hoist,
-                      int h, int w, float div2hx, float div2hy, float alpha_hx2,
-                      float alpha_hy2, float e_s2, float e_d2, void* stream) {
+                      int h, int w, int gy0, int gh, float div2hx, float div2hy,
+                      float alpha_hx2, float alpha_hy2, float e_s2, float e_d2, void* stream) {
   outer_prologue_kernel<false>
       <<<prologue_grid(h, w), dim3(PRO_TW, tf_body::PRO_TH), 0, (cudaStream_t)stream>>>(
-          T, uv, fxyz, nullptr, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
+          T, uv, fxyz, nullptr, hoist, h, w, gy0, gh, div2hx, div2hy, alpha_hx2, alpha_hy2,
+          e_s2, e_d2);
   return (int)cudaGetLastError();
 }
 
 int tf_outer_prologue_tensor(const float* T, const float* uv, const float* fxyz,
-                             const float* J, float* hoist, int h, int w, float div2hx,
-                             float div2hy, float alpha_hx2, float alpha_hy2, float e_s2,
-                             float e_d2, void* stream) {
+                             const float* J, float* hoist, int h, int w, int gy0, int gh,
+                             float div2hx, float div2hy, float alpha_hx2, float alpha_hy2,
+                             float e_s2, float e_d2, void* stream) {
   outer_prologue_kernel<true>
       <<<prologue_grid(h, w), dim3(PRO_TW, tf_body::PRO_TH), 0, (cudaStream_t)stream>>>(
-          T, uv, fxyz, J, hoist, h, w, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2);
+          T, uv, fxyz, J, hoist, h, w, gy0, gh, div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2,
+          e_d2);
   return (int)cudaGetLastError();
 }
 

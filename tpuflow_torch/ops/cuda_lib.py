@@ -43,8 +43,9 @@ SIGNATURES = {
     "tf_warp": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
     "tf_level_derivs": (_P, _P, _P, _I, _I, _F, _F, _P),
     "tf_level_tensor": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
-    "tf_outer_prologue": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
-    "tf_outer_prologue_tensor": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
+    "tf_outer_prologue": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
+    "tf_outer_prologue_tensor": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                                 _P),
     "tf_jacobi_sweep": (_P, _P, _P, _P, _I, _I, _P),
     "tf_jacobi_sweeps": (_P, _P, _P, _P, _I, _I, _I, _P),
     "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),

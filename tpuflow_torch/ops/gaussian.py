@@ -8,7 +8,8 @@ the zero-padded 1-D convolutions are banded Toeplitz matrices
 any kernel, as in the JAX package; the matmuls are float32 (TF32 is
 switched off by ``compute_flow``). The matrices are built on the host and
 kept on the device per (n, sigma, device): an upload from pageable memory
-on every call would wait for all the work queued before it.
+on every call would wait for all the work queued before it. Every stream of
+the device reads them (``ops/device_cache.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import functools
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+from tpuflow_torch.ops.device_cache import device_cached
 
 MAX_TAPS = 51  # same cap as the reference __constant__ c_Kernel[51]
 
@@ -59,7 +62,7 @@ def conv_matrix(n: int, sigma: float) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=64)
+@device_cached(maxsize=64)
 def _device_matrix(n: int, sigma: float, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(conv_matrix(n, sigma)).to(device)
 

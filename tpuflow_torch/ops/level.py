@@ -158,24 +158,30 @@ def prologue_tiles(h: int, w: int, tw: int = PROLOGUE_TW):
 
 
 def outer_prologue(T, uv, fxyz, div2hx, div2hy, alpha_hx2, alpha_hy2,
-                   e_s2, e_d2, J=None) -> torch.Tensor:
+                   e_s2, e_d2, J=None, row0: int = 0, height=None) -> torch.Tensor:
     """(9, h, w) per-outer hoists from the current iterate T; with the
-    gradient/log tensor ``J`` (5, h, w), the tensor hoists read it."""
+    gradient/log tensor ``J`` (5, h, w), the tensor hoists read it.
+    ``row0`` and ``height`` place the h rows in a taller level, as in
+    ``outer_prologue_plain`` (a shard's padded block); the defaults are the
+    whole level."""
     _, h, w = T.shape
+    height = h if height is None else height
     _check_planes(h, w, T=(T, 2), uv=(uv, 2), fxyz=(fxyz, 3))
+    if row0 < 0 or row0 + h > height:
+        raise ValueError(f"rows {row0}..{row0 + h - 1} are not rows of a level {height} high")
     args = (div2hx, div2hy, alpha_hx2, alpha_hy2, e_s2, e_d2)
     if J is not None:
         _check_planes(h, w, J=(J, N_TENSOR))
     if not on_cuda(T, uv, fxyz, *(() if J is None else (J,))):
-        return outer_prologue_plain(T, uv, fxyz, *args, J=J)
+        return outer_prologue_plain(T, uv, fxyz, *args, J=J, row0=row0, height=height)
     hoist = torch.empty((N_HOIST, h, w), dtype=torch.float32, device=T.device)
     if J is None:
         launch("tf_outer_prologue", T.data_ptr(), uv.data_ptr(), fxyz.data_ptr(),
-               hoist.data_ptr(), h, w, *map(float, args))
+               hoist.data_ptr(), h, w, row0, height, *map(float, args))
         outer_prologue.launches += 1
     else:
         launch("tf_outer_prologue_tensor", T.data_ptr(), uv.data_ptr(), fxyz.data_ptr(),
-               J.data_ptr(), hoist.data_ptr(), h, w, *map(float, args))
+               J.data_ptr(), hoist.data_ptr(), h, w, row0, height, *map(float, args))
         outer_prologue.tensor_launches += 1
     return hoist
 

@@ -4,7 +4,8 @@ The weights transliterate the fraction logic of the reference kernel
 (tpuflow/ops/resample.py:32-57, reference: src/kernels/resample_2d.cu:44-74)
 with the ``out/in`` normalisation folded in; X is applied first, then Y
 (reference: cuda_operation_resample_2d.cpp:99-106). Weights are built on
-the host once per (in, out) pair and kept on the device.
+the host once per (in, out) pair and kept on the device, where every stream
+reads them (``ops/device_cache.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import math
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+from tpuflow_torch.ops.device_cache import device_cached
 
 F = np.float32
 
@@ -43,7 +46,7 @@ def resample_weights(in_n: int, out_n: int) -> np.ndarray:
     return w
 
 
-@functools.lru_cache(maxsize=1024)
+@device_cached(maxsize=1024)
 def _device_weights(in_n: int, out_n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(resample_weights(in_n, out_n)).to(device)
 

@@ -1,21 +1,28 @@
-"""Row-sharded relaxation on one card (the port of tpuflow/parallel's
-spatial path with ``halo="kernel"``).
+"""Meshes, row sharding, data parallelism and streaming (the port of
+tpuflow/parallel).
 
-  * ``make_mesh(n_y, device)``: n_y row shards on one device;
-  * ``relax_sharded``: the plain version, shards as padded tensor blocks,
-    halos exchanged by tensor copies;
+  * ``make_mesh(shape, device)``: a ``("data", "y")`` grid of positions,
+    one device each (devices may repeat), each with its own CUDA stream;
+  * ``relax_sharded``: the plain sharded relaxation, shards as padded
+    tensor blocks, halos exchanged by tensor copies;
   * ``relax_sharded_kernel``: the same in one cooperative CUDA launch
-    (csrc/sharded.cu), gated by ``kernel_halo_applicable``;
-  * ``tpuflow_torch.solver.sharded.compute_flow_sharded``: the pipeline;
-  * ``parallel.multihost``: ``SequenceManifest`` and ``process_sequence``,
-    the resumable streaming loop, split over processes by pair index.
+    (csrc/sharded.cu), every shard on one card;
+  * ``relax_sharded_explicit``: the same with each shard on its position's
+    device and stream, halos copied between them after CUDA events;
+  * ``model``: the cost model and the per-level router of ``halo="auto"``;
+  * ``hybrid.compute_flow_hybrid``: coarse levels one pair a position,
+    fine levels sharded over ``y``;
+  * ``multihost``: ``initialize_distributed``, ``SequenceManifest`` and
+    ``process_sequence``, the resumable streaming loop, split over
+    processes by pair index and over a mesh's data positions.
 
-Data parallelism, the explicit exchange, the dp x sp hybrid, the cost
-router and meshes over several cards are not ported yet (ROADMAP Queue 1,
-multiple GPUs).
+``tpuflow_torch.solver.sharded.compute_flow_sharded`` is the sharded
+pipeline; ``compute_flow(..., mesh=)`` routes by ``plan_parallel``.
 """
 
-from tpuflow_torch.parallel.halo import halo_applicable, relax_sharded, row_split  # noqa: F401
+from tpuflow_torch.parallel.halo import (  # noqa: F401
+    halo_applicable, relax_sharded, relax_sharded_explicit, row_split,
+)
 from tpuflow_torch.parallel.halo_kernel import (  # noqa: F401
     kernel_halo_applicable, relax_sharded_kernel,
 )

@@ -19,6 +19,11 @@ A block that touches the image edge ends there, so its mirror rule is the
 image's; the free-boundary weights take global rows. The port's levels are
 exact-size, so the JAX path's ghost-row upkeep and top-row mirror fill have
 no counterpart.
+
+``relax_sharded_explicit`` runs the same schedule with each shard's block
+on its own mesh position: the prologue and k-sweep kernels on the shard's
+device and stream, the halos moved by copies ordered by CUDA events (the
+port of the shard_map + ppermute route, halo.py:100-289).
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ import torch
 
 from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.ops.level import (
-    N_TENSOR, _check_planes, jacobi_sweep_plain, outer_prologue_plain,
+    N_TENSOR, _check_planes, jacobi_sweep_plain, jacobi_sweeps, outer_prologue,
+    outer_prologue_plain,
 )
 from tpuflow_torch.parallel.mesh import Mesh
 
@@ -149,3 +155,109 @@ def relax_sharded(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConfig, mes
             for _ in range(cfg.inner_iterations_count):
                 T_b[s] = jacobi_sweep_plain(T_b[s], uv_b[s], hoist)
     return torch.cat([T[:, sh.top:sh.top + sh.rows] for T, sh in zip(T_b, shards)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# The explicit route: one stream a shard, halos by copies between them
+# ---------------------------------------------------------------------------
+
+
+def _event(stream) -> Optional[torch.cuda.Event]:
+    """An event recorded on ``stream`` now (None on the CPU)."""
+    if stream is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event
+
+
+def _copy(dst: torch.Tensor, src: torch.Tensor, dst_stream, src_stream, after) -> None:
+    """dst <- src once ``after`` (an event of the stream that wrote src) has
+    completed: on dst's stream, or, between two cards, on src's stream
+    fenced both ways with dst's, as torch runs such a copy. src is recorded
+    to dst's stream, so that its memory is not handed out again before the
+    copy has read it."""
+    if dst_stream is None:
+        dst.copy_(src)
+        return
+    dst_stream.wait_event(after)
+    with torch.cuda.stream(src_stream), torch.cuda.stream(dst_stream):
+        dst.copy_(src, non_blocking=True)
+    src.record_stream(dst_stream)
+
+
+def relax_sharded_explicit(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConfig,
+                           mesh: Mesh, k_outer: int = 1, J: Optional[torch.Tensor] = None,
+                           data: int = 0) -> torch.Tensor:
+    """``relax_sharded`` with shard s on position (``data``, s) of ``mesh``:
+    its padded block on that position's device, its prologue (``row0``,
+    ``height``: the block's place in the level) and k-sweep kernels on that
+    position's stream. The level's fields come from the caller's current
+    stream and T goes back to it, on the fields' device.
+
+    Each block is copied in from the level's fields with its halos, which
+    are then the true rows, so the exchange before the first outer moves
+    nothing and is left out; after it, every ``k_outer`` outers each shard
+    records an event after its last sweep, and each halo copy runs on the
+    destination's stream after the source's event. The owned rows are
+    bitwise those of ``relax_sharded`` and ``relax``. Counts the copies it
+    makes between positions and the level's fields in
+    ``relax_sharded_explicit.copies``."""
+    halo = check_sharded_args(fxyz, uv, cfg, mesh, k_outer, J)
+    _, h, w = uv.shape
+    shards = row_split(h, mesh.n_y, halo)
+    positions = mesh.row(data)
+    if any(mesh.devices[p].type != uv.device.type for p in positions):
+        raise ValueError(f"fields on {uv.device} for shards on "
+                         f"{[str(mesh.devices[p]) for p in positions]}")
+    streams = [mesh.stream(p) for p in positions]
+    caller = torch.cuda.current_stream(uv.device) if uv.is_cuda else None
+    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
+    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
+    fields = [uv, fxyz] + ([] if J is None else [J])
+    ready = _event(caller)
+    blocks, T_b = [], []
+    for sh, p, stream in zip(shards, positions, streams):
+        with mesh.on(p):
+            mine = [torch.empty((x.shape[0], sh.padded, w), dtype=torch.float32,
+                                device=mesh.devices[p]) for x in fields]
+            for block, x in zip(mine, fields):
+                _copy(block, x[:, sh.first:sh.first + sh.padded], stream, caller, ready)
+            blocks.append(mine + [None] * (3 - len(mine)))
+            T_b.append(mine[0].clone())
+    copies = len(fields) * len(shards)
+    for i in range(cfg.outer_iterations_count):
+        if i and i % k_outer == 0:
+            swept = [_event(stream) for stream in streams]
+            for s in range(len(shards) - 1):
+                a, b = shards[s], shards[s + 1]
+                end = a.top + a.rows
+                _copy(T_b[s + 1][:, :halo], T_b[s][:, end - halo:end], streams[s + 1],
+                      streams[s], swept[s])
+                _copy(T_b[s][:, end:], T_b[s + 1][:, b.top:b.top + halo], streams[s],
+                      streams[s + 1], swept[s + 1])
+            copies += 2 * (len(shards) - 1)
+        for s, (sh, p) in enumerate(zip(shards, positions)):
+            uv_s, fxyz_s, J_s = blocks[s]
+            with mesh.on(p):
+                hoist = outer_prologue(T_b[s], uv_s, fxyz_s, sc.div2hx, sc.div2hy, sc.alpha_hx2,
+                                       sc.alpha_hy2, e_s2, e_d2, J_s, row0=sh.first, height=h)
+                T_b[s] = jacobi_sweeps(T_b[s], uv_s, hoist, cfg.inner_iterations_count)
+    T = torch.empty_like(uv)
+    for s, (sh, stream) in enumerate(zip(shards, streams)):
+        _copy(T[:, sh.row0:sh.row0 + sh.rows], T_b[s][:, sh.top:sh.top + sh.rows], caller,
+              stream, _event(stream))
+    relax_sharded_explicit.copies += copies + len(shards)
+    return T
+
+
+relax_sharded_explicit.copies = 0
+
+
+def explicit_copies(h: int, cfg: FlowConfig, n_y: int, k_outer: int = 1,
+                    tensor: bool = False) -> int:
+    """The copies of one ``relax_sharded_explicit`` call: each shard's
+    blocks in (uv, fxyz and J), the halos of every exchange after the first,
+    and the owned rows out."""
+    exchanges = -(-cfg.outer_iterations_count // k_outer) - 1
+    return n_y * (3 if tensor else 2) + max(exchanges, 0) * 2 * (n_y - 1) + n_y

@@ -1,16 +1,18 @@
-"""The row mesh of the sharded solve (the port of tpuflow/parallel/mesh.py).
+"""The ``("data", "y")`` mesh of the port (the port of tpuflow/parallel/mesh.py).
 
-The JAX package lays a ``("data", "y")`` mesh over chips, and shards image
-rows over ``y``. In the port a mesh is ``n_y`` row shards on one explicit
-device: all shards of a level live on one card, and the sharded relaxation
-kernel (csrc/sharded.cu) exchanges their halos inside one launch. A mesh
-over several cards is not ported yet (ROADMAP Queue 1, multiple GPUs).
+The JAX package lays a ``("data", "y")`` grid over chips: ``data`` deals
+independent frame pairs, ``y`` shards image rows. In the port a mesh is a
+grid of ``n_data x n_y`` positions, each a device, in row-major order (data
+outer). Devices may repeat: four positions on ``cuda:0`` are four shards of
+one card. Every position has a CUDA stream of its own, made on its device
+when first asked for, so that positions which share a card still run as
+separate queues, ordered only by the events the solver places between them.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Sequence, Union
+import contextlib
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -19,6 +21,7 @@ import torch
 MAX_SHARDS = 8
 
 Device = Union[str, torch.device]
+Shape = Union[int, Tuple[int, int]]
 
 
 def _indexed(device: Device) -> torch.device:
@@ -39,32 +42,116 @@ def resolve_device(device: Device) -> torch.device:
     return _indexed(device)
 
 
-@dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``n_y`` row shards, every one on ``device``."""
+    """``n_data x n_y`` positions. ``Mesh(n_y, device)`` is one row of
+    ``n_y`` shards on one device; ``devices`` gives one device per
+    position, row-major (data outer)."""
 
-    n_y: int
-    device: torch.device
+    def __init__(self, n_y: int, device: Optional[Device] = None, *, n_data: int = 1,
+                 devices: Optional[Sequence[Device]] = None):
+        if not 1 <= n_y <= MAX_SHARDS:
+            raise ValueError(f"a mesh holds 1 to {MAX_SHARDS} row shards, got {n_y}")
+        if n_data < 1:
+            raise ValueError(f"a mesh needs at least one data position, got {n_data}")
+        if (device is None) == (devices is None):
+            raise ValueError("give one device or one device per position")
+        if devices is None:
+            devices = [device] * (n_data * n_y)
+        if len(devices) != n_data * n_y:
+            raise ValueError(f"{len(devices)} devices for {n_data} x {n_y} positions")
+        self.n_data, self.n_y = int(n_data), int(n_y)
+        self.devices: Tuple[torch.device, ...] = tuple(_indexed(d) for d in devices)
+        self._streams: Dict[int, torch.cuda.Stream] = {}
 
-    def __post_init__(self):
-        if not 1 <= self.n_y <= MAX_SHARDS:
-            raise ValueError(f"a mesh holds 1 to {MAX_SHARDS} row shards, got {self.n_y}")
-        object.__setattr__(self, "device", _indexed(self.device))
+    def _key(self):
+        return self.n_data, self.n_y, self.devices
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Mesh) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+    def __repr__(self) -> str:
+        return f"Mesh(n_data={self.n_data}, n_y={self.n_y}, devices={list(map(str, self.devices))})"
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.n_data, "y": self.n_y}
+
+    @property
+    def size(self) -> int:
+        return self.n_data * self.n_y
+
+    @property
+    def cards(self) -> int:
+        """How many distinct devices the positions span."""
+        return len(set(self.devices))
+
+    @property
+    def device(self) -> torch.device:
+        """The one device of a mesh whose positions all share it (what the
+        cooperative kernel needs); raises for a mesh over several."""
+        if self.cards != 1:
+            raise ValueError(f"{self!r} spans {self.cards} devices, not one")
+        return self.devices[0]
+
+    def position(self, data: int, y: int) -> int:
+        """The index of position (data, y)."""
+        if not (0 <= data < self.n_data and 0 <= y < self.n_y):
+            raise IndexError(f"position ({data}, {y}) outside a {self.n_data} x {self.n_y} mesh")
+        return data * self.n_y + y
+
+    def row(self, data: int = 0) -> Tuple[int, ...]:
+        """The positions of one data row: the shards of one pair's rows."""
+        return tuple(self.position(data, y) for y in range(self.n_y))
+
+    def row_cards(self, data: int = 0) -> int:
+        """How many distinct devices the shards of one data row span."""
+        return len({self.devices[p] for p in self.row(data)})
+
+    def stream(self, p: int) -> Optional[torch.cuda.Stream]:
+        """Position ``p``'s CUDA stream, made on its device at first use;
+        None for a CPU position."""
+        dev = self.devices[p]
+        if dev.type != "cuda":
+            return None
+        if p not in self._streams:
+            self._streams[p] = torch.cuda.Stream(dev)
+        return self._streams[p]
+
+    def on(self, p: int):
+        """Position ``p``'s device and stream as the current ones (nothing
+        for a CPU position)."""
+        stream = self.stream(p)
+        return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
 
 
-def make_mesh(n_y: int, device: Union[Device, Sequence[Device]] = "cuda") -> Mesh:
-    """A mesh of ``n_y`` row shards on ``device``: one device, or one per
-    shard, which must then all be the same device. ``"cuda"`` raises on a
-    machine without CUDA; several distinct devices raise
-    NotImplementedError."""
-    devices = [device] if isinstance(device, (str, torch.device)) else list(device)
-    distinct = {torch.device(d) for d in devices}
-    if len(distinct) > 1:
-        raise NotImplementedError(
-            f"a mesh over several devices ({sorted(map(str, distinct))}) is not ported yet: "
-            "ROADMAP Queue 1, multiple GPUs (peer pointers in the shard struct, or the explicit "
-            "exchange over torch.distributed)")
-    if len(devices) > 1 and len(devices) != n_y:
-        raise ValueError(f"{len(devices)} devices for {n_y} shards")
-    (dev,) = distinct
-    return Mesh(int(n_y), resolve_device(dev))
+def default_shape(n: int) -> Tuple[int, int]:
+    """The JAX package's layout over n devices (tpuflow/parallel/mesh.py:26-31):
+    every device on ``y``, with one factor of 2 peeled off to ``data`` when
+    there are at least 8."""
+    return (2, n // 2) if n >= 8 and n % 2 == 0 else (1, n)
+
+
+def make_mesh(shape: Optional[Shape] = None,
+              device: Union[Device, Sequence[Device]] = "cuda") -> Mesh:
+    """A mesh of ``shape`` positions: ``n_y`` (one data row) or ``(n_data,
+    n_y)``. ``device`` is one device for every position, or one per
+    position, row-major. Without ``shape`` the mesh lays the JAX default
+    over the given devices, or over every visible card when ``device`` is
+    ``"cuda"``. ``"cuda"`` raises on a machine without CUDA."""
+    many = not isinstance(device, (str, torch.device))
+    if many:
+        devices = [resolve_device(d) for d in device]
+    elif shape is None and torch.device(device) == torch.device("cuda"):
+        resolve_device(device)
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [resolve_device(device)]
+    if shape is None:
+        shape = default_shape(len(devices))
+    n_data, n_y = (1, shape) if isinstance(shape, int) else shape
+    if len(devices) == 1:
+        return Mesh(int(n_y), devices[0], n_data=int(n_data))
+    return Mesh(int(n_y), n_data=int(n_data), devices=devices)

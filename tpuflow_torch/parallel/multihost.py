@@ -1,5 +1,6 @@
-"""Streaming sequences: the resumable manifest and ``process_sequence`` (the
-port of tpuflow/parallel/multihost.py:51-263, without ``mesh=``).
+"""Processes and streaming sequences: ``initialize_distributed``, the
+resumable manifest and ``process_sequence`` (the port of
+tpuflow/parallel/multihost.py:29-48, :51-263).
 
 Frame pairs are independent, so recovery is re-processing: the manifest
 records a pair only after its four files are written, and ``resume`` skips
@@ -11,7 +12,9 @@ and submits each pair with ``compute_flow_async`` (uploads from pinned
 staging buffers, no fence); each flow (or each chunk of ``chain`` flows,
 stacked on the device) goes down on a copy stream of its own, which waits
 only for that work, into pinned memory; one writer thread waits for that
-copy and writes the files, in order.
+copy and writes the files, in order. With ``mesh=`` each group of
+``n_data`` pairs is solved one pair a data position, each on its position's
+stream, and fetched on the copy stream.
 """
 
 from __future__ import annotations
@@ -28,7 +31,39 @@ import torch
 
 from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.io import FrameLoader, write_flow_image_rgb, write_magnitude_f32, write_raw_f32
+from tpuflow_torch.parallel.mesh import resolve_device
 from tpuflow_torch.solver.flow2d import _device, _full_float32, _on, compute_flow_async
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None) -> None:
+    """Join this process to a ``torch.distributed`` group; a no-op for a
+    single process (neither argument given and ``TPUFLOW_NUM_PROCESSES``
+    unset or at most 1, as in the JAX package). The group rendezvouses at
+    ``tcp://coordinator_address`` (``host:port``), or, without it, by
+    torch's ``env://`` variables (MASTER_ADDR, MASTER_PORT, RANK,
+    WORLD_SIZE). It runs over NCCL where CUDA is available, over gloo
+    otherwise; on the card each process takes the card of its local rank
+    (LOCAL_RANK, else its rank modulo the cards)."""
+    if num_processes is None and coordinator_address is None:
+        env_procs = os.environ.get("TPUFLOW_NUM_PROCESSES")
+        if env_procs is None or int(env_procs) <= 1:
+            return
+    dist = torch.distributed
+    cuda = torch.cuda.is_available()
+    kw = {}
+    if coordinator_address is not None:
+        kw["init_method"] = f"tcp://{coordinator_address}"
+    if num_processes is not None:
+        kw["world_size"] = num_processes
+    if process_id is not None:
+        kw["rank"] = process_id
+    if cuda:
+        rank = process_id if process_id is not None else int(os.environ.get("RANK", 0))
+        local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+    dist.init_process_group("nccl" if cuda else "gloo", **kw)
 
 
 @dataclasses.dataclass
@@ -88,6 +123,15 @@ def _download(flows: torch.Tensor, copy_stream):
     return host, copied
 
 
+def _copy_stream(streams: dict, device: torch.device):
+    """The copy stream of ``device`` (None on the CPU), made at first use."""
+    if device.type != "cuda":
+        return None
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
 def process_sequence(pairs: Sequence[Tuple[str, str]], width: int, height: int,
                      output_dir: str, cfg: Optional[FlowConfig] = None, *,
                      resume: bool = True, flow_max_scale: float = 10.0, chain: int = 1,
@@ -102,16 +146,24 @@ def process_sequence(pairs: Sequence[Tuple[str, str]], width: int, height: int,
 
     ``chain=N`` submits N pairs back to back, stacks their flows on the
     device and fetches them in one copy; the files are byte for byte those
-    of ``chain=1``. ``mesh=`` (data-parallel streaming over several cards)
-    raises NotImplementedError. ``device="cuda"`` raises without CUDA.
+    of ``chain=1``. ``mesh=`` solves groups of ``n_data`` pairs, pair d of
+    a group on position (d, 0) of the mesh, in one process (a group
+    of processes already splits the pairs by index), and takes no ``chain``;
+    ``device`` must then be the mesh's first device. ``device="cuda"``
+    raises without CUDA.
     """
-    if mesh is not None:
-        raise NotImplementedError("process_sequence(mesh=...): streaming over several cards "
-                                  "is ROADMAP Queue 1 item 4 (multiple GPUs)")
     if chain < 1:
         raise ValueError(f"chain must be at least 1, got {chain}")
+    if mesh is not None and chain > 1:
+        raise ValueError("process_sequence: mesh= and chain > 1 exclude each other (a mesh "
+                         "spreads pairs over positions, a chain over one fetch)")
+    if mesh is not None and process_rank()[1] > 1:
+        raise ValueError("process_sequence: mesh= needs a single process (a group of "
+                         "processes already splits the pairs by index)")
     cfg = cfg or FlowConfig()
     device = _device(device)
+    if mesh is not None and resolve_device(device) != mesh.devices[0]:
+        raise ValueError(f"device {str(device)!r} is not the mesh's device, {mesh.devices[0]}")
     os.makedirs(output_dir, exist_ok=True)
     manifest = SequenceManifest(os.path.join(output_dir, "manifest.jsonl"))
     done = manifest.done() if resume else set()
@@ -120,11 +172,12 @@ def process_sequence(pairs: Sequence[Tuple[str, str]], width: int, height: int,
             if idx % world == rank and f"{idx:05d}_" not in done]
     completed: List[str] = []
 
-    def drain(ids, host, copied, t_submit):
-        if copied is not None:
-            copied.synchronize()
-        flows = host.numpy()
-        # a chunk shares one submit time and one copy: its time per pair
+    def drain(ids, fetched, t_submit):
+        for _, copied in fetched:
+            if copied is not None:
+                copied.synchronize()
+        flows = np.concatenate([host.numpy() for host, _ in fetched])
+        # a chunk shares one submit time: its time per pair
         per_pair = (time.perf_counter() - t_submit) / len(ids)
         for pair_id, (u, v) in zip(ids, flows):
             write_pair(output_dir, pair_id, u, v, width, height, flow_max_scale)
@@ -136,20 +189,29 @@ def process_sequence(pairs: Sequence[Tuple[str, str]], width: int, height: int,
     # chunks being copied or written behind the one being submitted (the
     # JAX package's bounded queues)
     in_flight = 6 if chain == 1 else 3
-    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    group = chain if mesh is None else mesh.n_data
+    copy_streams = {}
     files = [p for _, p0, p1 in mine for p in (p0, p1)]
     with _full_float32(), _on(device), FrameLoader(files, width, height) as loader, \
             ThreadPoolExecutor(max_workers=1) as writer:
         futures = []
-        for c0 in range(0, len(mine), chain):
-            chunk = mine[c0:c0 + chain]
+        for c0 in range(0, len(mine), group):
+            chunk = mine[c0:c0 + group]
             t_submit = time.perf_counter()
-            flows = [compute_flow_async(loader.next(), loader.next(), cfg, device=device)
-                     for _ in chunk]
-            stacked = torch.stack(flows) if len(flows) > 1 else flows[0][None]
-            host, copied = _download(stacked, copy_stream)
-            futures.append(writer.submit(drain, [pid for pid, _, _ in chunk], host, copied,
-                                         t_submit))
+            if mesh is None:
+                flows = [compute_flow_async(loader.next(), loader.next(), cfg, device=device)
+                         for _ in chunk]
+                stacked = torch.stack(flows) if len(flows) > 1 else flows[0][None]
+                fetched = [_download(stacked, _copy_stream(copy_streams, device))]
+            else:
+                fetched = []
+                for d in range(len(chunk)):
+                    p = mesh.position(d, 0)
+                    dev = mesh.devices[p]
+                    with _on(dev), mesh.on(p):
+                        flow = compute_flow_async(loader.next(), loader.next(), cfg, device=dev)
+                        fetched.append(_download(flow[None], _copy_stream(copy_streams, dev)))
+            futures.append(writer.submit(drain, [pid for pid, _, _ in chunk], fetched, t_submit))
             if len(futures) > in_flight:
                 futures.pop(0).result()
         for f in futures:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.config import FlowConfig
+from tpuflow_torch.parallel.mesh import resolve_device
 from tpuflow_torch.pyramid import level_schedule
 from tpuflow_torch.solver.level import solve
 from tpuflow_torch.utils.timing import Timer
@@ -153,12 +154,51 @@ def compute_flow_async(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
         return _submit(f0, f1, cfg, device)
 
 
+def plan_parallel(shape, batched: bool, cfg: FlowConfig, mesh) -> str:
+    """How ``compute_flow(..., mesh=)`` spreads its work (the JAX front
+    door's rule, tpuflow/solver/flow2d.py:63-96): a (B, H, W) stack
+    ``"dp"``, its pairs dealt over the mesh's positions; one pair ``"sp"``
+    where the cost router (``parallel.model.plan_level``) would shard its
+    finest level over the mesh's ``y`` positions, else ``"single"``."""
+    from tpuflow_torch.solver.sharded import level_route
+
+    if batched:
+        return "dp"
+    h, w = shape
+    shardable = mesh.n_y > 1 and level_route(h, w, cfg, mesh, "auto")[0] != "replicated"
+    return "sp" if shardable else "single"
+
+
+def _compute_flow_dp(f0: np.ndarray, f1: np.ndarray, cfg: FlowConfig, mesh) -> FlowResult:
+    """A (B, H, W) stack with pair i on position i % mesh.size, each
+    submitted on its position's stream, then fetched in order."""
+    with _full_float32(), Timer() as timer:
+        flows = []
+        for i, (a, b) in enumerate(zip(f0, f1)):
+            p = i % mesh.size
+            with _on(mesh.devices[p]), mesh.on(p):
+                flows.append(_submit(a, b, cfg, mesh.devices[p]))
+        uv = np.empty((2, *f0.shape), dtype=np.float32)
+        for i, flow in enumerate(flows):
+            with mesh.on(i % mesh.size):
+                uv[:, i] = flow.cpu().numpy()
+    return FlowResult(u=uv[0], v=uv[1], seconds=timer.seconds)
+
+
 def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
-                 collect_trace: bool = False, device="cuda", _relax_for=None) -> FlowResult:
+                 collect_trace: bool = False, device="cuda", mesh=None,
+                 _relax_for=None) -> FlowResult:
     """Dense 2D optical flow from frame_0 to frame_1, two (H, W) frames of
     any real dtype, or two (B, H, W) stacks of independent pairs, solved in
     order (each pair's flow bitwise that of a call on the pair alone); the
     computation is float32 on ``device``.
+
+    With a ``mesh`` (``parallel.make_mesh``) the work spreads as
+    ``plan_parallel`` says: a stack's pairs over the mesh's positions, one
+    stream each; one pair sharded by rows over its ``y`` positions with the
+    cost router's routes (``compute_flow_sharded(..., halo="auto")``), or
+    on one position. Every flow is bitwise that of a call without a mesh.
+    ``device`` must be the mesh's first device.
 
     ``collect_trace`` fills ``FlowResult.levels`` with one ``LevelTrace``
     per level, timed by CUDA events on the card and by the host clock on
@@ -174,6 +214,17 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
     cfg = cfg or FlowConfig()
     device = _device(device)
     f0, f1 = _frames(frame_0, frame_1, stacks=True)
+    if mesh is not None:
+        from tpuflow_torch.solver.sharded import row_device, sharded_relax_for
+
+        if resolve_device(device) != row_device(mesh):
+            raise ValueError(f"device {str(device)!r} is not the mesh's device, "
+                             f"{row_device(mesh)}")
+        if f0.ndim == 3 and not collect_trace:
+            return _compute_flow_dp(f0, f1, cfg, mesh)
+        if f0.ndim == 2 and plan_parallel(f0.shape, False, cfg, mesh) == "sp":
+            _relax_for = sharded_relax_for(cfg, mesh, "auto")
+        device = row_device(mesh)
     if f0.ndim == 3:
         if collect_trace:
             raise ValueError("collect_trace=True traces one pair; a (B, H, W) stack "

@@ -194,11 +194,24 @@ def warp_tier(uv: torch.Tensor, inv_hx: float, inv_hy: float,
     return (most > disp).int() + (most > 2 * disp).int()
 
 
+def smooth_pair(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig) -> torch.Tensor:
+    """The presmoothed pair (2, h, w) that every level resamples."""
+    return gaussian_smooth(torch.stack([f0, f1]), cfg.gaussian_sigma)
+
+
 def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
           _steps: Steps = KERNEL_STEPS, trace: Optional[list] = None,
           relax_for: Optional[Callable[[int, int], RelaxFn]] = None,
-          tiers: Optional[list] = None) -> torch.Tensor:
+          tiers: Optional[list] = None, levels: Optional[range] = None,
+          uv: Optional[torch.Tensor] = None, smoothed: bool = False) -> torch.Tensor:
     """The coarse-to-fine solve on f0's device; returns (u, v) as (2, h, w).
+
+    ``levels`` runs only those positions of the coarse-to-fine schedule
+    (``pyramid.level_schedule``), from ``uv``, the flow the level before
+    the first of them returned (None from the coarsest), and returns the
+    flow of the last of them at its size. With ``smoothed``, f0 and f1 are
+    already ``smooth_pair``'s. A solve run in parts this way gives the
+    whole solve's flow, bit for bit (the hybrid's split).
 
     With a list ``trace``, appends one ``(level, width, height, seconds)``
     per level, the resample included. On the card each level is timed by
@@ -214,9 +227,13 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
     h0, w0 = f0.shape
     if min(h0, w0) < 4:
         raise ValueError(f"frames must be at least 4x4, got {h0}x{w0}")
-    frames = gaussian_smooth(torch.stack([f0, f1]), cfg.gaussian_sigma)
-    uv = None
+    frames = torch.stack([f0, f1]) if smoothed else smooth_pair(f0, f1, cfg)
     specs = level_schedule(w0, h0, cfg.warp_levels_count, cfg.warp_scale_factor)
+    levels = range(len(specs)) if levels is None else levels
+    if (uv is None) != (levels.start == 0):
+        raise ValueError("a solve from the coarsest level starts from no flow; a later "
+                         "level needs the flow of the level before it")
+    specs = specs[levels.start:levels.stop]
     marks = [_clock(f0.device)] if trace is not None else None
     for spec in specs:
         cw, ch = spec.width, spec.height

@@ -1,72 +1,128 @@
 """The row-sharded pipeline: ``compute_flow_sharded`` (the port of
-``compute_flow_bucketed_sharded(..., halo="kernel")``,
-tpuflow/solver/bucketed.py:1470-1633).
+``compute_flow_bucketed_sharded``, tpuflow/solver/bucketed.py:1470-1633).
 
-Only the relaxation is sharded. Each level whose rows the kernel's gate
-admits (``kernel_halo_applicable``: every shard owns at least max(k (inner +
-1), 16) rows) relaxes in one launch of ``relax_sharded_kernel`` with its rows
-over the mesh; every other level runs the unsharded ``relax``, as the JAX
-pipeline replicates the buckets its gates refuse. The resample, warp,
-derivatives, tensor and median run on the whole field with the level
-kernels. The flow is bitwise that of ``compute_flow``.
+Only the relaxation is sharded, over the ``y`` positions of one data row of
+the mesh; the resample, warp, derivatives, tensor and median run on the
+whole field with the level kernels, on the row's first device. Each level
+takes one of three relaxations:
+
+  * ``"kernel"``: one launch of ``relax_sharded_kernel`` (csrc/sharded.cu),
+    where every shard is on one card and its gate admits the level;
+  * ``"explicit"``: ``relax_sharded_explicit``, each shard on its
+    position's device and stream, halos copied between them, where
+    ``halo_applicable`` admits the level;
+  * ``"replicated"``: the unsharded ``relax``, as the JAX pipeline
+    replicates the buckets its gates refuse.
+
+``halo="kernel"`` and ``"explicit"`` shard every level their gate admits at
+the caller's k; ``"auto"`` takes each level's route and k from the cost
+model (``parallel.model.plan_level``). Every route gives the flow of
+``compute_flow``, bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.ops.level import launch_counts as level_launch_counts
 from tpuflow_torch.ops.level import reset_launch_counts as reset_level_launch_counts
+from tpuflow_torch.parallel.halo import halo_applicable, relax_sharded_explicit
 from tpuflow_torch.parallel.halo_kernel import kernel_halo_applicable, relax_sharded_kernel
 from tpuflow_torch.parallel.mesh import Mesh, resolve_device
+from tpuflow_torch.parallel.model import link_params, plan_level
+from tpuflow_torch.pyramid import level_schedule
 from tpuflow_torch.solver.flow2d import FlowResult, compute_flow
 from tpuflow_torch.solver.level import relax
 
-# The halo modes of the JAX pipeline that the port does not run.
-NOT_PORTED = {
-    "explicit": "the exchange outside the kernel is ROADMAP Queue 1 (multiple GPUs)",
-    "auto": "the cost router is ROADMAP Queue 1 (multiple GPUs)",
-    "gspmd": "compiler-partitioned stencils are on ROADMAP's 'Do not port' list",
-}
+HALO_MODES = ("kernel", "explicit", "auto")
+# The halo mode of the JAX pipeline that the port does not run.
+NOT_PORTED = {"gspmd": "compiler-partitioned stencils are on ROADMAP's 'Do not port' list"}
+
+
+def row_device(mesh: Mesh, data: int = 0):
+    """The device of a data row's first position: where the row's
+    whole-field work runs."""
+    return mesh.devices[mesh.row(data)[0]]
+
+
+def level_route(h: int, w: int, cfg: FlowConfig, mesh: Mesh, halo: str, k_outer: int = 1,
+                data: int = 0) -> Tuple[str, int]:
+    """(route, k) of an (h, w) level's relaxation over data row ``data``:
+    ``"kernel"``, ``"explicit"`` or ``"replicated"``."""
+    n_y, cards = mesh.n_y, mesh.row_cards(data)
+    if halo == "auto":
+        paths = ("kernel", "explicit") if cards == 1 else ("explicit",)
+        path, k, _ = plan_level(h, w, cfg, n_y, link_params(cards), paths=paths, cards=cards)
+        return path, k
+    admitted = (kernel_halo_applicable if halo == "kernel" else halo_applicable)
+    return (halo if admitted(h, n_y, cfg, k_outer) else "replicated"), k_outer
+
+
+def sharded_plan(w: int, h: int, cfg: FlowConfig, mesh: Mesh, halo: str = "auto",
+                 k_outer: int = 1, data: int = 0) -> List[Tuple[int, int, str, int]]:
+    """(height, width, route, k) of every level of a w x h pair, coarse to
+    fine."""
+    return [(s.height, s.width) + level_route(s.height, s.width, cfg, mesh, halo, k_outer, data)
+            for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)]
+
+
+def sharded_relax_for(cfg: FlowConfig, mesh: Mesh, halo: str = "auto", k_outer: int = 1,
+                      data: int = 0):
+    """``solve``'s ``relax_for``: each level's relaxation on its route over
+    data row ``data`` of ``mesh``."""
+    if halo in NOT_PORTED:
+        raise NotImplementedError(f"halo={halo!r} is not ported: {NOT_PORTED[halo]}")
+    if halo not in HALO_MODES:
+        raise ValueError(f"unknown halo mode {halo!r}")
+    if k_outer < 1:
+        raise ValueError(f"k_outer must be at least 1, got {k_outer}")
+    if halo == "kernel" and mesh.row_cards(data) != 1:
+        raise ValueError(f"halo='kernel' needs every shard on one card; {mesh!r} spreads a "
+                         "row over several (halo='explicit' or 'auto' run there)")
+    one_card = Mesh(mesh.n_y, row_device(mesh, data))
+
+    def relax_for(h: int, w: int):
+        route, k = level_route(h, w, cfg, mesh, halo, k_outer, data)
+        if route == "kernel":
+            return functools.partial(relax_sharded_kernel, mesh=one_card, k_outer=k)
+        if route == "explicit":
+            return functools.partial(relax_sharded_explicit, mesh=mesh, k_outer=k, data=data)
+        return relax
+
+    return relax_for
 
 
 def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, mesh: Mesh,
                          halo: str = "kernel", k_outer: int = 1,
                          device="cuda") -> FlowResult:
-    """``compute_flow`` with the rows of every admitted level's relaxation
-    sharded over ``mesh`` (``make_mesh(n_y, device)``), halos exchanged once
-    every ``k_outer`` outers. ``halo`` is ``"kernel"``; the JAX pipeline's
-    other modes raise NotImplementedError. ``device`` must be the mesh's
-    device, its index included; ``"cuda"`` raises without CUDA."""
-    if halo in NOT_PORTED:
-        raise NotImplementedError(f"halo={halo!r} is not ported: {NOT_PORTED[halo]}")
-    if halo != "kernel":
-        raise ValueError(f"unknown halo mode {halo!r}")
-    if k_outer < 1:
-        raise ValueError(f"k_outer must be at least 1, got {k_outer}")
+    """``compute_flow`` of one pair with the rows of every admitted level's
+    relaxation sharded over the ``y`` positions of ``mesh``'s first data
+    row, halos exchanged once every ``k_outer`` outers (``"auto"`` picks k
+    per level). ``halo`` is ``"kernel"`` (all shards on one card),
+    ``"explicit"`` or ``"auto"``; the JAX pipeline's ``"gspmd"`` raises
+    NotImplementedError. ``device`` must be the row's first device, its index
+    included; ``"cuda"`` raises without CUDA. A (B, H, W) stack goes through
+    ``compute_flow(..., mesh=)``."""
+    relax_for = sharded_relax_for(cfg or FlowConfig(), mesh, halo, k_outer)
     if np.ndim(frame_0) == 3:
-        raise NotImplementedError("compute_flow_sharded on a (B, H, W) stack: data parallelism "
-                                  "and the dp x sp hybrid are ROADMAP Queue 1 item 4 "
-                                  "(multiple GPUs); compute_flow takes stacks on one card")
-    cfg = cfg or FlowConfig()
-    if resolve_device(device) != mesh.device:
-        raise ValueError(f"device {str(device)!r} is not the mesh's device, {mesh.device}")
-    sharded = functools.partial(relax_sharded_kernel, mesh=mesh, k_outer=k_outer)
-
-    def relax_for(h: int, w: int):
-        return sharded if kernel_halo_applicable(h, mesh.n_y, cfg, k_outer) else relax
-
-    return compute_flow(frame_0, frame_1, cfg, device=mesh.device, _relax_for=relax_for)
+        raise ValueError("compute_flow_sharded solves one pair; a (B, H, W) stack goes "
+                         "through compute_flow(..., mesh=), which deals its pairs over the "
+                         "mesh's positions")
+    if resolve_device(device) != row_device(mesh):
+        raise ValueError(f"device {str(device)!r} is not the mesh's device, {row_device(mesh)}")
+    return compute_flow(frame_0, frame_1, cfg, device=row_device(mesh), _relax_for=relax_for)
 
 
 def reset_launch_counts() -> None:
-    """Set the launch counts of the sharded path's kernels to 0."""
+    """Set the launch counts of the sharded path's kernels, and the explicit
+    route's copies, to 0."""
     reset_level_launch_counts()
     relax_sharded_kernel.launches = 0
+    relax_sharded_explicit.copies = 0
 
 
 def launch_counts() -> dict:

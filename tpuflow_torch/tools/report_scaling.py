@@ -1,0 +1,274 @@
+"""Scaling report: Mpix/s at one position against N, data-parallel and
+row-sharded, one JSON line (the port of tools/report_scaling.py).
+
+    python -m tpuflow_torch.tools.report_scaling [N] [--size WxH]
+        N positions (default 4) dealt over every visible card, on a seeded
+        textured pair (``synthetic.textured_pair``) at WxH (default
+        584x388) with FlowConfig():
+          dp  a stack of N pairs through compute_flow(..., mesh=) against
+              N single pairs, by the k-slope;
+          sp  one pair through compute_flow_sharded with halo="explicit",
+              "kernel" (shards on one card only) and "auto", and the
+              hybrid on N pairs.
+        With one card the N positions are N streams of it: the line says
+        "streams on one card", which is not scaling.
+
+    python -m tpuflow_torch.tools.report_scaling --link
+        The constants of the cost model (parallel/model.py), measured on
+        the card: the host's time to issue one halo message (an event wait
+        and a copy) and one kernel launch, the device's time for one grid
+        sync of the cooperative kernel and for one small copy, and the copy
+        rate between two blocks on one card.
+
+    python -m tpuflow_torch.tools.report_scaling --project [W H]
+        No card needed: the cost model's table for the default schedule at
+        584x388 and 1920x1080 (or W x H), with the shards on one card and
+        on one card each, at 2, 4 and 8 shards.
+
+The measuring modes need CUDA and raise without it.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from typing import Callable, List
+
+SIZE = (584, 388)
+POSITIONS = 4
+
+
+def time_best(fn: Callable, reps: int = 4, k: int = 8) -> float:
+    """Seconds per call by the k-slope of chains of k/4 and k calls, in
+    alternating order, the median of ``reps`` of each: what a fence or a
+    download at the end of a chain costs drops out. ``fn`` must finish its
+    work before it returns (compute_flow does)."""
+    if k < 2:
+        raise ValueError(f"the k-slope needs two chain lengths, k={k}")
+    k_lo, k_hi = max(1, k // 4), k
+    ts = {k_lo: [], k_hi: []}
+    for r in range(reps):
+        for kk in ((k_lo, k_hi) if r % 2 == 0 else (k_hi, k_lo)):
+            t0 = time.perf_counter()
+            for _ in range(kk):
+                fn()
+            ts[kk].append(time.perf_counter() - t0)
+    med = {kk: sorted(v)[len(v) // 2] for kk, v in ts.items()}
+    return (med[k_hi] - med[k_lo]) / (k_hi - k_lo)
+
+
+def _cuda_devices() -> List:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the scaling report times CUDA cards, and none is available")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def measure_link(device="cuda", messages: int = 256, sleep_cycles: int = 200_000_000) -> dict:
+    """The cost model's constants on one card (see the module docstring).
+    The host's times are taken while the card sleeps, so no call waits for
+    it: host seconds over ``messages`` calls."""
+    import torch
+
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.ops.level import outer_prologue
+    from tpuflow_torch.parallel import make_mesh, relax_sharded_kernel
+    from tpuflow_torch.parallel.halo import _copy, _event
+    from tpuflow_torch.parallel.halo_kernel import grid_syncs
+    from tpuflow_torch.solver.level import LevelScalars
+    from tpuflow_torch.tools.roofline import cuda_ms, device_info, graph_ms
+
+    _cuda_devices()
+    dev = torch.device(device)
+    cfg = FlowConfig()
+    with torch.cuda.device(dev):
+        dev = torch.device("cuda", torch.cuda.current_device())
+        src, dst = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        w, halo = 1920, 6
+        a = torch.rand((2, 540, w), device=dev)
+        b = torch.rand((2, 540, w), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(sleep_cycles)
+        src.wait_stream(torch.cuda.current_stream())
+        t0 = time.perf_counter()
+        for _ in range(messages):
+            _copy(b[:, :halo], a[:, -halo:], dst, src, _event(src))
+        dispatch_s = (time.perf_counter() - t0) / messages
+        torch.cuda.synchronize()
+        small_copy_ms = graph_ms(lambda: b[:, :halo].copy_(a[:, -halo:]), calls=50, replays=5)
+        big_a = torch.empty((64 << 20) // 4, device=dev)
+        big_b = torch.empty_like(big_a)
+        copy_ms = graph_ms(lambda: big_b.copy_(big_a), calls=5, replays=5)
+        T = torch.rand((2, 64, 72), device=dev)
+        uv, fxyz = torch.rand_like(T), torch.rand((3, 64, 72), device=dev)
+        outer_prologue(T, uv, fxyz, 2.0, 2.0, 35.0, 35.0, 1e-6, 1e-6)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(sleep_cycles)
+        t0 = time.perf_counter()
+        for _ in range(messages):
+            outer_prologue(T, uv, fxyz, 2.0, 2.0, 35.0, 35.0, 1e-6, 1e-6)
+        launch_s = (time.perf_counter() - t0) / messages
+        torch.cuda.synchronize()
+        sc = LevelScalars.make(300, 64, 1.0, 1.0, cfg.equation_alpha)
+        T = torch.rand((2, 64, 300), device=dev)
+        fxyz = torch.rand((3, 64, 300), device=dev)
+        mesh = make_mesh(1, dev)
+        sync_ms = cuda_ms(lambda: relax_sharded_kernel(fxyz, T, sc, cfg, mesh), 5)
+    out = {"card": device_info()["nvidia_smi"], "device": str(dev),
+           "dispatch_s": dispatch_s, "launch_s": launch_s,
+           "hop_latency_s": sync_ms * 1e-3 / grid_syncs(cfg, 1),
+           "small_copy_s": small_copy_ms * 1e-3,
+           "bandwidth_bytes_s": big_a.numel() * 4 / (copy_ms * 1e-3)}
+    if torch.cuda.device_count() > 1:
+        out.update(_peer_link(dev, a, big_a, halo, messages, sleep_cycles))
+    return {**out,
+            "how": {"dispatch_s": f"host s per _copy of a {halo}-row, {w}-wide, 2-plane halo "
+                                  "between two streams (event, wait, copy, record_stream)",
+                    "launch_s": "host s per outer_prologue launch on a 64x72 level",
+                    "hop_latency_s": "device s per grid sync: relax_sharded_kernel on a "
+                                     "64x300 level, one shard, 40 x 5, over its grid syncs",
+                    "small_copy_s": "device s of that halo copy (CUDA-graph replay)",
+                    "bandwidth_bytes_s": "bytes of a 64 MiB copy on the card over its "
+                                         "device s (CUDA-graph replay)",
+                    "peer_*": "the same between this card and the next, where there are "
+                              "several: the message from a stream of this card to one of "
+                              "the next, the copy timed by CUDA events over 10 copies"}}
+
+
+def _peer_link(dev, a, big_a, halo: int, messages: int, sleep_cycles: int) -> dict:
+    """The halo message, the small copy and the 64 MiB copy from ``dev`` to
+    the next card."""
+    import torch
+
+    from tpuflow_torch.parallel.halo import _copy, _event
+    from tpuflow_torch.tools.roofline import cuda_ms
+
+    peer = torch.device("cuda", (dev.index + 1) % torch.cuda.device_count())
+    with torch.cuda.device(dev):
+        src, dst = torch.cuda.Stream(dev), torch.cuda.Stream(peer)
+        b = torch.empty_like(a, device=peer)
+        big_b = torch.empty_like(big_a, device=peer)
+        b[:, :halo].copy_(a[:, -halo:])
+        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(peer)
+        torch.cuda._sleep(sleep_cycles)
+        src.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        for _ in range(messages):
+            _copy(b[:, :halo], a[:, -halo:], dst, src, _event(src))
+        dispatch_s = (time.perf_counter() - t0) / messages
+        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(peer)
+        # a copy between cards runs on the source card's current stream,
+        # where these events are recorded
+        small_ms = cuda_ms(lambda: b[:, :halo].copy_(a[:, -halo:]), 50)
+        copy_ms = cuda_ms(lambda: big_b.copy_(big_a), 10)
+    return {"peer": str(peer), "peer_access": torch.cuda.can_device_access_peer(dev, peer),
+            "peer_dispatch_s": dispatch_s, "peer_small_copy_s": small_ms * 1e-3,
+            "peer_bandwidth_bytes_s": big_a.numel() * 4 / (copy_ms * 1e-3)}
+
+
+def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4) -> dict:
+    """Mpix/s at one position and at ``n``, dp and sp (module docstring)."""
+    import numpy as np
+
+    from tpuflow_torch import (
+        FlowConfig, compute_flow, compute_flow_async, compute_flow_hybrid,
+        compute_flow_sharded, make_mesh,
+    )
+    from tpuflow_torch.synthetic import textured_pair
+    from tpuflow_torch.tools.roofline import device_info
+
+    cards = _cuda_devices()
+    devices = [cards[i % len(cards)] for i in range(n)]
+    distinct = len(set(devices))
+    w, h = size
+    mpix = w * h / 1e6
+    cfg = FlowConfig()
+    f0, f1 = textured_pair(w, h)
+    home = devices[0]
+
+    def one():
+        return compute_flow_async(f0, f1, cfg, device=home).cpu()
+
+    one()
+    t1 = time_best(one, reps, k)
+    report = {"card": device_info()["nvidia_smi"], "size": [w, h], "positions": n,
+              "distinct_cards": distinct,
+              "kind": "streams on one card" if distinct == 1 else f"scaling over {distinct} cards",
+              "mpix_s_1": mpix / t1, "ms_1": t1 * 1e3}
+    if n < 2:
+        return report
+    F0, F1 = np.stack([f0] * n), np.stack([f1] * n)
+    dp = make_mesh((n, 1), devices)
+    runs = {"dp": lambda: compute_flow(F0, F1, cfg, mesh=dp, device=home)}
+    sp = make_mesh(n, devices)
+    for halo in ("explicit", "kernel", "auto"):
+        if halo == "kernel" and distinct > 1:
+            continue
+        runs[f"sp_{halo}"] = (lambda hl=halo: compute_flow_sharded(
+            f0, f1, cfg, mesh=sp, halo=hl, device=home))
+    runs["hybrid"] = lambda: compute_flow_hybrid(F0, F1, cfg, mesh=sp, device=home)
+    for name, fn in runs.items():
+        fn()
+        t = time_best(fn, reps, k)
+        pairs = n if name in ("dp", "hybrid") else 1
+        report[f"mpix_s_{name}"] = pairs * mpix / t
+        report[f"{name}_speedup"] = pairs * t1 / t
+        report[f"{name}_efficiency"] = pairs * t1 / t / n
+    return report
+
+
+def project(w: int = None, h: int = None) -> list:
+    """The cost model's rows (module docstring)."""
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.parallel.model import (
+        best_k, link_params, project_schedule, project_schedule_auto, project_schedule_hybrid,
+        project_sensitivity, rub_default_levels,
+    )
+
+    cfg = FlowConfig()
+    sizes = [(w, h)] if w else [SIZE, (1920, 1080)]
+    out = []
+    for sw, sh in sizes:
+        for n_y in (2, 4, 8):
+            for cards in (1, n_y):
+                ici = link_params(cards)
+                levels = rub_default_levels(sw, sh, cfg, ici)
+                paths = ("kernel", "explicit") if cards == 1 else ("explicit",)
+                rows = [project_schedule(levels, cfg, n_y, p, ici, 1, cards) for p in paths]
+                rows += [dict(best_k(levels, cfg, n_y, p, ici, cards=cards),
+                              path=f"{p}+best_k") for p in paths]
+                rows.append(project_schedule_auto(levels, cfg, n_y, ici, paths, cards))
+                rows.append(project_schedule_hybrid(levels, cfg, n_y, ici=ici, paths=paths,
+                                                    cards=cards))
+                rows.append(dict(project_sensitivity(levels, cfg, n_y, cards=cards),
+                                 path="sensitivity"))
+                for row in rows:
+                    row.update(case=f"{sw}x{sh}", cards=cards)
+                out += rows
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if "--project" in argv:
+        pos = [int(a) for a in argv if not a.startswith("-")]
+        print(json.dumps(project(*pos[:2]), indent=1))
+        return 0
+    if "--link" in argv:
+        print(json.dumps(measure_link()))
+        return 0
+    size = SIZE
+    if "--size" in argv:
+        size = tuple(int(x) for x in argv[argv.index("--size") + 1].split("x"))
+    pos = [a for i, a in enumerate(argv) if not a.startswith("-")
+           and (i == 0 or argv[i - 1] != "--size")]
+    print(json.dumps(measure(int(pos[0]) if pos else POSITIONS, size)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
