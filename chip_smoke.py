@@ -67,7 +67,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               compute_flow_sharded(full_model()) at
               1920x1080 on 4 shards and on 1 against compute_flow, the shift
               and the launch counts, timed in turns with compute_flow; grey
-              584x388 on 4 shards against the oracle (reduced schedule)
+              584x388 on 4 shards against the oracle (reduced schedule).
+              Where the machine has several cards, also the kernel with the
+              shards spread over them (one launch a card, halos stored
+              through peer pointers, flag barriers between the cards):
+              every SHARDED_CHECKS case over 2 cards, over 4 and with 8
+              shards dealt over 4, bitwise, each card's grid syncs and row
+              barriers equal to the formulas; a race case (one card's launch
+              held back about 0.1 s); one card's launch left out in a child
+              process, which must fail within the spin limit; the 1080p and
+              4K level-0 launches over 4 cards in turns with one card's,
+              beside the cards=4 bound. On one card it prints that it did
+              not run.
  13. sequence process_sequence on 6 pairs of seeded 1920x1080 f32 RAW frames
               (FlowConfig()) with chain=1 and chain=3, byte for byte against
               compute_flow per pair followed by the same writers; a resume
@@ -92,12 +103,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               the SHARDED_CHECKS cases on 4 positions of cuda:0 (and dealt
               over the cards where there are several), launches and copies
               exact; a race case with a device sleep queued on one shard's
-              stream before each of its sweeps; the prologue kernel on row
-              blocks (row0, height) bitwise against its plain version
+              stream before each of its sweeps; where the positions span
+              several cards the kernel on the same mesh, bitwise, counts
+              exact; the prologue kernel on row blocks (row0, height)
+              bitwise against its plain version
  19. mesh_e2e a 1920x1080 full_model() pair through compute_flow(...,
               mesh=make_mesh(4, ["cuda:0"] * 4)) and compute_flow_sharded
               with halo explicit, kernel and auto: bitwise compute_flow,
-              counts exact, the auto plan by level, timed in turns
+              counts exact, the auto plan by level, timed in turns; the
+              same with the positions dealt over the cards where there are
+              several
  20. mesh_dp  a (4, 388, 584) grey stack through compute_flow(..., mesh=)
               on 4 data positions and compute_flow_hybrid on 4 y positions,
               and a ragged B of 3: bitwise per-pair compute_flow, counts
@@ -108,8 +123,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               (--link), the --project table, the measured dp and sp line
               with its count of distinct cards; "auto" routes no level of a
               one-card mesh to the explicit route
+ 23. crosscard_e2e  where the machine has several cards: a 3840x2160
+              full_model() pair through compute_flow(..., mesh=) and
+              compute_flow_sharded with halo explicit, kernel and auto over
+              4 positions dealt over the cards, bitwise compute_flow, counts
+              exact (one relax_sharded launch a card a level), timed in
+              turns; on one card it prints that it did not run
 
-Each main-path run of phases 4-6, 11-15, 17 and 19-21, and the measurement
+Each main-path run of phases 4-6, 11-15, 17, 19-21 and 23, and the measurement
 path of phase 9, sets every launch count to 0 just before it and reads the
 counts just after. The one-sweep kernel (jacobi_sweep) is off the main path: its
 launches are those of phase 9's measurement path, which differences the
@@ -1115,6 +1136,212 @@ def phase_sharded_e2e(card: str, unsharded_times: dict) -> int:
     return launches
 
 
+# Phase 12 across cards, where the machine has several: the kernel with the
+# row's shards spread over the cards, one cooperative launch a card, halos
+# stored through peer pointers, flag barriers between the cards.
+# Cycles of torch.cuda._sleep queued on one card's launch stream before its
+# launch in the race case (about 0.1 s on an H100; the others wait at their
+# first row barrier).
+CROSS_RACE_SLEEP_CYCLES = 200_000_000
+# The spin-limit case: a child process leaves one card's launch out; it must
+# exit non-zero within the kernel's spin limit and this margin.
+CROSS_TIMEOUT_MARGIN_S = 60
+CROSS_TIMED_CARDS = 4
+CROSS_ROUNDS = 3
+CROSS_TIMEOUT_CHILD = """
+import sys
+import torch
+sys.path.insert(0, {repo!r})
+from tpuflow_torch.config import FlowConfig
+from tpuflow_torch.parallel import make_mesh, relax_sharded_kernel
+from tpuflow_torch.solver.level import LevelScalars
+torch.cuda.set_device(0)
+sc = LevelScalars.make(300, 64, 1.0, 1.0, 35.0)
+T, fxyz = torch.rand((2, 64, 300), device="cuda"), torch.rand((3, 64, 300), device="cuda")
+relax_sharded_kernel(fxyz, T, sc, FlowConfig(), make_mesh(2, ["cuda:0", "cuda:1"]),
+                     _skip_card=1)
+try:
+    for d in range(2):
+        torch.cuda.synchronize(d)
+except RuntimeError as err:
+    print("trapped:", err, flush=True)
+    sys.exit(3)
+print("no trap: the launch of cuda:0 ended without its neighbour", flush=True)
+"""
+
+
+def spin_limit_s() -> float:
+    """SPIN_LIMIT_NS of csrc/sharded.cu, in seconds."""
+    import re
+
+    src = open(os.path.join(REPO, "tpuflow_torch", "csrc", "sharded.cu")).read()
+    return int(re.search(r"SPIN_LIMIT_NS = (\d+)ull;", src).group(1)) * 1e-9
+
+
+def card_layouts(n_y: int, cards: int) -> list:
+    """The devices of n_y shards spread over the cards: in contiguous blocks
+    over 2 cards and over min(4, n_y), and dealt i % 4 where that differs."""
+    out = [[f"cuda:{i * c // n_y}" for i in range(n_y)]
+           for c in sorted({2, min(CROSS_TIMED_CARDS, n_y)}) if c <= cards]
+    if cards >= CROSS_TIMED_CARDS and n_y > CROSS_TIMED_CARDS:
+        out.append([f"cuda:{i % CROSS_TIMED_CARDS}" for i in range(n_y)])
+    return out
+
+
+def sync_all() -> None:
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def crosscard_check(row: dict, got, plain, unsharded, syncs, barriers, want_syncs,
+                    want_barriers) -> dict:
+    """Fill and check one cross-card row: bitwise both ways, finite, every
+    card's counts equal to the formulas."""
+    import torch
+
+    row.update(max_abs_err=float((got - plain).abs().max()),
+               max_abs_vs_unsharded_kernels=float((got - unsharded).abs().max()),
+               finite=bool(torch.isfinite(got).all()), grid_syncs=syncs.tolist(),
+               grid_syncs_expected=want_syncs, row_barriers=barriers.tolist(),
+               row_barriers_expected=want_barriers)
+    row["ok"] = (row["finite"] and row["max_abs_err"] <= SHARDED_BOUND
+                 and row["max_abs_vs_unsharded_kernels"] <= SHARDED_BOUND
+                 and row["grid_syncs"] == want_syncs and row["row_barriers"] == want_barriers)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"relax_sharded across cards: {row}")
+    return row
+
+
+def phase_crosscard_kernel(card: str) -> dict:
+    """Phase 12 across cards: relax_sharded_kernel with the shards spread
+    over the cards (card_layouts) bitwise against its plain version and
+    relax in every SHARDED_CHECKS case, each card's grid syncs and row
+    barriers counted on the card equal to the formulas; the race case; the
+    spin-limit case in a child process; the 4K and 1080p level-0 launches
+    over 4 cards timed in turns with the one-card launch, beside the
+    cards=4 bound. On a machine with one card it prints that it did not
+    run and returns {}; else the kernels line's keys for it."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch import models
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.ops.level import level_tensor_plain
+    from tpuflow_torch.parallel import make_mesh, relax_sharded, relax_sharded_kernel
+    from tpuflow_torch.parallel.halo_kernel import grid_syncs, row_barriers
+    from tpuflow_torch.parallel.mesh import card_stream
+    from tpuflow_torch.solver.level import relax
+    from tpuflow_torch.tools.roofline import cuda_ms, kernel_work
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "crosscard_kernel", "ran": False, "cards": cards,
+              "reason": "the kernel across cards needs at least 2; this machine has 1"})
+        return {}
+    t0 = time.perf_counter()
+    max_err, cases, inputs = 0.0, 0, {}
+    for check in SHARDED_CHECKS + (RACE_CASE + ("race",),):
+        w, h, n_y, k, constancy, inner = check[:6]
+        race = len(check) > 6
+        if (w, h) not in inputs:
+            inputs.clear()
+            torch.cuda.empty_cache()
+            inputs[(w, h)] = kernel_inputs(w, h)
+        x = inputs[(w, h)]
+        cfg = {"grey": FlowConfig(), "gradient": models.full_model(),
+               "log": models.xray_log(alpha=LOG_ALPHA)}[constancy]
+        cfg = dataclasses.replace(cfg, inner_iterations_count=inner)
+        J = {"grey": None, "gradient": x["J"],
+             "log": level_tensor_plain(x["f0"], x["f1"], x["fxyz"], x["sc"], True)}[constancy]
+        args = (x["fxyz"], x["uvf"], x["sc"], cfg)
+        plain = relax_sharded(*args, make_mesh(n_y), k, J=J)
+        unsharded = relax(*args, J=J)
+        layouts = card_layouts(n_y, cards)[-1:] if race else card_layouts(n_y, cards)
+        for devices in layouts:
+            mesh = make_mesh(n_y, devices)
+            n = mesh.row_cards()
+            syncs = torch.zeros(n, dtype=torch.int32, device="cuda")
+            barriers = torch.zeros_like(syncs)
+            sync_all()
+            if race:   # the second card starts about 0.1 s after the others
+                with torch.cuda.device(1), torch.cuda.stream(card_stream(torch.device(
+                        "cuda", 1))):
+                    torch.cuda._sleep(CROSS_RACE_SLEEP_CYCLES)
+            before = relax_sharded_kernel.launches
+            got = relax_sharded_kernel(*args, mesh, k, J=J, syncs=syncs, barriers=barriers)
+            sync_all()
+            launched = relax_sharded_kernel.launches - before
+            row = crosscard_check(
+                {"phase": "crosscard_kernel", "shape": [h, w], "n_y": n_y, "k": k,
+                 "constancy": constancy, "inner": inner, "race": race, "devices": devices,
+                 "cards": n, "launches": launched, "bound": SHARDED_BOUND},
+                got, plain, unsharded, syncs, barriers, [grid_syncs(cfg, n_y, k, n)] * n,
+                [row_barriers(cfg, n_y, n, k)] * n)
+            if launched != n:
+                raise AssertionError(f"{launched} launches over {n} cards: {row}")
+            max_err = max(max_err, row["max_abs_err"], row["max_abs_vs_unsharded_kernels"])
+            cases += 1
+    inputs.clear()
+    torch.cuda.empty_cache()
+
+    # The spin limit: one card's launch left out, in a child process.
+    limit = spin_limit_s()
+    t1 = time.perf_counter()
+    try:
+        child = subprocess.run([sys.executable, "-c", CROSS_TIMEOUT_CHILD.format(repo=REPO)],
+                               capture_output=True, text=True, cwd=REPO,
+                               timeout=limit + CROSS_TIMEOUT_MARGIN_S)
+        rc, out = child.returncode, (child.stdout + child.stderr)[-600:]
+    except subprocess.TimeoutExpired:
+        rc, out = None, "hung past the spin limit and the margin; killed"
+    stuck = {"phase": "crosscard_timeout", "spin_limit_s": limit,
+             "margin_s": CROSS_TIMEOUT_MARGIN_S, "seconds": time.perf_counter() - t1,
+             "returncode": rc, "output_tail": out}
+    stuck["ok"] = rc not in (None, 0) and "trapped" in out
+    emit(stuck)
+    if not stuck["ok"]:
+        raise AssertionError(f"the spin limit: {stuck}")
+
+    # Times: level 0 (grey, k = 1, 4 shards) over 4 cards against the same
+    # launch on one card, in turns, beside the bounds.
+    timed = min(CROSS_TIMED_CARDS, cards)
+    cfg, times = FlowConfig(), {}
+    for w, h in (SIZES[1], SIZE_4K):
+        x = kernel_inputs(w, h)
+        args = (x["fxyz"], x["uvf"], x["sc"], cfg)
+        meshes = {"one_card": make_mesh(4), "cards": make_mesh(4, [f"cuda:{i * timed // 4}"
+                                                                   for i in range(4)])}
+        ms = {name: [] for name in meshes}
+        for _ in range(CROSS_ROUNDS):
+            for name in ("one_card", "cards", "cards", "one_card"):
+                ms[name].append(cuda_ms(lambda m=meshes[name]: relax_sharded_kernel(*args, m),
+                                        3))
+        work = kernel_work("relax_sharded", h, w, n_y=4, cards=timed)
+        row = {"phase": "crosscard_time", "shape": [h, w], "n_y": 4, "cards": timed, "k": 1,
+               "card": card, "ms": statistics.median(ms["cards"]), "ms_all": ms["cards"],
+               "one_card_ms": statistics.median(ms["one_card"]),
+               "one_card_ms_all": ms["one_card"], **work}
+        row["share"] = work["bound_ms"] / row["ms"]
+        times[(w, h)] = row
+        emit(row)
+        del x
+        torch.cuda.empty_cache()
+    at_4k, at_1080p = times[SIZE_4K], times[SIZES[1]]
+    emit({"phase": "crosscard_done", "cards": cards, "cases": cases, "max_abs_err": max_err,
+          "seconds": time.perf_counter() - t0})
+    return {"across_cards": {
+        "cards": timed, "cases": cases, "max_abs_err": max_err, "ms": at_4k["ms"],
+        "one_card_ms": at_4k["one_card_ms"], "bound_ms": at_4k["bound_ms"],
+        "bound_by": at_4k["bound_by"], "nvlink_bytes": at_4k["nvlink_bytes"],
+        "share": at_4k["share"], "ms_1080p": at_1080p["ms"],
+        "one_card_ms_1080p": at_1080p["one_card_ms"], "bound_ms_1080p": at_1080p["bound_ms"],
+        "spin_limit_case_s": stuck["seconds"]}}
+
+
 # Phases 13-17: the streaming path. The sequence: SEQ_FRAMES seeded 1920x1080
 # textured frames, each moved by SEQ_STEP px from the one before, as f32 RAW.
 SEQ_FRAMES = 7
@@ -1485,7 +1712,9 @@ def prologue_blocks(card: str) -> dict:
 def phase_mesh_explicit(card: str) -> dict:
     """Phase 18: relax_sharded_explicit bitwise against relax_sharded and
     relax in the SHARDED_CHECKS cases, one stream a shard, its launches and
-    copies counted exactly; the race case; the prologue on row blocks."""
+    copies counted exactly, and where the positions span several cards
+    relax_sharded_kernel on the same mesh, bitwise with its counts; the
+    race case; the prologue on row blocks."""
     import dataclasses
 
     import torch
@@ -1496,8 +1725,9 @@ def phase_mesh_explicit(card: str) -> dict:
         KMAX, launch_counts, level_tensor_plain, reset_launch_counts,
     )
     from tpuflow_torch.parallel import halo as halo_mod
-    from tpuflow_torch.parallel import make_mesh, relax_sharded
+    from tpuflow_torch.parallel import make_mesh, relax_sharded, relax_sharded_kernel
     from tpuflow_torch.parallel.halo import explicit_copies, relax_sharded_explicit
+    from tpuflow_torch.parallel.halo_kernel import grid_syncs, row_barriers
     from tpuflow_torch.solver.level import relax
 
     t0 = time.perf_counter()
@@ -1559,6 +1789,19 @@ def phase_mesh_explicit(card: str) -> dict:
             emit(row)
             if not row["ok"]:
                 raise AssertionError(f"relax_sharded_explicit: {row}")
+            if mesh.cards > 1 and not race:   # the kernel over the same cards
+                n = mesh.row_cards()
+                syncs = torch.zeros(n, dtype=torch.int32, device="cuda")
+                barriers = torch.zeros_like(syncs)
+                kernel = relax_sharded_kernel(*args, mesh, k, J=J, syncs=syncs,
+                                              barriers=barriers)
+                sync_all()
+                krow = crosscard_check(
+                    {"phase": "mesh_kernel", "shape": [h, w], "n_y": n_y, "k": k,
+                     "constancy": constancy, "inner": inner, "devices": devices, "cards": n,
+                     "bound": SHARDED_BOUND}, kernel, plain, unsharded, syncs, barriers,
+                    [grid_syncs(cfg, n_y, k, n)] * n, [row_barriers(cfg, n_y, n, k)] * n)
+                max_err = max(max_err, krow["max_abs_err"], krow["max_abs_vs_unsharded_kernels"])
     inputs.clear()
     torch.cuda.empty_cache()
     blocks = prologue_blocks(card)
@@ -1581,7 +1824,7 @@ def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1) ->
     want.update({prologue: 0, "jacobi_sweeps": 0, "relax_sharded": 0, "copies": 0})
     for lh, _, route, kk in sharded_plan(w, h, cfg, mesh, halo, k):
         if route == "kernel":
-            want["relax_sharded"] += 1
+            want["relax_sharded"] += mesh.row_cards()   # one launch a card
             continue
         n = mesh.n_y if route == "explicit" else 1
         want[prologue] += n * outer
@@ -1600,11 +1843,10 @@ def sharded_counts() -> dict:
 
 def phase_mesh_e2e(card: str, counts_total: dict) -> dict:
     """Phase 19: a 1920x1080 full_model() pair through compute_flow(...,
-    mesh=) and compute_flow_sharded with halo explicit, kernel (shards on
-    one card) and auto on MESH_N positions of cuda:0, and of the cards
-    where there are several: bitwise compute_flow, exact counts, the auto
-    plan; the routes timed in turns with compute_flow. Returns the last
-    mesh's row."""
+    mesh=) and compute_flow_sharded with halo explicit, kernel and auto on
+    MESH_N positions of cuda:0, and of the cards where there are several:
+    bitwise compute_flow, exact counts, the auto plan; the routes timed in
+    turns with compute_flow. Returns the last mesh's row."""
     from tpuflow_torch import compute_flow, make_mesh, models
     from tpuflow_torch.synthetic import textured_pair
 
@@ -1617,20 +1859,19 @@ def phase_mesh_e2e(card: str, counts_total: dict) -> dict:
     return row
 
 
-def mesh_e2e_run(card: str, counts_total: dict, mesh, f0, f1, base) -> dict:
-    """Phase 19 on one mesh."""
+def mesh_e2e_run(card: str, counts_total: dict, mesh, f0, f1, base,
+                 size=SIZES[1]) -> dict:
+    """Phase 19 on one mesh (and phase 23 at 3840x2160 over the cards)."""
     from tpuflow_torch import compute_flow, compute_flow_sharded, models, plan_parallel
     from tpuflow_torch.solver import sharded
     from tpuflow_torch.solver.sharded import sharded_plan
     from tpuflow_torch.tools.roofline import cuda_ms
 
-    w, h = SIZES[1]
+    w, h = size
     cfg = models.full_model()
     route = plan_parallel((h, w), False, cfg, mesh)
     paths = {"mesh": lambda: compute_flow(f0, f1, cfg, mesh=mesh, device="cuda")}
     for halo in ("explicit", "kernel", "auto"):
-        if halo == "kernel" and mesh.cards > 1:
-            continue
         paths[halo] = lambda hl=halo: compute_flow_sharded(f0, f1, cfg, mesh=mesh, halo=hl,
                                                            device="cuda")
     row = {"phase": "mesh_e2e", "shape": [h, w], "config": "models.full_model()", "card": card,
@@ -1665,6 +1906,30 @@ def mesh_e2e_run(card: str, counts_total: dict, mesh, f0, f1, base) -> dict:
     emit(row)
     if not ok:
         raise AssertionError(f"mesh_e2e: {row}")
+    return row
+
+
+def phase_crosscard_e2e(card: str, counts_total: dict) -> dict:
+    """Phase 23: a 3840x2160 full_model() pair through compute_flow(...,
+    mesh=) and compute_flow_sharded with halo explicit, kernel and auto on
+    MESH_N positions dealt over the cards (phase 19 does 1920x1080): bitwise
+    compute_flow, exact counts, the routes timed in turns with
+    compute_flow. On one card it prints that it did not run."""
+    import torch
+
+    from tpuflow_torch import compute_flow, make_mesh, models
+    from tpuflow_torch.synthetic import textured_pair
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "crosscard_e2e", "ran": False, "cards": cards,
+              "reason": "the kernel across cards needs at least 2; this machine has 1"})
+        return {}
+    f0, f1 = textured_pair(*SIZE_4K)
+    base = compute_flow(f0, f1, models.full_model(), device="cuda")
+    row = mesh_e2e_run(card, counts_total, make_mesh(MESH_N, mesh_devices(MESH_N)[-1]), f0, f1,
+                       base, size=SIZE_4K)
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1908,6 +2173,7 @@ def main() -> int:
     t_sharded = time.perf_counter()
     sharded_row = phase_sharded_kernel(card)
     sharded_row["launches"] = phase_sharded_e2e(card, times_1080p)
+    sharded_row.update(phase_crosscard_kernel(card))
     emit({"phase": "sharded_done", "seconds": time.perf_counter() - t_sharded})
     if sharded_row["launches"] == 0:
         raise AssertionError("relax_sharded was never launched on the sharded path")
@@ -1930,6 +2196,7 @@ def main() -> int:
         phase_mesh_dp(card, counts)
         phase_mesh_sequence(card, counts, seq_tmp, seq_pairs)
         phase_report_scaling(card)
+        phase_crosscard_e2e(card, counts)
         emit({"phase": "mesh_done", "seconds": time.perf_counter() - t_mesh})
 
     # The kernels line: times and bounds at 3840x2160 (1920x1080 beside them).

@@ -239,3 +239,54 @@ def test_device_cache_counts_and_evicts():
     assert made == [1, 2, 3, 2]
     info = build.cache_info()
     assert (info.hits, info.misses, info.maxsize, info.currsize) == (1, 4, 2, 2)
+
+
+# ---------------------------------------------------------------------------
+# The kernel over several cards: what the mesh gives its wrapper
+# ---------------------------------------------------------------------------
+
+
+def test_row_groups_by_card():
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    dealt = Mesh(8, devices=[cuda[i % 4] for i in range(8)])
+    assert dealt.row_groups() == [(cuda[i], (i, i + 4)) for i in range(4)]
+    blocks = Mesh(4, n_data=2, devices=[cuda[1], cuda[1], cuda[0], cuda[0]] + cuda)
+    assert blocks.row_groups(0) == [(cuda[1], (0, 1)), (cuda[0], (2, 3))]
+    assert blocks.row_groups(1) == [(cuda[i], (i,)) for i in range(4)]
+    assert cpu_mesh(3).row_groups() == [(torch.device("cpu"), (0, 1, 2))]
+
+
+def test_peer_access_is_checked_before_it_is_enabled(monkeypatch):
+    """A pair of cards without peer access raises, naming both, before any
+    entry point is called."""
+    from tpuflow_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", lambda a, b: False)
+    monkeypatch.setattr(mesh_mod, "_PEERS", set())
+    with pytest.raises(ValueError, match=r"cuda:0 cannot reach the memory of cuda:1"):
+        mesh_mod.enable_peer_access([torch.device("cuda", 0), torch.device("cuda", 1)])
+
+
+@pytest.mark.parametrize("constancy,n_y,k", [("grey", 4, 1), ("gradient", 4, 1), ("log", 3, 2)])
+def test_kernel_pipeline_bitwise_equal_to_compute_flow(constancy, n_y, k):
+    """compute_flow_sharded(halo="kernel") over repeated "cpu" positions runs
+    the kernel's plain twin at every admitted level: bitwise compute_flow."""
+    f0, f1, kw = halo_pair()
+    _, tcfg = cfgs(constancy, **kw)
+    want = compute_flow(f0, f1, tcfg, device="cpu")
+    got = compute_flow_sharded(f0, f1, tcfg, mesh=cpu_mesh(n_y), halo="kernel", k_outer=k,
+                               device="cpu")
+    assert got.u.tobytes() == want.u.tobytes() and got.v.tobytes() == want.v.tobytes()
+    assert any(r == "kernel" for *_, r, _ in sharded_plan(140, 120, tcfg, cpu_mesh(n_y),
+                                                           "kernel", k))
+
+
+def test_kernel_wrapper_plain_twin_refuses_counters():
+    from tpuflow_torch.parallel import relax_sharded_kernel
+
+    _, tcfg = cfgs(outer_iterations_count=3, inner_iterations_count=2)
+    fxyz, uv, J, sc = port_level(*bucket_inputs(seed=3), tcfg)
+    mesh = cpu_mesh(4)
+    assert torch.equal(relax_sharded_kernel(fxyz, uv, sc, tcfg, mesh), relax(fxyz, uv, sc, tcfg))
+    with pytest.raises(ValueError, match="row barriers"):
+        relax_sharded_kernel(fxyz, uv, sc, tcfg, mesh, barriers=torch.zeros(1, dtype=torch.int32))

@@ -29,6 +29,7 @@ from tpuflow_torch.parallel import model
 from tpuflow_torch.parallel.mesh import Mesh
 from tpuflow_torch.pyramid import level_schedule
 from tpuflow_torch.solver.flow2d import endpoint_error
+from tpuflow_torch.solver.sharded import sharded_plan
 from tpuflow_torch.tools import report_scaling
 
 from test_torch_mesh import halo_pair
@@ -94,8 +95,8 @@ def spread(n_y):
     ((64, 72), False, one_card(8), "single"),
     ((388, 584), False, one_card(8), "sp"),
     ((64, 72), False, spread(8), "single"),
-    ((388, 584), False, spread(8), "single"),
-    ((1080, 1920), False, spread(8), "single"),
+    ((388, 584), False, spread(8), "sp"),
+    ((1080, 1920), False, spread(8), "sp"),
     ((2160, 3840), False, spread(4), "sp"),
     ((64, 72), True, one_card(4), "dp"),
     ((1080, 1920), True, spread(8), "dp"),
@@ -105,16 +106,16 @@ def test_front_door_decisions(shape, batched, mesh, route):
     """The JAX front door (tests/test_parallel.py:111-131) sends 388x584
     and 1080p single pairs to "sp" on 8 chips and 64x72 to "single".
 
-    The port differs where its constants differ. Across cards every
-    shard's launches come from one host thread (30.8 us each): at 388x584
-    and 1080p the sharded level costs more host time than the whole level
-    unsharded, so 8 cards stay "single", and only 4K's large levels
-    shard. On one card the shards share the card, so the explicit route
-    never pays; the cooperative kernel does, where it replaces about 80
-    host-paced launches with one: at 388x584 and at 64x72 on 4 shards (16
-    rows each), not at 1080p, whose finest level is device-bound. On 8
-    shards 64 rows are 8 a shard, below the gate's 16: "single", as in
-    JAX. A stack is "dp", as in JAX."""
+    The port differs where its constants differ. On one card the shards
+    share the card, so the explicit route never pays; the cooperative
+    kernel does, where it replaces about 80 host-paced launches with one:
+    at 388x584 and at 64x72 on 4 shards (16 rows each), not at 1080p, whose
+    finest level is device-bound. Across cards the kernel runs one launch a
+    card with flag barriers between them, so 388x584, 1080p and 4K go "sp"
+    as in JAX (the explicit route, whose every launch comes from one host
+    thread, alone would keep them "single" below 4K). On 8 shards 64 rows
+    are 8 a shard, below the gate's 16: "single", as in JAX. A stack is
+    "dp", as in JAX."""
     assert plan_parallel(shape, batched, FlowConfig(), mesh) == route
 
 
@@ -162,9 +163,95 @@ def test_report_scaling_projects_without_a_card():
     rows = report_scaling.project(584, 388)
     paths = {(r["cards"], r["n_y"], r["path"]) for r in rows}
     assert (1, 4, "kernel") in paths and (4, 4, "auto") in paths and (8, 8, "hybrid") in paths
-    assert not any(r["cards"] > 1 and r["path"].startswith("kernel") for r in rows)
+    # the kernel is priced across cards too, one launch a card
+    assert (4, 4, "kernel") in paths and (8, 8, "kernel+best_k") in paths
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             report_scaling.measure(2)
         with pytest.raises(RuntimeError, match="CUDA"):
             report_scaling.measure_link()
+
+
+# ---------------------------------------------------------------------------
+# The kernel across cards
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_y,cards", [(2, 2), (4, 4), (8, 4), (4, 2)])
+def test_kernel_across_cards_is_priced_by_its_own_terms(n_y, cards):
+    """The busiest card's padded rows at KERNEL_PX_S, one shard's grid syncs
+    at ONE_CARD's latency, the row barriers at ROW_BARRIER_S, its owned rows'
+    constants in and T out at NVLINK's rate, against one launch a card on
+    the host."""
+    from tpuflow_torch.parallel.halo import halo_rows
+    from tpuflow_torch.parallel.halo_kernel import grid_syncs, row_barriers
+
+    cfg, h, w, k = FlowConfig(), 2160, 3840, 1
+    halo, mine = halo_rows(cfg, k), -(-n_y // cards)
+    rows = mine * -(-h // n_y)
+    device = (model.KERNEL_PX_S * (rows + 2 * halo * mine) * w
+              + grid_syncs(cfg, 1, k) * model.ONE_CARD.hop_latency_s
+              + row_barriers(cfg, n_y, cards, k) * model.ROW_BARRIER_S
+              + 7 * rows * w * 4 / model.NVLINK.bandwidth_bytes_s)
+    got = model.kernel_level_time(h, w, cfg, n_y, model.NVLINK, k, cards)
+    assert got == pytest.approx(device, rel=1e-12)
+    t, resolved = model.level_sharded_time(1.0, h, w, cfg, n_y, "kernel", model.NVLINK, k, cards)
+    assert resolved == "kernel" and t == got
+    # a level the gate refuses goes to the explicit route or replication
+    assert model.level_sharded_time(1.0, 20, w, cfg, n_y, "kernel", model.NVLINK, k,
+                                    cards)[1] == "replicated"
+
+
+def test_auto_offers_the_kernel_across_cards():
+    """On a row over 4 cards the router prices the kernel with the
+    cross-card constants and takes it at the 4K finest level, where one
+    launch a card replaces the explicit route's hundreds of launches."""
+    cfg = FlowConfig()
+    path, k, t = model.plan_level(2160, 3840, cfg, 4, model.NVLINK, cards=4)
+    assert path == "kernel"
+    assert t == pytest.approx(model.kernel_level_time(2160, 3840, cfg, 4, model.NVLINK, k, 4))
+    assert t < model.level_sharded_time(model.estimate_level_t1(2160, 3840, cfg), 2160, 3840,
+                                        cfg, 4, "explicit", model.NVLINK, k, 4)[0]
+    plan = sharded_plan(3840, 2160, cfg, spread(4), "auto")
+    assert plan[-1][2] == "kernel"
+
+
+def test_kernel_comm_cost_is_stores_and_barriers_not_torch_copies():
+    """The kernel's exchange is priced as stores and barriers, whatever
+    ICIParams the caller holds: on one card a grid sync after each push,
+    across cards two row barriers; not NVLINK's 28.4 us torch copy per
+    message."""
+    cfg, h, w = FlowConfig(), 1080, 1920
+    row_bytes = 6 * w * 4
+    for ici in (model.ONE_CARD, model.NVLINK):
+        one = model.level_comm_cost(h, w, cfg, 4, "kernel", ici, 1, cards=1)
+        many = model.level_comm_cost(h, w, cfg, 4, "kernel", ici, 1, cards=4)
+        assert one == pytest.approx(
+            5 * row_bytes / model.ONE_CARD.bandwidth_bytes_s
+            + 40 * (2 * row_bytes / model.ONE_CARD.bandwidth_bytes_s
+                    + model.ONE_CARD.hop_latency_s), rel=1e-12)
+        assert many == pytest.approx(
+            5 * row_bytes / model.NVLINK.bandwidth_bytes_s
+            + 40 * (2 * row_bytes / model.NVLINK.bandwidth_bytes_s
+                    + 2 * model.ROW_BARRIER_S), rel=1e-12)
+    assert model.level_comm_cost(h, w, cfg, 4, "kernel", model.NVLINK) < 80 * 2.84e-5
+
+
+def test_kernel_route_is_accepted_on_a_row_over_several_cards():
+    """halo="kernel" builds its routes over distinct cards (no card needed
+    to plan), one relax_sharded_kernel over the whole row per admitted
+    level; the hybrid's split offers the kernel there too."""
+    from tpuflow_torch.parallel.hybrid import hybrid_split_level
+    from tpuflow_torch.solver.sharded import sharded_relax_for
+
+    cfg = FlowConfig()
+    mesh = spread(4)
+    plan = sharded_plan(1920, 1080, cfg, mesh, "kernel")
+    assert {r for *_, r, _ in plan} == {"kernel", "replicated"}
+    relax_for = sharded_relax_for(cfg, mesh, "kernel")
+    fn = relax_for(1080, 1920)
+    assert fn.func.__name__ == "relax_sharded_kernel"
+    assert fn.keywords == {"mesh": mesh, "k_outer": 1, "data": 0}
+    split = hybrid_split_level(3840, 2160, cfg, mesh)
+    levels = level_schedule(3840, 2160, cfg.warp_levels_count, cfg.warp_scale_factor)
+    assert 0 <= split < len(levels)

@@ -1,18 +1,45 @@
 // Hopper (sm_90a) kernel for the row-sharded relaxation of one pyramid level,
-// every shard on one card.
+// its shards on one card or spread over several cards of one host.
 //
 // It replaces relax_sharded_kernel (tpuflow/parallel/halo_kernel.py:100,
-// pl.pallas_call :384): a per-shard outer x (phi/ksi + inner sweeps)
-// relaxation whose halo exchange runs inside the kernel. The TPU ran one
-// kernel per chip and moved the halos by ring RDMA between chips, with a
-// semaphore barrier between ring neighbours. Here all shards live in one
-// card's memory and run in ONE cooperative launch:
+// pl.pallas_call :384), both halves of it: the per-shard outer x (phi/ksi +
+// inner sweeps) relaxation, and the halo exchange inside the kernel. The TPU
+// ran one kernel per chip, moved the halos to both ring neighbours by RDMA
+// (make_async_remote_copy, :199-222) and fenced each send with a semaphore
+// barrier between ring neighbours (:189-197, :351-357). Here every card of
+// the row runs ONE cooperative launch over the shards it holds:
 //   * the exchange is plain stores of a shard's edge rows into its
-//     neighbour shards' halo rows;
-//   * the barrier is a grid-wide sync (cooperative_groups::this_grid()).
-//     cudaLaunchCooperativeKernel starts the grid only if every block is
-//     co-resident, and refuses it otherwise (an error the Python wrapper
-//     raises), so the sync cannot hang.
+//     neighbour shards' halo rows: into the card's own memory, or through a
+//     peer pointer over NVLink where the neighbour shard lives on another
+//     card (the wrapper turns peer access on between the row's cards);
+//   * the barrier is a grid-wide sync (cooperative_groups::this_grid()) of
+//     the card's blocks. Where the row spans several cards, the two syncs
+//     around a push (before it: no neighbour still writes, in its last
+//     k-sweep pass, the halo rows the push overwrites; after it: the halos
+//     are in before the prologue reads them) become row barriers: a grid
+//     sync, a flag step with the neighbour cards, a grid sync. In the flag
+//     step one thread stores the barrier's epoch into this card's flag in
+//     each neighbour card's memory (a system-scope release, after a
+//     system-scope fence by every thread) and spins on its own card's flags
+//     (system-scope acquire loads) until every neighbour has stored that
+//     epoch. CUDA 12 has no multi-device grid sync, so the flags are the
+//     barrier. Epochs only grow: the host passes each launch the epoch its
+//     flags hold and adds the launch's row barriers afterwards, so no flag is
+//     reset (a reset on one card's stream could wipe a neighbour's signal)
+//     and no flag of an earlier barrier satisfies a later wait. A spin longer
+//     than SPIN_LIMIT_NS traps: a card whose neighbour never comes fails
+//     loudly, never silently wrong. cudaLaunchCooperativeKernel starts a grid
+//     only if every block is co-resident and refuses it otherwise; the entry
+//     point computes and checks every card's grid before it launches the
+//     first, so no card spins for a launch that will be refused.
+//   * After a row barrier a block stages halo rows with cp.async.ca,
+//     through the L1, as it stages rows that other blocks of its card wrote
+//     in the one-card form: the grid sync that ends the barrier is an
+//     acquire for every block, after block 0 has acquired the neighbours'
+//     flags, and the peer stores are in this card's memory before the
+//     neighbour's release. The race case of chip_smoke.py (one card held
+//     back before its launch) checks that no halo row comes from a stale
+//     line.
 //
 // Layout. A shard owns a contiguous range of rows and keeps one buffer of
 // planes over its padded rows: `top` halo rows above (halo, or 0 at the image
@@ -23,12 +50,14 @@
 // (top + rows + bot, w):
 //   0-1 T (ping), 2-3 T (pong), 4-5 uv, 6-8 fxyz, 9-17 hoist, 18-22 J (TENSOR)
 //
-// Phases (the syncs are grid-wide); a block works on one shard, and loops
-// over that shard's tiles with a stride of the shard's block count:
+// Phases (the syncs are grid-wide, the row barriers span the row's cards);
+// a block works on one shard of its card, and loops over that shard's tiles
+// with a stride of the shard's block count:
 //   copy in   each shard copies its owned rows of uv, fxyz, J from the
-//             level's fields, and T = uv
-//   outer i   sync; every k outers (with more than one shard): push the
-//             halos of T (at i = 0 also those of uv, fxyz and J, once), sync;
+//             level's fields (on the row's first card), and T = uv
+//   outer i   sync; every k outers (with more than one shard) a row barrier
+//             in its place, the push of the halos of T (at i = 0 also those
+//             of uv, fxyz and J, once), a row barrier;
 //             prologue tiles over all padded rows (tf_body::prologue_tile,
 //             64 x 8, phi once per pixel from shared memory: reads T, writes
 //             the 9 hoists); sync, since a k-sweep region's ring reads the
@@ -36,9 +65,10 @@
 //             regions over all padded rows (tf_body::ksweep_region, 64 x 32,
 //             up to 5 sweeps in shared memory: reads T and the hoists, writes
 //             the other T buffer), a sync between two passes
-//   copy out  sync; each shard writes its owned rows of T
+//   copy out  sync; each shard writes its owned rows of T (to the first card)
 // That is 2 syncs an outer at inner <= 5 (3 with a push), where a sync
-// between every two sweeps made 6. The padded buffer is the "image" of both
+// between every two sweeps made 6; over several cards each row barrier adds
+// a grid sync and a flag step. The padded buffer is the "image" of both
 // tile bodies: its edges are mirror edges (the image's own where the shard
 // touches the image), the free-boundary weights take the pixel's global row,
 // and a k-sweep region shrinks only at sides that are not buffer edges. So
@@ -72,6 +102,11 @@
 //     a second tile) while it finishes the current one.
 // Shared memory is dynamic: two prologue tiles (59 KB with J) or a k-sweep
 // region (32 KB), in a union.
+// Across N cards the function's arithmetic over the owned pixels splits N
+// ways, and each exchange adds one halo message a side over NVLink (2 planes
+// x halo rows x w, at 450 GB/s each way on an H100 SXM), plus a row barrier's
+// round trip; the copy-in and copy-out of a card's owned rows cross NVLink
+// from and to the row's first card (roofline.kernel_work(..., cards=N)).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,6 +122,10 @@ using tf_body::KS_RW;
 using tf_body::PRO_TH;
 
 constexpr int MAX_SHARDS = 8;  // the JAX tests' device count
+constexpr int MAX_CARDS = MAX_SHARDS;  // each card of a row holds a shard
+// A card that spins this long on a neighbour's flag traps (10 s; one launch
+// of the largest level takes tens of ms).
+constexpr unsigned long long SPIN_LIMIT_NS = 10000000000ull;
 constexpr int THREADS = tf_body::KS_THREADS;  // a block: KS_RW x KS_TY threads
 constexpr int SH_PRO_TW = KS_RW;              // a prologue tile is the block's width
 constexpr int P_TA = 0, P_TB = 2, P_UV = 4, P_FXYZ = 6, P_HOIST = 9, P_J = 18;
@@ -100,9 +139,20 @@ struct Shard {
 };
 
 struct ShardSet {
-  Shard s[MAX_SHARDS];
-  int n;                 // shards
-  int blocks_per_shard;  // the grid is n x blocks_per_shard blocks
+  Shard s[MAX_SHARDS];   // every shard of the row (buf: a peer pointer on another card)
+  int n;                 // shards of the row
+  int mine[MAX_SHARDS];  // the shards this card's launch runs, in row order
+  int n_mine;
+  int blocks_per_shard;  // the grid is n_mine x blocks_per_shard blocks
+};
+
+// This card's flags with its neighbour cards (those that hold a shard next
+// to one of its own). Flag j in a card's memory is stored only by card j.
+struct RowLinks {
+  unsigned long long* out[MAX_CARDS];       // this card's flag in each neighbour's memory
+  const unsigned long long* in[MAX_CARDS];  // each neighbour's flag in this card's memory
+  int n;                                    // neighbour cards: 0 on a row on one card
+  unsigned long long epoch;                 // what the flags hold before this launch
 };
 
 // The shared memory of one block: two prologue tiles (one staged while the
@@ -140,6 +190,46 @@ __device__ __forceinline__ void grid_sync(cg::grid_group& grid, unsigned int* sy
   if (syncs != nullptr && blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0) ++*syncs;
 }
 
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void store_release_sys(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire_sys(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A barrier of the row's cards at `epoch`: every block of this card and
+// every neighbour card has come to it, and the stores before it, peer stores
+// included, are visible after it. On a row on one card it is the grid sync
+// alone. Block 0 counts the flag step in *barriers when barriers is not null.
+__device__ void row_barrier(cg::grid_group& grid, const RowLinks& links,
+                            unsigned long long epoch, unsigned int* syncs,
+                            unsigned int* barriers) {
+  if (links.n == 0) {
+    grid_sync(grid, syncs);
+    return;
+  }
+  __threadfence_system();  // this thread's stores reach every card
+  grid_sync(grid, syncs);
+  if (blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0) {
+    for (int j = 0; j < links.n; ++j) store_release_sys(links.out[j], epoch);
+    const unsigned long long t0 = global_ns();
+    for (int j = 0; j < links.n; ++j)
+      while (load_acquire_sys(links.in[j]) < epoch)
+        if (global_ns() - t0 > SPIN_LIMIT_NS) __trap();
+    if (barriers != nullptr) ++*barriers;
+  }
+  grid_sync(grid, syncs);
+}
+
 // One pass of K sweeps over a shard's padded rows: the block's share of
 // the regions, one after another.
 template <int K>
@@ -156,17 +246,19 @@ __device__ void ksweep_pass(float* ts, const float* T, const float* uv, const fl
 
 template <bool TENSOR>
 __global__ void __launch_bounds__(THREADS, 1)
-    relax_sharded_kernel(ShardSet set, const float* __restrict__ uv_in,
+    relax_sharded_kernel(ShardSet set, RowLinks links, const float* __restrict__ uv_in,
                          const float* __restrict__ fxyz_in, const float* __restrict__ J_in,
-                         float* __restrict__ T_out, unsigned int* __restrict__ syncs, int h,
-                         int w, int halo, int outer, int inner, int k, float div2hx,
+                         float* __restrict__ T_out, unsigned int* __restrict__ syncs,
+                         unsigned int* __restrict__ barriers, int h, int w, int halo,
+                         int outer, int inner, int k, float div2hx,
                          float div2hy, float alpha_hx2, float alpha_hy2, float e_s2,
                          float e_d2) {
   extern __shared__ __align__(16) unsigned char smem[];
   SharedTiles<TENSOR>& sm = *reinterpret_cast<SharedTiles<TENSOR>*>(smem);
   cg::grid_group grid = cg::this_grid();
   const int bps = set.blocks_per_shard;
-  const int si = blockIdx.x / bps, bis = blockIdx.x - si * bps;  // shard, block within it
+  const int mi = blockIdx.x / bps, bis = blockIdx.x - mi * bps;  // shard, block within it
+  const int si = set.mine[mi];
   const Shard me = set.s[si];
   const int prow = me.top + me.rows + me.bot;
   const size_t n = (size_t)prow * w;
@@ -201,17 +293,21 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int pro_x = (w + SH_PRO_TW - 1) / SH_PRO_TW;
   const int pro_tiles = pro_x * ((prow + PRO_TH - 1) / PRO_TH);
+  unsigned long long epoch = links.epoch;
   int cur = P_TA;
   for (int i = 0; i < outer; ++i) {
-    // Every shard's owned rows are in (i = 0), or its last sweep is done.
-    grid_sync(grid, syncs);
-    if (set.n > 1 && i % k == 0) {
+    const bool push = set.n > 1 && i % k == 0;
+    // Every shard's owned rows are in (i = 0), or its last sweep is done;
+    // before a push also on the neighbour cards, whose halo rows it writes.
+    if (push) row_barrier(grid, links, ++epoch, syncs, barriers);
+    else grid_sync(grid, syncs);
+    if (push) {
       if (i == 0) {
         push_halos(set, si, P_UV, 5, halo, w, tid, stride);  // uv, fxyz
         if (TENSOR) push_halos(set, si, P_J, 5, halo, w, tid, stride);
       }
       push_halos(set, si, cur, 2, halo, w, tid, stride);
-      grid_sync(grid, syncs);
+      row_barrier(grid, links, ++epoch, syncs, barriers);  // every halo is in
     }
     // The block's prologue tiles, each staged while the one before finishes.
     const float* T = buf + cur * n;
@@ -265,26 +361,38 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 extern "C" {
 
-// bufs: n_y per-shard buffers, each (18 planes, or 23 with J) x its padded
-// rows x w, uninitialised (every row is written before it is read: the
-// owned rows at copy-in, the halos of the constants and of T at i = 0, the
-// hoists over all padded rows by the prologue tiles, the second T by the
-// first pass's regions, whose tiles partition the padded rows); row_bounds:
-// n_y + 1 global row bounds of the owned ranges. J is null for grey; w >= 2,
-// inner >= 1. syncs, when not null, is one device counter to which the
-// launch adds the grid syncs it made. The grid is the co-resident maximum
-// (blocks per SM at full occupancy x SMs, split evenly over the shards); a
-// refused cooperative launch returns its error like any other.
-int tf_relax_sharded(void* const* bufs, const int* row_bounds, int n_y, const float* uv,
-                     const float* fxyz, const float* J, float* T_out, unsigned int* syncs,
+// One cooperative launch on each of the row's n_cards cards. devices[c] is
+// card c's CUDA device and streams[c] the stream of its launch; card 0 holds
+// the level's fields and T_out. bufs: the n_y per-shard buffers, shard s on
+// card shard_card[s], each (18 planes, or 23 with J) x its padded rows x w,
+// uninitialised (every row is written before it is read: the owned rows at
+// copy-in, the halos of the constants and of T at i = 0, the hoists over all
+// padded rows by the prologue tiles, the second T by the first pass's
+// regions, whose tiles partition the padded rows); row_bounds: n_y + 1 global
+// row bounds of the owned ranges. flags (several cards only): each card's
+// MAX_CARDS flags, which hold `epoch`; the launch adds its row barriers to
+// them. J is null for grey; w >= 2, inner >= 1. syncs and barriers, when not
+// null, are n_cards counters on card 0 to which card c's launch adds its grid
+// syncs and its row barriers. `skip` leaves card `skip`'s launch out (-1:
+// none): its neighbours then trap at the spin limit, which is what a test of
+// the limit needs. A card's grid is the co-resident maximum (blocks per SM at
+// full occupancy x SMs, split evenly over its shards); every card's grid is
+// computed and checked before the first launch, and a refused launch returns
+// its error like any other. Peer access between the cards must be on.
+int tf_relax_sharded(int n_cards, const int* devices, void* const* streams, void* const* bufs,
+                     const int* shard_card, const int* row_bounds, int n_y, void* const* flags,
+                     unsigned long long epoch, const float* uv, const float* fxyz,
+                     const float* J, float* T_out, unsigned int* syncs, unsigned int* barriers,
                      int h, int w, int halo, int outer, int inner, int k, float div2hx,
                      float div2hy, float alpha_hx2, float alpha_hy2, float e_s2, float e_d2,
-                     void* stream) {
-  if (n_y < 1 || n_y > MAX_SHARDS || k < 1 || halo < 0 || outer < 0 || inner < 1 || w < 2)
+                     int skip) {
+  if (n_cards < 1 || n_cards > MAX_CARDS || n_y < n_cards || n_y > MAX_SHARDS || k < 1 ||
+      halo < 0 || outer < 0 || inner < 1 || w < 2 || (n_cards > 1 && flags == nullptr))
     return (int)cudaErrorInvalidValue;
   ShardSet set{};
   set.n = n_y;
   for (int s = 0; s < n_y; ++s) {
+    if (shard_card[s] < 0 || shard_card[s] >= n_cards) return (int)cudaErrorInvalidValue;
     set.s[s].buf = (float*)bufs[s];
     set.s[s].row0 = row_bounds[s];
     set.s[s].rows = row_bounds[s + 1] - row_bounds[s];
@@ -294,28 +402,81 @@ int tf_relax_sharded(void* const* bufs, const int* row_bounds, int n_y, const fl
   const void* fn = J != nullptr ? (const void*)relax_sharded_kernel<true>
                                 : (const void*)relax_sharded_kernel<false>;
   const size_t smem = J != nullptr ? sizeof(SharedTiles<true>) : sizeof(SharedTiles<false>);
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  set.blocks_per_shard = per_sm * sms / n_y;
-  if (set.blocks_per_shard < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&set, &uv, &fxyz, &J, &T_out, &syncs, &h, &w, &halo, &outer, &inner, &k,
-                  &div2hx, &div2hy, &alpha_hx2, &alpha_hy2, &e_s2, &e_d2};
-  err = cudaLaunchCooperativeKernel(fn, dim3(set.blocks_per_shard * n_y),
-                                    dim3(KS_RW, tf_body::KS_TY), args, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: a refused launch leaves the context usable
-    return (int)err;
+  ShardSet sets[MAX_CARDS];
+  RowLinks links[MAX_CARDS];
+  for (int c = 0; c < n_cards && err == cudaSuccess; ++c) {
+    ShardSet& card = sets[c] = set;
+    for (int s = 0; s < n_y; ++s)
+      if (shard_card[s] == c) card.mine[card.n_mine++] = s;
+    RowLinks& ln = links[c] = RowLinks{};
+    ln.epoch = epoch;
+    for (int j = 0; j < n_cards; ++j) {
+      bool next_to = false;
+      for (int s = 0; s < n_y; ++s)
+        next_to |= j != c && shard_card[s] == c &&
+                   ((s > 0 && shard_card[s - 1] == j) || (s + 1 < n_y && shard_card[s + 1] == j));
+      if (next_to) {
+        ln.out[ln.n] = (unsigned long long*)flags[j] + c;
+        ln.in[ln.n] = (const unsigned long long*)flags[c] + j;
+        ++ln.n;
+      }
+    }
+    // every card holds a shard, and on several cards each has a neighbour card
+    if (card.n_mine == 0 || (n_cards > 1 && ln.n == 0)) err = cudaErrorInvalidValue;
+    int coop = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaSetDevice(devices[c]);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, devices[c]);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, devices[c]);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem);
+    if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+    if (err == cudaSuccess) {
+      card.blocks_per_shard = per_sm * sms / card.n_mine;
+      if (card.blocks_per_shard < 1) err = cudaErrorCooperativeLaunchTooLarge;
+    }
   }
-  return (int)cudaGetLastError();
+  for (int c = 0; c < n_cards && err == cudaSuccess; ++c) {
+    if (c == skip) continue;
+    unsigned int* card_syncs = syncs != nullptr ? syncs + c : nullptr;
+    unsigned int* card_barriers = barriers != nullptr ? barriers + c : nullptr;
+    void* args[] = {&sets[c], &links[c], &uv, &fxyz, &J, &T_out, &card_syncs, &card_barriers,
+                    &h, &w, &halo, &outer, &inner, &k, &div2hx, &div2hy, &alpha_hx2,
+                    &alpha_hy2, &e_s2, &e_d2};
+    err = cudaSetDevice(devices[c]);
+    if (err == cudaSuccess)
+      err = cudaLaunchCooperativeKernel(fn, dim3(sets[c].blocks_per_shard * sets[c].n_mine),
+                                        dim3(KS_RW, tf_body::KS_TY), args, smem,
+                                        (cudaStream_t)streams[c]);
+    if (err == cudaSuccess) err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) cudaGetLastError();  // clear it: a refused launch leaves the context usable
+  const cudaError_t restored = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restored);
+}
+
+// Let `device`'s kernels reach `peer`'s memory. Access that is already on
+// (torch's copies between the cards turn it on too) counts as success, and
+// its error is cleared.
+int tf_enable_peer_access(int device, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      err = cudaSuccess;
+    }
+  }
+  const cudaError_t restored = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restored);
 }
 
 }  // extern "C"

@@ -51,8 +51,12 @@ SIGNATURES = {
     "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
     "tf_roofline_micro": (_P, _P, _P, _I, _I, _I, _I, _P),
     "tf_probe_matmul": (_P, _P, _P, _I, _I, _I, _P),
-    "tf_relax_sharded": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _F, _P),
+}
+# Entry points that take their streams in their arguments (``call``).
+STREAMLESS_SIGNATURES = {
+    "tf_relax_sharded": (_I, _P, _P, _P, _P, _P, _I, _P, ctypes.c_uint64, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I),
+    "tf_enable_peer_access": (_I, _I),
 }
 
 
@@ -104,7 +108,7 @@ def load_library() -> KernelLibrary:
             raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in {**SIGNATURES, **STREAMLESS_SIGNATURES}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -139,10 +143,15 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
-def launch(name: str, *args) -> None:
-    """Call entry point ``name`` on the current stream; raise on a CUDA error."""
+def call(name: str, *args) -> None:
+    """Call entry point ``name`` with ``args``; raise on a CUDA error."""
     lib = load_library().lib
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    err = getattr(lib, name)(*args)
     if err != 0:
         raise RuntimeError(
             f"{name}: CUDA error {err} ({lib.tf_error_string(err).decode()})")
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point ``name`` on the current stream; raise on a CUDA error."""
+    call(name, *args, torch.cuda.current_stream().cuda_stream)

@@ -5,8 +5,9 @@ tpuflow/parallel).
     one device each (devices may repeat), each with its own CUDA stream;
   * ``relax_sharded``: the plain sharded relaxation, shards as padded
     tensor blocks, halos exchanged by tensor copies;
-  * ``relax_sharded_kernel``: the same in one cooperative CUDA launch
-    (csrc/sharded.cu), every shard on one card;
+  * ``relax_sharded_kernel``: the same in one cooperative CUDA launch per
+    card (csrc/sharded.cu), halos stored through peer pointers between
+    cards, which meet at flag barriers;
   * ``relax_sharded_explicit``: the same with each shard on its position's
     device and stream, halos copied between them after CUDA events;
   * ``model``: the cost model and the per-level router of ``halo="auto"``;

@@ -38,9 +38,8 @@ def hybrid_split_level(w: int, h: int, cfg: FlowConfig, mesh: Mesh) -> int:
     """The router's split of a w x h pair on ``mesh``: the position, in the
     coarse-to-fine schedule, of the first level it shards over ``y``."""
     cards = mesh.row_cards(0)
-    paths = ("kernel", "explicit") if cards == 1 else ("explicit",)
     return hybrid_split(rub_default_levels(w, h, cfg, link_params(cards)), cfg, mesh.n_y,
-                        link_params(cards), paths, cards)
+                        link_params(cards), cards=cards)
 
 
 def _move(x: torch.Tensor, src: int, dst: int, mesh: Mesh) -> torch.Tensor:

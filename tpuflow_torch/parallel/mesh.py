@@ -7,12 +7,18 @@ outer). Devices may repeat: four positions on ``cuda:0`` are four shards of
 one card. Every position has a CUDA stream of its own, made on its device
 when first asked for, so that positions which share a card still run as
 separate queues, ordered only by the events the solver places between them.
+
+The sharded kernel over several cards (parallel/halo_kernel.py) needs two
+more things, kept per process: peer access between every two cards of a
+row (``enable_peer_access``), and one stream a card (``card_stream``) on
+which every such launch goes, so that the launches reach each card in the
+order the host issued them.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import torch
 
@@ -90,8 +96,8 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """The one device of a mesh whose positions all share it (what the
-        cooperative kernel needs); raises for a mesh over several."""
+        """The one device of a mesh whose positions all share it; raises for
+        a mesh over several."""
         if self.cards != 1:
             raise ValueError(f"{self!r} spans {self.cards} devices, not one")
         return self.devices[0]
@@ -110,6 +116,15 @@ class Mesh:
         """How many distinct devices the shards of one data row span."""
         return len({self.devices[p] for p in self.row(data)})
 
+    def row_groups(self, data: int = 0) -> List[Tuple[torch.device, Tuple[int, ...]]]:
+        """The ``y`` indices of one data row grouped by device: (device,
+        indices) per distinct device, in the order the row first meets
+        them, so the row's first device comes first."""
+        groups: Dict[torch.device, List[int]] = {}
+        for y, p in enumerate(self.row(data)):
+            groups.setdefault(self.devices[p], []).append(y)
+        return [(dev, tuple(ys)) for dev, ys in groups.items()]
+
     def stream(self, p: int) -> Optional[torch.cuda.Stream]:
         """Position ``p``'s CUDA stream, made on its device at first use;
         None for a CPU position."""
@@ -125,6 +140,36 @@ class Mesh:
         for a CPU position)."""
         stream = self.stream(p)
         return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
+
+_CARD_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+_PEERS: Set[Tuple[torch.device, torch.device]] = set()
+
+
+def card_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream of ``device`` on which every launch of the sharded kernel
+    over several cards goes, made at first use. Two such launches that
+    share a card must start on every card in the same order, or each could
+    hold one card while it waits for the other on the next."""
+    if device not in _CARD_STREAMS:
+        _CARD_STREAMS[device] = torch.cuda.Stream(device)
+    return _CARD_STREAMS[device]
+
+
+def enable_peer_access(devices: Sequence[torch.device]) -> None:
+    """Let each of ``devices`` reach the memory of every other, once per
+    pair and process; raises, naming both cards, where a pair cannot."""
+    from tpuflow_torch.ops.cuda_lib import call
+
+    for a in devices:
+        for b in devices:
+            if a == b or (a, b) in _PEERS:
+                continue
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise ValueError(f"{a} cannot reach the memory of {b} (no peer access), so "
+                                 "the sharded kernel cannot run a row over both")
+            call("tf_enable_peer_access", a.index, b.index)
+            _PEERS.add((a, b))
 
 
 def default_shape(n: int) -> Tuple[int, int]:

@@ -8,9 +8,13 @@ Each level is priced on each route the gates admit, and the cheapest wins:
                 t_compute = t1 * ceil(n_y / cards) * (h // n_y + 2 halo) / h
                 t_host    = n_y * (relaxation launches) * launch_s
                 t_comm    = the JAX model's messages (tpuflow/parallel/model.py:83-92)
-    kernel      one cooperative launch on a card that holds every shard
-                (csrc/sharded.cu): its padded rows at the kernel's pixel
-                rate, and its grid syncs at hop_latency_s each.
+    kernel      one cooperative launch on each card of the row
+                (csrc/sharded.cu): the busiest card's padded rows at the
+                kernel's pixel rate, its grid syncs at ONE_CARD's
+                hop_latency_s each and, over several cards, its row
+                barriers at ROW_BARRIER_S each and its owned rows copied
+                in and out over NVLink; against the host's launches (one a
+                card beside the level's other kernels).
 
 ``cards`` is how many distinct cards the shards span. With one shard a card
 t_compute is the JAX model's; on one card the shards share it, so the
@@ -23,8 +27,10 @@ The constants are the port's, for an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"),
 measured by ``python -m tpuflow_torch.tools.report_scaling --link``
 (chip_smoke.py phase 22 prints them again): ``ONE_CARD``'s on one card,
 ``NVLINK``'s between two of four cards of one host.
-``estimate_level_t1`` is anchored on the port's own per-level times on the
-H100 (PERF.md sections 5 and 7).
+``ROW_BARRIER_S`` is the cross-card kernel's, from ``report_scaling
+--link`` on two of four such cards. ``estimate_level_t1``
+is anchored on the port's own per-level times on the H100 (PERF.md
+sections 5 and 7).
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ from typing import List, Optional, Sequence, Tuple
 from tpuflow_torch.config import DataConstancy, FlowConfig
 from tpuflow_torch.ops.level import KMAX
 from tpuflow_torch.parallel.halo import halo_applicable, halo_rows
-from tpuflow_torch.parallel.halo_kernel import grid_syncs, kernel_halo_applicable
+from tpuflow_torch.parallel.halo_kernel import (
+    grid_syncs, kernel_halo_applicable, row_barriers,
+)
 from tpuflow_torch.pyramid import level_schedule
 
 
@@ -65,6 +73,15 @@ ONE_CARD = ICIParams()
 # so torch stages it through temporaries), 83.3 us of host time a message.
 NVLINK = replace(ONE_CARD, bandwidth_bytes_s=3.57e11, hop_latency_s=2.84e-5,
                  dispatch_s=8.33e-5)
+
+# The cooperative kernel's exchange across cards: each row barrier adds
+# ROW_BARRIER_S to the launch, its flag step, its second grid sync and its
+# share of the push (7.82 us, one run of ``report_scaling --link`` on two of
+# four H100s, PERF.md section 6). The pushes' stores cross NVLink,
+# priced at NVLINK's copy rate (the in-kernel push of a 3840-wide halo took
+# no measurable time over a 300-wide one). On one card a push is a store
+# into the same memory and its barrier one grid sync (ONE_CARD).
+ROW_BARRIER_S = 7.82e-6
 
 # Device seconds per level pixel at 40 x (1 + 5) passes: the level kernels
 # unsharded (PERF.md section 6: one 4K full_model() level, 21.6 ms a level
@@ -103,10 +120,16 @@ def level_launches(cfg: FlowConfig) -> int:
 
 
 def level_comm_cost(h: int, w: int, cfg: FlowConfig, n_y: int, path: str, ici: ICIParams,
-                    k: int = 1) -> float:
+                    k: int = 1, cards: Optional[int] = None) -> float:
     """Seconds of halo exchange for one level on one shard (both directions
-    run at once, so one direction's volume). The kernel's halo is not
-    rounded to 8 rows: that served the TPU's tiles."""
+    run at once, so one direction's volume). The explicit route's messages
+    are torch copies priced by ``ici``. The kernel's are stores inside the
+    launch, whatever ``ici`` is: the constants' halos once, then per
+    exchange the iterate's 2 planes and the barrier around the push (on one
+    card ONE_CARD's rate and one grid sync; across cards, ``cards``
+    defaulting to one shard a card, NVLINK's rate and two row barriers at
+    ROW_BARRIER_S). The kernel's halo is not rounded to 8 rows: that served
+    the TPU's tiles."""
     outer = cfg.outer_iterations_count
     n_exchanges = -(-outer // k)
     row_bytes = halo_rows(cfg, k) * w * 4
@@ -114,21 +137,37 @@ def level_comm_cost(h: int, w: int, cfg: FlowConfig, n_y: int, path: str, ici: I
         msgs = _n_const_fields(cfg) + 2 + 2 * n_exchanges
         return msgs * (ici.dispatch_s + ici.hop_latency_s + row_bytes / ici.bandwidth_bytes_s)
     if path == "kernel":
-        per_rdma = ici.hop_latency_s + row_bytes / ici.bandwidth_bytes_s
-        per_exchange = 2 * per_rdma + 2 * ici.hop_latency_s
-        return (_n_const_fields(cfg) + 2) * per_rdma + n_exchanges * per_exchange
+        one_card = (n_y if cards is None else cards) == 1
+        rate = (ONE_CARD if one_card else NVLINK).bandwidth_bytes_s
+        barrier = ONE_CARD.hop_latency_s if one_card else 2 * ROW_BARRIER_S
+        return (_n_const_fields(cfg) * row_bytes / rate
+                + n_exchanges * (2 * row_bytes / rate + barrier))
     raise ValueError(path)
 
 
 def kernel_level_time(h: int, w: int, cfg: FlowConfig, n_y: int, ici: ICIParams,
-                      k: int = 1) -> float:
-    """One level with its relaxation in one cooperative launch on one card:
-    the launch's padded rows and grid syncs on the device, against the
-    host's launches of the level's other kernels."""
-    padded = h + 2 * halo_rows(cfg, k) * (n_y - 1)
-    device = (KERNEL_PX_S * padded * w * _passes(cfg)
-              + grid_syncs(cfg, n_y, k) * ici.hop_latency_s)
-    host = (level_launches(cfg) - relax_launches(cfg) + 1) * ici.launch_s
+                      k: int = 1, cards: int = 1) -> float:
+    """One level with its relaxation in one cooperative launch on each of
+    ``cards`` cards: on one card its padded rows and grid syncs at ``ici``'s
+    latency; across cards the busiest card's padded rows (ceil(n_y / cards)
+    shards), one shard's grid syncs at ONE_CARD's latency, the row barriers
+    at ROW_BARRIER_S and its owned rows' constants copied in and T copied out
+    at ``ici``'s rate; on the device, against the host's launches of the
+    level's other kernels and one a card."""
+    halo = halo_rows(cfg, k)
+    if cards == 1:
+        padded = h + 2 * halo * (n_y - 1)
+        device = (KERNEL_PX_S * padded * w * _passes(cfg)
+                  + grid_syncs(cfg, n_y, k) * ici.hop_latency_s)
+    else:
+        mine = -(-n_y // cards)
+        rows = mine * -(-h // n_y)
+        copies = (_n_const_fields(cfg) + 2) * rows * w * 4
+        device = (KERNEL_PX_S * (rows + 2 * halo * mine) * w * _passes(cfg)
+                  + grid_syncs(cfg, 1, k) * ONE_CARD.hop_latency_s
+                  + row_barriers(cfg, n_y, cards, k) * ROW_BARRIER_S
+                  + copies / ici.bandwidth_bytes_s)
+    host = (level_launches(cfg) - relax_launches(cfg) + cards) * ici.launch_s
     return max(device, host)
 
 
@@ -137,16 +176,16 @@ def level_sharded_time(t1_s: float, h: int, w: int, cfg: FlowConfig, n_y: int, p
                        cards: Optional[int] = None) -> Tuple[float, str]:
     """(projected seconds on n_y shards over ``cards`` cards, resolved path)
     for one level. The gates route as ``compute_flow_sharded`` does: the
-    kernel only where every shard is on one card and its gate holds, else
-    the explicit route, else replication."""
+    kernel where its gate holds, on one card or across cards, else the
+    explicit route, else replication."""
     cards = n_y if cards is None else cards
     resolved = path
-    if path == "kernel" and not (cards == 1 and kernel_halo_applicable(h, n_y, cfg, k)):
+    if path == "kernel" and not kernel_halo_applicable(h, n_y, cfg, k):
         resolved = "explicit"
     if resolved == "explicit" and not halo_applicable(h, n_y, cfg, k):
         return t1_s, "replicated"
     if resolved == "kernel":
-        return kernel_level_time(h, w, cfg, n_y, ici, k), resolved
+        return kernel_level_time(h, w, cfg, n_y, ici, k, cards), resolved
     halo = halo_rows(cfg, k)
     compute = t1_s * math.ceil(n_y / cards) * (h // n_y + 2 * halo) / h
     host = n_y * relax_launches(cfg) * ici.launch_s
@@ -171,7 +210,7 @@ def project_schedule(levels: Sequence[Tuple[int, int, float]], cfg: FlowConfig, 
         if resolved == "replicated":
             t_repl += tn
         else:
-            c = level_comm_cost(h, w, cfg, n_y, resolved, ici, k)
+            c = level_comm_cost(h, w, cfg, n_y, resolved, ici, k, cards)
             t_comm += c
             t_shard += tn - c
     speedup = t1_total / tn_total if tn_total else float("inf")

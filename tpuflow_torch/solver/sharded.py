@@ -6,8 +6,10 @@ the mesh; the resample, warp, derivatives, tensor and median run on the
 whole field with the level kernels, on the row's first device. Each level
 takes one of three relaxations:
 
-  * ``"kernel"``: one launch of ``relax_sharded_kernel`` (csrc/sharded.cu),
-    where every shard is on one card and its gate admits the level;
+  * ``"kernel"``: ``relax_sharded_kernel`` (csrc/sharded.cu), one launch on
+    each card of the row, where its gate admits the level (over several
+    cards the halos are stored through peer pointers and the cards meet at
+    flag barriers);
   * ``"explicit"``: ``relax_sharded_explicit``, each shard on its
     position's device and stream, halos copied between them, where
     ``halo_applicable`` admits the level;
@@ -55,8 +57,7 @@ def level_route(h: int, w: int, cfg: FlowConfig, mesh: Mesh, halo: str, k_outer:
     ``"kernel"``, ``"explicit"`` or ``"replicated"``."""
     n_y, cards = mesh.n_y, mesh.row_cards(data)
     if halo == "auto":
-        paths = ("kernel", "explicit") if cards == 1 else ("explicit",)
-        path, k, _ = plan_level(h, w, cfg, n_y, link_params(cards), paths=paths, cards=cards)
+        path, k, _ = plan_level(h, w, cfg, n_y, link_params(cards), cards=cards)
         return path, k
     admitted = (kernel_halo_applicable if halo == "kernel" else halo_applicable)
     return (halo if admitted(h, n_y, cfg, k_outer) else "replicated"), k_outer
@@ -80,15 +81,11 @@ def sharded_relax_for(cfg: FlowConfig, mesh: Mesh, halo: str = "auto", k_outer: 
         raise ValueError(f"unknown halo mode {halo!r}")
     if k_outer < 1:
         raise ValueError(f"k_outer must be at least 1, got {k_outer}")
-    if halo == "kernel" and mesh.row_cards(data) != 1:
-        raise ValueError(f"halo='kernel' needs every shard on one card; {mesh!r} spreads a "
-                         "row over several (halo='explicit' or 'auto' run there)")
-    one_card = Mesh(mesh.n_y, row_device(mesh, data))
 
     def relax_for(h: int, w: int):
         route, k = level_route(h, w, cfg, mesh, halo, k_outer, data)
         if route == "kernel":
-            return functools.partial(relax_sharded_kernel, mesh=one_card, k_outer=k)
+            return functools.partial(relax_sharded_kernel, mesh=mesh, k_outer=k, data=data)
         if route == "explicit":
             return functools.partial(relax_sharded_explicit, mesh=mesh, k_outer=k, data=data)
         return relax
@@ -102,8 +99,9 @@ def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, 
     """``compute_flow`` of one pair with the rows of every admitted level's
     relaxation sharded over the ``y`` positions of ``mesh``'s first data
     row, halos exchanged once every ``k_outer`` outers (``"auto"`` picks k
-    per level). ``halo`` is ``"kernel"`` (all shards on one card),
-    ``"explicit"`` or ``"auto"``; the JAX pipeline's ``"gspmd"`` raises
+    per level). ``halo`` is ``"kernel"``, ``"explicit"`` or ``"auto"``
+    (over several cards the kernel needs peer access between them, and
+    raises without it); the JAX pipeline's ``"gspmd"`` raises
     NotImplementedError. ``device`` must be the row's first device, its index
     included; ``"cuda"`` raises without CUDA. A (B, H, W) stack goes through
     ``compute_flow(..., mesh=)``."""

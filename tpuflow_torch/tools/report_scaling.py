@@ -8,8 +8,7 @@ row-sharded, one JSON line (the port of tools/report_scaling.py).
           dp  a stack of N pairs through compute_flow(..., mesh=) against
               N single pairs, by the k-slope;
           sp  one pair through compute_flow_sharded with halo="explicit",
-              "kernel" (shards on one card only) and "auto", and the
-              hybrid on N pairs.
+              "kernel" and "auto", and the hybrid on N pairs.
         With one card the N positions are N streams of it: the line says
         "streams on one card", which is not scaling.
 
@@ -18,7 +17,10 @@ row-sharded, one JSON line (the port of tools/report_scaling.py).
         the card: the host's time to issue one halo message (an event wait
         and a copy) and one kernel launch, the device's time for one grid
         sync of the cooperative kernel and for one small copy, and the copy
-        rate between two blocks on one card.
+        rate between two blocks on one card; with several cards also the
+        same between two cards, the peer-access matrix, and the sharded
+        kernel's exchange across two cards timed in the kernel: what one
+        row barrier adds to a launch, and what a wider peer-store push adds.
 
     python -m tpuflow_torch.tools.report_scaling --project [W H]
         No card needed: the cost model's table for the default schedule at
@@ -123,6 +125,7 @@ def measure_link(device="cuda", messages: int = 256, sleep_cycles: int = 200_000
            "bandwidth_bytes_s": big_a.numel() * 4 / (copy_ms * 1e-3)}
     if torch.cuda.device_count() > 1:
         out.update(_peer_link(dev, a, big_a, halo, messages, sleep_cycles))
+        out.update(_kernel_link(dev, out["peer"]))
     return {**out,
             "how": {"dispatch_s": f"host s per _copy of a {halo}-row, {w}-wide, 2-plane halo "
                                   "between two streams (event, wait, copy, record_stream)",
@@ -134,7 +137,9 @@ def measure_link(device="cuda", messages: int = 256, sleep_cycles: int = 200_000
                                          "device s (CUDA-graph replay)",
                     "peer_*": "the same between this card and the next, where there are "
                               "several: the message from a stream of this card to one of "
-                              "the next, the copy timed by CUDA events over 10 copies"}}
+                              "the next, the copy timed by CUDA events over 10 copies",
+                    "row_barrier_s": KERNEL_LINK_HOW["row_barrier_s"],
+                    "kernel_push_s": KERNEL_LINK_HOW["kernel_push_s"]}}
 
 
 def _peer_link(dev, a, big_a, halo: int, messages: int, sleep_cycles: int) -> dict:
@@ -168,6 +173,59 @@ def _peer_link(dev, a, big_a, halo: int, messages: int, sleep_cycles: int) -> di
     return {"peer": str(peer), "peer_access": torch.cuda.can_device_access_peer(dev, peer),
             "peer_dispatch_s": dispatch_s, "peer_small_copy_s": small_ms * 1e-3,
             "peer_bandwidth_bytes_s": big_a.numel() * 4 / (copy_ms * 1e-3)}
+
+
+KERNEL_LINK_WIDTHS = (300, 3840)
+KERNEL_LINK_HOW = {
+    "row_barrier_s": "device s a row barrier adds: relax_sharded_kernel (grey, inner 5) on a "
+                     "64-row, 300-wide level over two shards on two cards, less one shard's "
+                     "launch of the same 38 padded rows on one card, at 40 and at 20 outers; "
+                     "the slope per exchange (2 row barriers, a 2-plane 6-row push, 3 grid "
+                     "syncs) over 2",
+    "kernel_push_s": "device s a 3840-wide push adds over a 300-wide one: the same slope "
+                     "per exchange at both widths, differenced (kernel_push_bytes more)"}
+
+
+def _kernel_link(dev, peer, reps: int = 5) -> dict:
+    """The sharded kernel's exchange between ``dev`` and ``peer``, timed in
+    the kernel (KERNEL_LINK_HOW), and the peer-access matrix."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.parallel import make_mesh, relax_sharded_kernel
+    from tpuflow_torch.solver.level import LevelScalars
+    from tpuflow_torch.tools.roofline import cuda_ms
+
+    peer = torch.device(peer)
+    n = torch.cuda.device_count()
+    matrix = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(n)]
+              for i in range(n)]
+    base = FlowConfig()
+    per_exchange = {}
+    with torch.cuda.device(dev):
+        two, one = make_mesh(2, [dev, peer]), make_mesh(1, dev)
+        for w in KERNEL_LINK_WIDTHS:
+            sc = LevelScalars.make(w, 64, 1.0, 1.0, base.equation_alpha)
+            T = torch.rand((2, 64, w), device=dev)
+            fxyz = torch.rand((3, 64, w), device=dev)
+            T1, fxyz1 = T[:, :38].contiguous(), fxyz[:, :38].contiguous()
+            sc1 = LevelScalars.make(w, 38, 1.0, 1.0, base.equation_alpha)
+            delta = {}
+            for outer in (40, 20):
+                cfg = dataclasses.replace(base, outer_iterations_count=outer)
+                delta[outer] = (
+                    cuda_ms(lambda c=cfg: relax_sharded_kernel(fxyz, T, sc, c, two), reps)
+                    - cuda_ms(lambda c=cfg: relax_sharded_kernel(fxyz1, T1, sc1, c, one), reps))
+            per_exchange[w] = (delta[40] - delta[20]) / 20 * 1e-3
+    lo, hi = KERNEL_LINK_WIDTHS
+    push_bytes = 2 * 6 * (hi - lo) * 4
+    push_s = per_exchange[hi] - per_exchange[lo]
+    return {"peer_access_matrix": matrix, "row_barrier_s": per_exchange[lo] / 2,
+            "kernel_exchange_s": {str(w): t for w, t in per_exchange.items()},
+            "kernel_push_s": push_s, "kernel_push_bytes": push_bytes,
+            "kernel_push_bytes_s": push_bytes / push_s if push_s > 0 else None}
 
 
 def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4) -> dict:
@@ -206,8 +264,6 @@ def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4) -> dict:
     runs = {"dp": lambda: compute_flow(F0, F1, cfg, mesh=dp, device=home)}
     sp = make_mesh(n, devices)
     for halo in ("explicit", "kernel", "auto"):
-        if halo == "kernel" and distinct > 1:
-            continue
         runs[f"sp_{halo}"] = (lambda hl=halo: compute_flow_sharded(
             f0, f1, cfg, mesh=sp, halo=hl, device=home))
     runs["hybrid"] = lambda: compute_flow_hybrid(F0, F1, cfg, mesh=sp, device=home)
@@ -237,7 +293,7 @@ def project(w: int = None, h: int = None) -> list:
             for cards in (1, n_y):
                 ici = link_params(cards)
                 levels = rub_default_levels(sw, sh, cfg, ici)
-                paths = ("kernel", "explicit") if cards == 1 else ("explicit",)
+                paths = ("kernel", "explicit")
                 rows = [project_schedule(levels, cfg, n_y, p, ici, 1, cards) for p in paths]
                 rows += [dict(best_k(levels, cfg, n_y, p, ici, cards=cards),
                               path=f"{p}+best_k") for p in paths]

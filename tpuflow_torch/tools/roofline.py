@@ -64,6 +64,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
 F32_ISSUE_PER_S = PEAK_FLOPS / 2
 SHARED_BYTES_PER_S = 132 * 128 * 1.98e9
+# NVLink 4 between the H100s of one host: 450 GB/s each way (published).
+NVLINK_BYTES_PER_S = 450e9
 
 
 def _shift_xp(a: torch.Tensor) -> torch.Tensor:
@@ -296,7 +298,7 @@ def _ksweep_design_bytes(h: int, w: int, inner: int) -> int:
 
 
 def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: int = 1,
-                cfg: FlowConfig | None = None, inner: int = 5) -> dict:
+                cfg: FlowConfig | None = None, inner: int = 5, cards: int = 1) -> dict:
     """What one launch of kernel ``name`` on an (h, w) level needs, and its
     bound on this card: the largest of device-memory bytes over the memory
     rate (each input byte read once, each output byte written once),
@@ -311,7 +313,10 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
     ``relax_sharded`` (one level's relaxation under ``cfg``,
     default ``FlowConfig()``, over ``n_y`` shards, halos every ``k`` outers:
     ``_sharded_work``; its ``design_bytes`` are the bytes the kernel streams:
-    its tiles, regions, pushes and copies), ``roofline_micro_<body>`` (one call of
+    its tiles, regions, pushes and copies; over ``cards`` cards its bound is
+    the arithmetic and the planes split ``cards`` ways plus ``nvlink_bytes``,
+    the halos one card sends one neighbour card, at NVLINK_BYTES_PER_S),
+    ``roofline_micro_<body>`` (one call of
     ``PASSES`` passes on an (h, w) field, one shared-memory load per pass by
     the probe's design) and ``probe_matmul`` ((h, H0) @ (H0, w), one FFMA
     per product)."""
@@ -347,12 +352,23 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
         instr, flops = h * w * H0, 2 * h * w * H0
     else:
         raise KeyError(f"no work count for kernel {name!r}")
-    times = {"device memory": nbytes / PEAK_BYTES_PER_S * 1e3,
+    if cards > 1 and name != "relax_sharded":
+        raise ValueError(f"only relax_sharded runs over several cards, not {name!r}")
+    times = {"device memory": nbytes / cards / PEAK_BYTES_PER_S * 1e3,
              "shared memory": shared / SHARED_BYTES_PER_S * 1e3,
-             "float32 issue": instr / F32_ISSUE_PER_S * 1e3}
+             "float32 issue": instr / cards / F32_ISSUE_PER_S * 1e3}
     resource = max(times, key=times.get)
+    link_ms = 0.0
+    if cards > 1:
+        cfg = cfg or FlowConfig()
+        consts = 5 if cfg.data_constancy == DataConstancy.GREY else 10
+        halo = k * (cfg.inner_iterations_count + 1)
+        exchanges = -(-cfg.outer_iterations_count // k)
+        extra["nvlink_bytes"] = (consts + 2 * exchanges) * halo * w * 4
+        link_ms = extra["nvlink_bytes"] / NVLINK_BYTES_PER_S * 1e3
+        extra.update(cards=cards, nvlink_ms=link_ms)
     return {"bytes": nbytes, "shared_bytes": shared, "instructions": instr, "flops": flops,
-            "bound_ms": times[resource], "resource": resource,
+            "bound_ms": times[resource] + link_ms, "resource": resource,
             "bound_by": "operations" if resource == "float32 issue" else "bytes", **extra}
 
 
