@@ -129,8 +129,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               4 positions dealt over the cards, bitwise compute_flow, counts
               exact (one relax_sharded launch a card a level), timed in
               turns; on one card it prints that it did not run
+ 24. procmesh PROC_N processes joined by initialize_distributed (this
+              script run with --proc-worker; on one card all on cuda:0, else
+              one a card), a mesh over them: (a) a (4, 388, 584) grey stack
+              on (PROC_N, 1), each process's pairs bitwise its own
+              compute_flow, ``pairs`` exact; (b) a 1920x1080 full_model()
+              pair on the row (1, PROC_N) with halo kernel and auto (the
+              sharded kernel one launch a process, halos and T stored into
+              the other processes' arenas through CUDA IPC handles), bitwise
+              compute_flow, counts exact, and the level-0 launch's grid syncs
+              and row barriers counted on the card against the formulas;
+              (c) the race case (the last process held back about 0.1 s);
+              the spin limit with one process never launching
 
-Each main-path run of phases 4-6, 11-15, 17, 19-21 and 23, and the measurement
+Each main-path run of phases 4-6, 11-15, 17, 19-21, 23 and 24 (in each worker), and the measurement
 path of phase 9, sets every launch count to 0 just before it and reads the
 counts just after. The one-sweep kernel (jacobi_sweep) is off the main path: its
 launches are those of phase 9's measurement path, which differences the
@@ -1824,7 +1836,8 @@ def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1) ->
     want.update({prologue: 0, "jacobi_sweeps": 0, "relax_sharded": 0, "copies": 0})
     for lh, _, route, kk in sharded_plan(w, h, cfg, mesh, halo, k):
         if route == "kernel":
-            want["relax_sharded"] += mesh.row_cards()   # one launch a card
+            # one launch a card; over processes, this process's card's one
+            want["relax_sharded"] += 1 if mesh.row_spans_processes() else mesh.row_cards()
             continue
         n = mesh.n_y if route == "explicit" else 1
         want[prologue] += n * outer
@@ -2104,6 +2117,240 @@ def phase_report_scaling(card: str) -> dict:
     return row
 
 
+# Phase 24: the mesh over processes, one position a process, joined by
+# initialize_distributed (NCCL where CUDA is available, with the gloo group
+# beside it that carries every host object). The workers are this script
+# run with --proc-worker; each prints one PROCRESULT line. On one card the
+# PROC_N processes share cuda:0; with several cards each takes its own.
+PROC_N = 2
+PROC_TIMEOUT_S = 600
+PROC_ROUNDS = 3
+
+
+def proc_command(case: str) -> list:
+    """The command of one worker of ``case``; ``run_processes`` appends its
+    address, rank and world size."""
+    return [sys.executable, os.path.abspath(__file__), "--proc-worker", case]
+
+
+def proc_results(world: int, case: str) -> list:
+    """Each worker's PROCRESULT; any worker's failure fails the phase."""
+    from tpuflow_torch.parallel.multihost import process_results
+
+    return process_results(proc_command(case), world, PROC_TIMEOUT_S, cwd=REPO)
+
+
+def proc_dp(rank: int, world: int, card: str) -> dict:
+    """(a): a (4, 388, 584) grey stack on a (world, 1) mesh over the
+    processes: this process's pairs bitwise its own compute_flow of each,
+    ``pairs`` exact, the launch counts those of its pairs."""
+    import torch
+
+    from tpuflow_torch import FlowConfig, compute_flow, make_mesh
+    from tpuflow_torch.solver import sharded
+    from tpuflow_torch.synthetic import textured_frames
+    from tpuflow_torch.tools.roofline import cuda_ms
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    w, h = SIZES[0]
+    cfg = FlowConfig()
+    frames = np.stack(textured_frames(w, h, [(i * 1.25, i * -0.75) for i in range(DP_FRAMES)]))
+    F0, F1 = frames[:-1], frames[1:]
+    dp = make_mesh((world, 1))
+    mine = tuple(i for i in range(len(F0)) if i % world == rank)
+    singles = {i: compute_flow(F0[i], F1[i], cfg, device=dev) for i in mine}
+    sharded.reset_launch_counts()
+    res = compute_flow(F0, F1, cfg, mesh=dp, device=dev)
+    counts = sharded_counts()
+    want = dict(scaled(expected_launches(w, h, cfg), len(mine)), relax_sharded=0, copies=0)
+    want = {key: want.get(key, 0) for key in counts}
+    bitwise = res.pairs == mine and all(
+        res.u[j].tobytes() == singles[i].u.tobytes()
+        and res.v[j].tobytes() == singles[i].v.tobytes() for j, i in enumerate(mine))
+    ms = [cuda_ms(lambda: compute_flow(F0, F1, cfg, mesh=dp, device=dev), 1, warmup=False)
+          for _ in range(PROC_ROUNDS)]
+    return {"case": "dp", "rank": rank, "device": str(dev), "pairs": list(res.pairs),
+            "bitwise": bitwise, "counts": counts, "counts_ok": counts == want,
+            "expected": want, "ms_all": ms, "ms_median": statistics.median(ms)}
+
+
+def proc_row(rank: int, world: int, card: str) -> dict:
+    """(b) and (c): a 1920x1080 full_model() pair on a (1, world) row over
+    the processes, halo kernel and auto, bitwise this process's
+    compute_flow, counts exact (one relax_sharded launch a process a
+    sharded level); the level-0 launch with its grid syncs and row barriers
+    counted on the card against the formulas, bitwise relax; the race case
+    (the last process held back about 0.1 s before its launch); the routes
+    timed in turns with compute_flow."""
+    import torch
+
+    from tpuflow_torch import compute_flow, compute_flow_sharded, make_mesh, models
+    from tpuflow_torch.parallel import relax_sharded_kernel
+    from tpuflow_torch.parallel.halo_kernel import grid_syncs, row_barriers
+    from tpuflow_torch.parallel.mesh import card_stream
+    from tpuflow_torch.solver import sharded
+    from tpuflow_torch.solver.level import relax
+    from tpuflow_torch.solver.sharded import sharded_plan
+    from tpuflow_torch.synthetic import textured_pair
+    from tpuflow_torch.tools.roofline import cuda_ms
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    w, h = SIZES[1]
+    cfg = models.full_model()
+    f0, f1 = textured_pair(w, h)
+    row = make_mesh((1, world))
+    base = compute_flow(f0, f1, cfg, device=dev)
+    out = {"case": "row", "rank": rank, "device": str(dev), "cards": row.cards,
+           "auto_plan": [f"{lh}x{lw}:{r}" + (f"@k={k}" if r != "replicated" else "")
+                         for lh, lw, r, k in sharded_plan(w, h, cfg, row, "auto")]}
+    ok = True
+    runs = {"compute_flow": lambda: compute_flow(f0, f1, cfg, device=dev)}
+    for halo in ("kernel", "auto"):
+        runs[halo] = lambda hl=halo: compute_flow_sharded(f0, f1, cfg, mesh=row, halo=hl,
+                                                          device=dev)
+        sharded.reset_launch_counts()
+        res = runs[halo]()
+        counts = sharded_counts()
+        want = expected_sharded_counts(w, h, cfg, row, halo)
+        want = {key: want.get(key, 0) for key in counts}
+        same = res.u.tobytes() == base.u.tobytes() and res.v.tobytes() == base.v.tobytes()
+        out[f"{halo}_bitwise"], out[f"{halo}_counts"] = same, counts
+        out[f"{halo}_counts_ok"] = counts == want
+        ok &= same and counts == want
+    x = kernel_inputs(w, h)
+    args = (x["fxyz"], x["uvf"], x["sc"], cfg)
+    unsharded = relax(*args, J=x["J"])
+    syncs = torch.zeros(world, dtype=torch.int32, device=dev)
+    barriers = torch.zeros_like(syncs)
+    got = relax_sharded_kernel(*args, row, 1, J=x["J"], syncs=syncs, barriers=barriers)
+    want_syncs = [grid_syncs(cfg, world, 1, world, processes=True) * (c == rank)
+                  for c in range(world)]
+    want_barriers = [row_barriers(cfg, world, world, 1, processes=True) * (c == rank)
+                     for c in range(world)]
+    out.update(level_max_abs_err=float((got - unsharded).abs().max()),
+               grid_syncs=syncs.tolist(), grid_syncs_expected=want_syncs,
+               row_barriers=barriers.tolist(), row_barriers_expected=want_barriers)
+    ok &= (out["level_max_abs_err"] <= SHARDED_BOUND and out["grid_syncs"] == want_syncs
+           and out["row_barriers"] == want_barriers)
+    # (c): the last process starts about 0.1 s after the others
+    if rank == world - 1:
+        with torch.cuda.stream(card_stream(dev)):
+            torch.cuda._sleep(CROSS_RACE_SLEEP_CYCLES)
+    raced = relax_sharded_kernel(*args, row, 1, J=x["J"])
+    out["race_max_abs_err"] = float((raced - unsharded).abs().max())
+    ok &= out["race_max_abs_err"] <= SHARDED_BOUND
+    ms = {name: [] for name in runs}
+    for _ in range(PROC_ROUNDS):
+        for name in ("compute_flow", "kernel", "auto", "auto", "kernel", "compute_flow"):
+            ms[name].append(cuda_ms(runs[name], 1, warmup=False))
+    for name, v in ms.items():
+        out[f"{name}_ms_median"], out[f"{name}_ms_all"] = statistics.median(v), v
+    out["ok"] = bool(ok)
+    return out
+
+
+def proc_spin(rank: int, world: int) -> None:
+    """The spin limit across processes: the last process joins the row's
+    arenas but never launches; the others must trap at the kernel's spin
+    limit. The last process stays alive past the limit, so that its arena
+    is still open while they spin."""
+    import torch
+
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.parallel import make_mesh, relax_sharded_kernel
+    from tpuflow_torch.solver.level import LevelScalars
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sc = LevelScalars.make(300, 64, 1.0, 1.0, 35.0)
+    T = torch.rand((2, 64, 300), device=dev)
+    fxyz = torch.rand((3, 64, 300), device=dev)
+    relax_sharded_kernel(fxyz, T, sc, FlowConfig(), make_mesh((1, world)), _skip_card=world - 1)
+    if rank == world - 1:
+        time.sleep(spin_limit_s() + 5)
+        print("PROCRESULT " + json.dumps({"case": "spin", "rank": rank, "left_out": True}),
+              flush=True)
+        os._exit(0)
+    try:
+        torch.cuda.synchronize(dev)
+    except RuntimeError as err:
+        print("PROCRESULT " + json.dumps({"case": "spin", "rank": rank, "trapped": str(err)}),
+              flush=True)
+        os._exit(3)
+    print("PROCRESULT " + json.dumps({"case": "spin", "rank": rank, "trapped": None}),
+          flush=True)
+    os._exit(0)
+
+
+def proc_worker(argv) -> int:
+    """One process of phase 24 (``--proc-worker CASE HOST:PORT RANK WORLD``)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tpuflow_torch.parallel.group import process_group
+    from tpuflow_torch.parallel.multihost import initialize_distributed
+    from tpuflow_torch.tools.roofline import device_info
+
+    case, address, rank, world = argv[0], argv[1], int(argv[2]), int(argv[3])
+    initialize_distributed(address, num_processes=world, process_id=rank)
+    if case == "spin":
+        proc_spin(rank, world)
+    card = device_info()["nvidia_smi"]
+    out = {"dp": proc_dp, "row": proc_row}[case](rank, world, card)
+    out["backend"] = torch.distributed.get_backend()
+    print("PROCRESULT " + json.dumps(out), flush=True)
+    torch.distributed.barrier(group=process_group())
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_procmesh(card: str, world: int = PROC_N) -> dict:
+    """Phase 24: ``world`` processes (one a card, or all on cuda:0 on one
+    card): (a) dp, (b) a row over the processes with halo kernel and auto,
+    (c) the race case, and the spin-limit case; each bitwise with exact
+    counts. Returns the kernels line's keys for it."""
+    import torch
+
+    from tpuflow_torch.parallel.multihost import run_processes
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    layout = [f"cuda:{r % cards}" for r in range(world)]
+    dp = proc_results(world, "dp")
+    row = {"phase": "procmesh_dp", "processes": world, "devices": layout, "card": card,
+           "ranks": dp}
+    row["ok"] = all(r["bitwise"] and r["counts_ok"] for r in dp) and sorted(
+        i for r in dp for i in r["pairs"]) == list(range(DP_FRAMES - 1))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"procmesh dp: {row}")
+    rows = proc_results(world, "row")
+    row = {"phase": "procmesh_row", "processes": world, "devices": layout, "card": card,
+           "ranks": rows}
+    row["ok"] = all(r["ok"] for r in rows)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"procmesh row: {row}")
+    limit = spin_limit_s()
+    t1 = time.perf_counter()
+    spun = run_processes(proc_command("spin"), world, limit + CROSS_TIMEOUT_MARGIN_S, cwd=REPO)
+    stuck = {"phase": "procmesh_timeout", "processes": world, "spin_limit_s": limit,
+             "margin_s": CROSS_TIMEOUT_MARGIN_S, "seconds": time.perf_counter() - t1,
+             "returncodes": [rc for rc, _ in spun],
+             "output_tails": [text[-400:] for _, text in spun]}
+    stuck["ok"] = (all(rc not in (None, 0) and "trapped" in text for rc, text in spun[:-1])
+                   and spun[-1][0] == 0)
+    emit(stuck)
+    if not stuck["ok"]:
+        raise AssertionError(f"the spin limit across processes: {stuck}")
+    err = max(max(r["level_max_abs_err"], r["race_max_abs_err"]) for r in rows)
+    emit({"phase": "procmesh_done", "processes": world, "seconds": time.perf_counter() - t0})
+    return {"processes": world, "process_row_max_abs_err": err,
+            "process_row_devices": layout,
+            "process_row_kernel_ms": statistics.median(r["kernel_ms_median"] for r in rows),
+            "process_row_compute_flow_ms": statistics.median(r["compute_flow_ms_median"]
+                                                             for r in rows)}
+
+
 def main() -> int:
     try:
         import torch
@@ -2198,6 +2445,7 @@ def main() -> int:
         phase_report_scaling(card)
         phase_crosscard_e2e(card, counts)
         emit({"phase": "mesh_done", "seconds": time.perf_counter() - t_mesh})
+    sharded_row.update(phase_procmesh(card))
 
     # The kernels line: times and bounds at 3840x2160 (1920x1080 beside them).
     rows = []
@@ -2257,4 +2505,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--proc-worker"]:
+        sys.exit(proc_worker(sys.argv[2:]))
     sys.exit(main())

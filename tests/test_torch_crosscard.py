@@ -20,8 +20,17 @@ dropping either row barrier lets a NaN reach an owned row.
 The barrier sites and the epoch arithmetic are read from the kernel's
 source, and the host's epoch bookkeeping (``RowFlags``) is run over
 consecutive launches with different barrier counts.
+
+The process mode (a row whose cards are different processes' launches,
+each card its own copy of the level's fields and its own T) is emulated the
+same way: each card copies in from its own fields, copies its owned rows
+out into every card's T, and meets every card of the row at one more row
+barrier; what each card's T holds when its launch ends must be bitwise
+``relax_sharded``, and without that barrier some order of the cards ends a
+launch with rows of T not yet stored.
 """
 
+import dataclasses
 import re
 
 import numpy as np
@@ -31,6 +40,7 @@ import torch
 from test_torch_ksweep import ksweep_emulated
 from test_torch_sharded_tiles import OUTER, level_inputs, min_rows, prologue_emulated
 
+from tpuflow_torch import models
 from tpuflow_torch.config import DataConstancy, FlowConfig
 from tpuflow_torch.ops import level as L
 from tpuflow_torch.ops.cuda_lib import CSRC
@@ -50,7 +60,9 @@ OUTER_LOOP = ["row_barrier", "grid_sync", "push_halos", "push_halos", "push_halo
 # Which card holds each shard: contiguous blocks, or dealt i % cards.
 LAYOUTS = {"2x1": (0, 1), "2x2": (0, 0, 1, 1), "2x2dealt": (0, 1, 0, 1), "4x1": (0, 1, 2, 3),
            "4x2": (0, 0, 1, 1, 2, 2, 3, 3), "4x2dealt": (0, 1, 2, 3, 0, 1, 2, 3)}
-WIDTHS = {2: 64, 4: 59, 8: 2}
+# Rows over processes: one shard a process's card.
+PROCESS_LAYOUTS = {"2procs": (0, 1), "3procs": (0, 1, 2), "4procs": (0, 1, 2, 3)}
+WIDTHS = {2: 64, 3: 53, 4: 59, 8: 2}
 
 
 class Deadlock(Exception):
@@ -116,10 +128,14 @@ class Row:
         self.faults += [("stale", c, j) for j in nbrs if self.origin[c][j] < launch]
 
 
-def launch_actor(c, shard_card, cfg, k, row, epoch, launch, counts, work=None, drop=()):
+def launch_actor(c, shard_card, cfg, k, row, epoch, launch, counts, work=None, drop=(),
+                 processes=False):
     """Card c's launch, step by step; ``work`` (None for the protocol
     alone) holds the shards' buffers and the phases. ``drop`` names row
-    barriers the emulation leaves out: "before_push", "after_push"."""
+    barriers the emulation leaves out: "before_push", "after_push", "last"
+    (the process mode's). ``processes``: the process mode (each card its
+    own fields and T, the copy-out into every card's T, a last row barrier
+    over every card)."""
     n_y = len(shard_card)
     nbrs = neighbour_cards(shard_card, c)
     mine = [s for s in range(n_y) if shard_card[s] == c]
@@ -156,18 +172,34 @@ def launch_actor(c, shard_card, cfg, k, row, epoch, launch, counts, work=None, d
                 work.sweep(mine, min(L.KMAX, inner - done), last and exchange_next)
             yield None
     counts["syncs"] += 1
+    if processes:
+        if work:
+            work.copy_out(mine)
+        yield None
+        everyone = [j for j in range(max(shard_card) + 1) if j != c]
+        if "last" not in drop:
+            yield from row.barrier(c, everyone, epoch + 1, launch, counts)
+        if work:
+            work.ended[c] = work.T_out[c].copy()   # what card c's T holds as its launch ends
 
 
 class Work:
     """The shards' buffers of one row, NaN in every row not yet written: the
     constants' planes and T twice (ping-pong), each card's ``cur``."""
 
-    def __init__(self, fxyz, uv, J, sc, cfg, shard_card, k):
+    def __init__(self, fxyz, uv, J, sc, cfg, shard_card, k, processes=False):
         _, self.h, self.w = uv.shape
         self.sc, self.halo = sc, halo_rows(cfg, k)
         self.shards = row_split(self.h, len(shard_card), self.halo)
         self.names = ["uv", "fxyz"] + ([] if J is None else ["J"])
         self.src = {"uv": uv, "fxyz": fxyz, "J": J}
+        cards = max(shard_card) + 1
+        self.shard_card = shard_card
+        # the process mode: each card its own copy of the fields and its own T
+        self.card_src = [{n: None if a is None else a.copy() for n, a in self.src.items()}
+                         for _ in range(cards)] if processes else None
+        self.T_out = [np.full((2, self.h, self.w), np.nan, np.float32) for _ in range(cards)]
+        self.ended = [None] * cards
         self.bufs = [{n: np.full((self.src[n].shape[0], sh.padded, self.w), np.nan, np.float32)
                       for n in self.names} for sh in self.shards]
         for b, sh in zip(self.bufs, self.shards):
@@ -177,9 +209,17 @@ class Work:
     def copy_in(self, mine):
         for s in mine:
             b, sh = self.bufs[s], self.shards[s]
+            src = self.src if self.card_src is None else self.card_src[self.shard_card[s]]
             for n in self.names:
-                b[n][:, sh.top:sh.top + sh.rows] = self.src[n][:, sh.row0:sh.row0 + sh.rows]
-            b["T"][0][:, sh.top:sh.top + sh.rows] = self.src["uv"][:, sh.row0:sh.row0 + sh.rows]
+                b[n][:, sh.top:sh.top + sh.rows] = src[n][:, sh.row0:sh.row0 + sh.rows]
+            b["T"][0][:, sh.top:sh.top + sh.rows] = src["uv"][:, sh.row0:sh.row0 + sh.rows]
+
+    def copy_out(self, mine):
+        """Each of ``mine`` stores its owned rows of T into every card's T."""
+        for s in mine:
+            b, sh = self.bufs[s], self.shards[s]
+            for T in self.T_out:
+                T[:, sh.row0:sh.row0 + sh.rows] = b["T"][b["cur"]][:, sh.top:sh.top + sh.rows]
 
     def push(self, mine, constants):
         """Each of ``mine`` stores its edge owned rows into its neighbours'
@@ -371,3 +411,111 @@ def test_row_flags_advance():
     assert host.epoch == 114
     # each row barrier across cards is two grid syncs around its flag step
     assert grid_syncs(cfg, 4, 1, 4) == grid_syncs(cfg, 4) + 80
+
+
+def process_emulated(fxyz, uv, sc, cfg, n, k, J=None, policy=None, drop=()):
+    """The process mode over ``n`` cards, one shard each: what each card's
+    T holds when its launch ends, and each card's counts."""
+    shard_card = tuple(range(n))
+    work = Work(fxyz, uv, J, sc, cfg, shard_card, k, processes=True)
+    row = Row(n)
+    counts = [{"syncs": 0, "barriers": 0} for _ in range(n)]
+    run({c: launch_actor(c, shard_card, cfg, k, row, 0, 0, counts[c], work, drop, True)
+         for c in range(n)}, policy or seeded(0))
+    assert row.faults == []
+    return work.ended, counts
+
+
+@pytest.mark.parametrize("constancy", ["grey", "gradient"])
+@pytest.mark.parametrize("inner", [1, 5, 7])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("layout", sorted(PROCESS_LAYOUTS))
+def test_process_mode_every_card_ends_with_the_whole_T(layout, k, inner, constancy):
+    """Each card copies in from its own fields and stores its owned rows
+    into every card's T; after the last row barrier every card's T is
+    bitwise relax_sharded and relax, and the counts are the formulas'."""
+    n = len(PROCESS_LAYOUTS[layout])
+    cfg, uv, fxyz, J, sc = case(min_rows(n, k, inner), WIDTHS[n], n, k, inner, constancy,
+                                seed=n * 100 + k * 10 + inner)
+    ended, counts = process_emulated(fxyz, uv, sc, cfg, n, k, J,
+                                     seeded(n * 1000 + k * 10 + inner))
+    Jt = None if J is None else torch.from_numpy(J)
+    args = (torch.from_numpy(fxyz), torch.from_numpy(uv), sc, cfg)
+    plain = relax_sharded(*args, make_mesh(n, device="cpu"), k, J=Jt).numpy()
+    assert plain.tobytes() == relax(*args, J=Jt).numpy().tobytes()
+    for T in ended:
+        assert T.tobytes() == plain.tobytes()
+    for c in counts:
+        assert c == {"syncs": grid_syncs(cfg, n, k, n, processes=True),
+                     "barriers": row_barriers(cfg, n, n, k, processes=True)}
+
+
+@pytest.mark.parametrize("layout", ["2procs", "4procs"])
+def test_process_mode_last_barrier_is_needed(layout):
+    """Without the last row barrier a card can end its launch before
+    another card has stored its rows into that card's T: in some order of
+    the cards, a card's T then still holds rows not yet written."""
+    n = len(PROCESS_LAYOUTS[layout])
+    cfg, uv, fxyz, J, sc = case(min_rows(n, 1, 5), 40, n, 1, 5, "grey", seed=9)
+    policies = [first(c) for c in range(n)] + [seeded(s) for s in range(3)]
+    assert all(np.isfinite(T).all() for T in process_emulated(fxyz, uv, sc, cfg, n, 1)[0])
+    assert any(not all(np.isfinite(T).all()
+                       for T in process_emulated(fxyz, uv, sc, cfg, n, 1, None, p, ("last",))[0])
+               for p in policies)
+
+
+def test_process_mode_sites_are_the_kernels():
+    """The copy-out into every target and the last row barrier over every
+    card, read from the kernel and its entry point: each card's copy-in
+    reads its own fields, and the last barrier's links are every other
+    card's flags, the ones the neighbour barriers use."""
+    tail = KERNEL[KERNEL.index("  grid_sync(grid, syncs);\n  for (int i = tid; i < owned"):
+                  KERNEL.index("}  // namespace")]
+    assert "for (int c = 0; c < out.n; ++c) out.T[c][p * gn + g] = t;" in tail
+    assert tail.index("out.T[c]") < tail.index(
+        "if (out.n > 1) row_barrier(grid, everyone, ++epoch, syncs, barriers);")
+    assert "all.out[all.n] = (unsigned long long*)flags[j] + c;" in KERNEL
+    assert "all.in[all.n] = (const unsigned long long*)flags[c] + j;" in KERNEL
+    assert "if (n_targets > 1 && j != c) {" in KERNEL
+    for field in ("uv", "fxyz"):
+        assert f"const float* card_{field} = {field}[c];" in KERNEL
+    assert "const float* card_J = J != nullptr ? J[c] : nullptr;" in KERNEL
+    assert "if (!(launch >> c & 1u)) continue;" in KERNEL
+
+
+@pytest.mark.parametrize("processes", [False, True])
+def test_counts_in_both_modes(processes):
+    """One process: 2 row barriers an exchange across cards, each a sync
+    more. Processes: one more row barrier at the end, two syncs more; none
+    on a row of one card or one shard."""
+    cfg = FlowConfig()
+    extra = int(processes)
+    assert row_barriers(cfg, 4, 4, processes=processes) == 80 + extra
+    assert row_barriers(cfg, 2, 2, 3, processes=processes) == 2 * 14 + extra
+    assert row_barriers(cfg, 4, 1, processes=processes) == 0
+    assert row_barriers(cfg, 1, 2, processes=processes) == 0
+    assert grid_syncs(cfg, 4, 1, 4, processes=processes) == grid_syncs(cfg, 4) + 80 + 2 * extra
+    assert grid_syncs(cfg, 4, 1, 1, processes=processes) == grid_syncs(cfg, 4)
+    # the two processes on one card of chip_smoke.py's phase 24: 201 + 2, 80 + 1
+    assert grid_syncs(models.full_model(), 2, 1, 2, processes=processes) == 201 + 2 * extra
+
+
+def test_epochs_over_consecutive_launches_of_processes_are_never_stale():
+    """RowFlags.advance by the process mode's barriers, its last included,
+    over consecutive launches of rows of processes."""
+    host = RowFlags(flags=[])
+    n = 3
+    launches = [(dataclasses.replace(cfg, inner_iterations_count=1), k) for cfg, k in LAUNCHES]
+    starts = [host.advance(row_barriers(cfg, n, n, k, processes=True)) for cfg, k in launches]
+
+    def card(c):
+        for i, (cfg, k) in enumerate(launches):
+            counts = {"syncs": 0, "barriers": 0}
+            yield from launch_actor(c, (0, 1, 2), cfg, k, row, starts[i], i, counts,
+                                    processes=True)
+            assert counts["barriers"] == row_barriers(cfg, n, n, k, processes=True)
+
+    for policy in [first(c) for c in range(n)] + [seeded(s) for s in range(4)]:
+        row = Row(n)
+        run({c: card(c) for c in range(n)}, policy)
+        assert row.faults == []

@@ -24,6 +24,7 @@ phi reads was staged. A last test reads the tile constants from the kernel
 sources.
 """
 
+import ctypes
 import re
 
 import numpy as np
@@ -34,11 +35,11 @@ from test_torch_ksweep import ksweep_emulated
 
 from tpuflow_torch.config import DataConstancy, FlowConfig
 from tpuflow_torch.ops import level as L
-from tpuflow_torch.ops.cuda_lib import CSRC
+from tpuflow_torch.ops.cuda_lib import CSRC, STREAMLESS_SIGNATURES
 from tpuflow_torch.parallel import make_mesh, relax_sharded, row_split
 from tpuflow_torch.parallel.halo import MIN_SHARD_ROWS, halo_applicable, halo_rows
 from tpuflow_torch.parallel.halo_kernel import (
-    SHARDED_PROLOGUE_TW, grid_syncs, relax_sharded_kernel,
+    SHARDED_PROLOGUE_TW, grid_syncs, relax_sharded_kernel, row_barriers,
 )
 from tpuflow_torch.solver.level import LevelScalars, relax
 
@@ -319,3 +320,47 @@ def test_relax_levels_needs_cuda(monkeypatch):
         relax_by_level(64, 48)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--size", "64x48", "--relax-levels"])
+
+
+@pytest.mark.parametrize("processes", [False, True])
+def test_grid_syncs_per_level_in_both_modes(processes):
+    """Across cards each row barrier is one sync more than the sync it
+    replaces; over processes the launch ends with one more row barrier (two
+    syncs). On one card, or with one shard, the modes do not differ."""
+    cfg = FlowConfig()
+    last = 2 if processes else 0
+    assert grid_syncs(cfg, 4, 1, 4, processes) == 40 * 3 + 1 + 80 + last
+    assert grid_syncs(cfg, 2, 2, 2, processes) == 40 * 2 + 20 + 1 + 40 + last
+    assert grid_syncs(cfg, 4, 1, 1, processes) == 40 * 3 + 1
+    assert grid_syncs(cfg, 1, 1, 2, processes) == 40 * 2 + 1
+    assert row_barriers(cfg, 4, 4, 1, processes) == 80 + last // 2
+
+
+C_TYPES = {"int": ctypes.c_int, "unsigned int": ctypes.c_uint, "float": ctypes.c_float,
+           "size_t": ctypes.c_size_t, "unsigned long long": ctypes.c_uint64}
+
+
+def c_entries(src):
+    """{name: [ctypes type of each argument]} of the extern "C" entry points
+    of a source (pointers as c_void_p)."""
+    out = {}
+    for m in re.finditer(r"^int (tf_\w+)\(([^)]*)\) \{", src, re.M):
+        types = []
+        for arg in " ".join(m.group(2).split()).split(","):
+            decl = arg.strip().rsplit(" ", 1)[0].replace("const ", "").strip()
+            if "*" in arg:
+                types.append(ctypes.c_void_p)
+            else:
+                types.append(C_TYPES[decl])
+        out[m.group(1)] = types
+    return out
+
+
+def test_streamless_signatures_match_the_sources():
+    """cuda_lib's argtypes of the sharded kernel's and the IPC arena's entry
+    points are the C declarations', argument for argument."""
+    entries = c_entries((CSRC / "sharded.cu").read_text())
+    assert set(entries) == set(STREAMLESS_SIGNATURES)
+    for name, types in entries.items():
+        assert list(STREAMLESS_SIGNATURES[name]) == types, name
+    assert len(entries["tf_relax_sharded"]) == 29

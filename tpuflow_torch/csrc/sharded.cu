@@ -54,7 +54,8 @@
 // a block works on one shard of its card, and loops over that shard's tiles
 // with a stride of the shard's block count:
 //   copy in   each shard copies its owned rows of uv, fxyz, J from the
-//             level's fields (on the row's first card), and T = uv
+//             level's fields (on the row's first card; over processes, its
+//             own card's copy), and T = uv
 //   outer i   sync; every k outers (with more than one shard) a row barrier
 //             in its place, the push of the halos of T (at i = 0 also those
 //             of uv, fxyz and J, once), a row barrier;
@@ -65,7 +66,9 @@
 //             regions over all padded rows (tf_body::ksweep_region, 64 x 32,
 //             up to 5 sweeps in shared memory: reads T and the hoists, writes
 //             the other T buffer), a sync between two passes
-//   copy out  sync; each shard writes its owned rows of T (to the first card)
+//   copy out  sync; each shard writes its owned rows of T (to the first card;
+//             over processes to every card's T, then a row barrier over all
+//             the row's cards)
 // That is 2 syncs an outer at inner <= 5 (3 with a push), where a sync
 // between every two sweeps made 6; over several cards each row barrier adds
 // a grid sync and a flag step. The padded buffer is the "image" of both
@@ -107,9 +110,27 @@
 // x halo rows x w, at 450 GB/s each way on an H100 SXM), plus a row barrier's
 // round trip; the copy-in and copy-out of a card's owned rows cross NVLink
 // from and to the row's first card (roofline.kernel_work(..., cards=N)).
+//
+// Processes. A row whose shards belong to several processes, one process a
+// card (or several processes on one card), runs the same kernel: each
+// process makes one cooperative launch, on its own card, through the same
+// entry point with a mask that names its card alone. The shard buffers,
+// each card's T and the flags lie in one arena a card, allocated here
+// (tf_ipc_alloc) and opened in the other processes from CUDA IPC handles
+// (tf_ipc_get_handle / tf_ipc_open_handle, parallel/ipc.py), so the halo
+// stores and the flags work as between the cards of one process. Two things
+// differ: each card copies its owned rows in from its own copy of the
+// level's fields (every process computes them, bitwise the same), and its
+// copy-out stores its owned rows of T into every card's T, after which one
+// more row barrier, over all the row's cards, ends the launch: every card
+// then holds the whole T. On one card two processes' launches take turns
+// by time slices (there is no MPS), so each row barrier between them waits
+// for the other context's slice.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "level_body.cuh"
 
@@ -153,6 +174,14 @@ struct RowLinks {
   const unsigned long long* in[MAX_CARDS];  // each neighbour's flag in this card's memory
   int n;                                    // neighbour cards: 0 on a row on one card
   unsigned long long epoch;                 // what the flags hold before this launch
+};
+
+// Where the copy-out stores T: the row's first card's T alone (one process),
+// or every card's (processes; then the launch ends with a row barrier over
+// all the row's cards, whose flags are the same ones).
+struct Targets {
+  float* T[MAX_CARDS];
+  int n;
 };
 
 // The shared memory of one block: two prologue tiles (one staged while the
@@ -246,9 +275,10 @@ __device__ void ksweep_pass(float* ts, const float* T, const float* uv, const fl
 
 template <bool TENSOR>
 __global__ void __launch_bounds__(THREADS, 1)
-    relax_sharded_kernel(ShardSet set, RowLinks links, const float* __restrict__ uv_in,
+    relax_sharded_kernel(ShardSet set, RowLinks links, RowLinks everyone, Targets out,
+                         const float* __restrict__ uv_in,
                          const float* __restrict__ fxyz_in, const float* __restrict__ J_in,
-                         float* __restrict__ T_out, unsigned int* __restrict__ syncs,
+                         unsigned int* __restrict__ syncs,
                          unsigned int* __restrict__ barriers, int h, int w, int halo,
                          int outer, int inner, int k, float div2hx,
                          float div2hy, float alpha_hx2, float alpha_hy2, float e_s2,
@@ -353,41 +383,55 @@ __global__ void __launch_bounds__(THREADS, 1)
     const size_t g = (size_t)me.row0 * w + i;
     const size_t l = (size_t)me.top * w + i;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) T_out[p * gn + g] = buf[(cur + p) * n + l];
+    for (int p = 0; p < 2; ++p) {
+      const float t = buf[(cur + p) * n + l];
+      for (int c = 0; c < out.n; ++c) out.T[c][p * gn + g] = t;
+    }
   }
+  // Processes: every card's T is whole once every card of the row is here.
+  if (out.n > 1) row_barrier(grid, everyone, ++epoch, syncs, barriers);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One cooperative launch on each of the row's n_cards cards. devices[c] is
-// card c's CUDA device and streams[c] the stream of its launch; card 0 holds
-// the level's fields and T_out. bufs: the n_y per-shard buffers, shard s on
-// card shard_card[s], each (18 planes, or 23 with J) x its padded rows x w,
-// uninitialised (every row is written before it is read: the owned rows at
-// copy-in, the halos of the constants and of T at i = 0, the hoists over all
-// padded rows by the prologue tiles, the second T by the first pass's
-// regions, whose tiles partition the padded rows); row_bounds: n_y + 1 global
-// row bounds of the owned ranges. flags (several cards only): each card's
-// MAX_CARDS flags, which hold `epoch`; the launch adds its row barriers to
-// them. J is null for grey; w >= 2, inner >= 1. syncs and barriers, when not
-// null, are n_cards counters on card 0 to which card c's launch adds its grid
-// syncs and its row barriers. `skip` leaves card `skip`'s launch out (-1:
-// none): its neighbours then trap at the spin limit, which is what a test of
-// the limit needs. A card's grid is the co-resident maximum (blocks per SM at
-// full occupancy x SMs, split evenly over its shards); every card's grid is
-// computed and checked before the first launch, and a refused launch returns
-// its error like any other. Peer access between the cards must be on.
+// One cooperative launch on each card of the row's n_cards cards that
+// `launch` names (bit c: card c). devices[c] is card c's CUDA device and
+// streams[c] the stream of its launch (read for launched cards only). bufs:
+// the n_y per-shard buffers, shard s on card shard_card[s], each (18 planes,
+// or 23 with J) x its padded rows x w, uninitialised (every row is written
+// before it is read: the owned rows at copy-in, the halos of the constants
+// and of T at i = 0, the hoists over all padded rows by the prologue tiles,
+// the second T by the first pass's regions, whose tiles partition the
+// padded rows); row_bounds: n_y + 1 global row bounds of the owned ranges.
+// uv, fxyz and J (null for grey): the level's fields, one pointer a card,
+// each card's copy-in reading its own. T_out: n_targets pointers, 1 (the
+// row's first card's T, which every shard's copy-out fills: one process,
+// every card launched by this call) or n_cards (each card's own T, which
+// every shard's copy-out fills, and a last row barrier over all the cards:
+// a row over processes, each call launching its own card). flags (several
+// cards only): each card's MAX_CARDS flags, which hold `epoch`; the launch
+// adds its row barriers to them. w >= 2, inner >= 1. syncs and barriers,
+// when not null, are n_cards counters to which card c's launch adds its
+// grid syncs and row barriers. Leaving a card out of `launch` in one process
+// makes its neighbours trap at the spin limit, which is what a test of the
+// limit needs. A card's grid is the co-resident maximum (blocks per SM at
+// full occupancy x SMs, split evenly over its shards); every launched
+// card's grid is computed and checked before the first launch, and a
+// refused launch returns its error like any other. Peer access between the
+// cards must be on (between processes, the IPC handles open it).
 int tf_relax_sharded(int n_cards, const int* devices, void* const* streams, void* const* bufs,
                      const int* shard_card, const int* row_bounds, int n_y, void* const* flags,
-                     unsigned long long epoch, const float* uv, const float* fxyz,
-                     const float* J, float* T_out, unsigned int* syncs, unsigned int* barriers,
-                     int h, int w, int halo, int outer, int inner, int k, float div2hx,
-                     float div2hy, float alpha_hx2, float alpha_hy2, float e_s2, float e_d2,
-                     int skip) {
+                     unsigned long long epoch, const float* const* uv,
+                     const float* const* fxyz, const float* const* J, float* const* T_out,
+                     int n_targets, unsigned int launch, unsigned int* syncs,
+                     unsigned int* barriers, int h, int w, int halo, int outer, int inner, int k,
+                     float div2hx, float div2hy, float alpha_hx2, float alpha_hy2, float e_s2,
+                     float e_d2) {
   if (n_cards < 1 || n_cards > MAX_CARDS || n_y < n_cards || n_y > MAX_SHARDS || k < 1 ||
-      halo < 0 || outer < 0 || inner < 1 || w < 2 || (n_cards > 1 && flags == nullptr))
+      halo < 0 || outer < 0 || inner < 1 || w < 2 || (n_cards > 1 && flags == nullptr) ||
+      (n_targets != 1 && n_targets != n_cards) || (n_targets > 1 && n_cards < 2))
     return (int)cudaErrorInvalidValue;
   ShardSet set{};
   set.n = n_y;
@@ -399,6 +443,9 @@ int tf_relax_sharded(int n_cards, const int* devices, void* const* streams, void
     set.s[s].top = s > 0 ? halo : 0;
     set.s[s].bot = s < n_y - 1 ? halo : 0;
   }
+  Targets out{};
+  out.n = n_targets;
+  for (int t = 0; t < n_targets; ++t) out.T[t] = T_out[t];
   const void* fn = J != nullptr ? (const void*)relax_sharded_kernel<true>
                                 : (const void*)relax_sharded_kernel<false>;
   const size_t smem = J != nullptr ? sizeof(SharedTiles<true>) : sizeof(SharedTiles<false>);
@@ -406,13 +453,15 @@ int tf_relax_sharded(int n_cards, const int* devices, void* const* streams, void
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return (int)err;
   ShardSet sets[MAX_CARDS];
-  RowLinks links[MAX_CARDS];
+  RowLinks links[MAX_CARDS], everyone[MAX_CARDS];
   for (int c = 0; c < n_cards && err == cudaSuccess; ++c) {
+    if (!(launch >> c & 1u)) continue;
     ShardSet& card = sets[c] = set;
     for (int s = 0; s < n_y; ++s)
       if (shard_card[s] == c) card.mine[card.n_mine++] = s;
     RowLinks& ln = links[c] = RowLinks{};
-    ln.epoch = epoch;
+    RowLinks& all = everyone[c] = RowLinks{};
+    ln.epoch = all.epoch = epoch;
     for (int j = 0; j < n_cards; ++j) {
       bool next_to = false;
       for (int s = 0; s < n_y; ++s)
@@ -422,6 +471,11 @@ int tf_relax_sharded(int n_cards, const int* devices, void* const* streams, void
         ln.out[ln.n] = (unsigned long long*)flags[j] + c;
         ln.in[ln.n] = (const unsigned long long*)flags[c] + j;
         ++ln.n;
+      }
+      if (n_targets > 1 && j != c) {
+        all.out[all.n] = (unsigned long long*)flags[j] + c;
+        all.in[all.n] = (const unsigned long long*)flags[c] + j;
+        ++all.n;
       }
     }
     // every card holds a shard, and on several cards each has a neighbour card
@@ -443,12 +497,15 @@ int tf_relax_sharded(int n_cards, const int* devices, void* const* streams, void
     }
   }
   for (int c = 0; c < n_cards && err == cudaSuccess; ++c) {
-    if (c == skip) continue;
+    if (!(launch >> c & 1u)) continue;
     unsigned int* card_syncs = syncs != nullptr ? syncs + c : nullptr;
     unsigned int* card_barriers = barriers != nullptr ? barriers + c : nullptr;
-    void* args[] = {&sets[c], &links[c], &uv, &fxyz, &J, &T_out, &card_syncs, &card_barriers,
-                    &h, &w, &halo, &outer, &inner, &k, &div2hx, &div2hy, &alpha_hx2,
-                    &alpha_hy2, &e_s2, &e_d2};
+    const float* card_uv = uv[c];
+    const float* card_fxyz = fxyz[c];
+    const float* card_J = J != nullptr ? J[c] : nullptr;
+    void* args[] = {&sets[c], &links[c], &everyone[c], &out, &card_uv, &card_fxyz, &card_J,
+                    &card_syncs, &card_barriers, &h, &w, &halo, &outer, &inner, &k, &div2hx,
+                    &div2hy, &alpha_hx2, &alpha_hy2, &e_s2, &e_d2};
     err = cudaSetDevice(devices[c]);
     if (err == cudaSuccess)
       err = cudaLaunchCooperativeKernel(fn, dim3(sets[c].blocks_per_shard * sets[c].n_mine),
@@ -475,6 +532,62 @@ int tf_enable_peer_access(int device, int peer) {
       err = cudaSuccess;
     }
   }
+  const cudaError_t restored = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restored);
+}
+
+// The arena of one card for a row over processes (parallel/ipc.py):
+// `bytes` of device memory on `device`, zeroed (the flags start at epoch 0),
+// and settled before this returns.
+int tf_ipc_alloc(int device, size_t bytes, void** ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaMalloc(ptr, bytes);
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, bytes);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  const cudaError_t restored = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restored);
+}
+
+int tf_ipc_free(int device, void* ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaFree(ptr);
+  const cudaError_t restored = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restored);
+}
+
+// The IPC handle (64 bytes into out64) of an allocation of tf_ipc_alloc: it
+// names the whole cudaMalloc allocation, so `ptr` must be its start.
+int tf_ipc_get_handle(void* ptr, unsigned char* out64) {
+  static_assert(sizeof(cudaIpcMemHandle_t) == 64, "a CUDA IPC handle is 64 bytes");
+  cudaIpcMemHandle_t handle;
+  const cudaError_t err = cudaIpcGetMemHandle(&handle, ptr);
+  if (err == cudaSuccess) memcpy(out64, &handle, sizeof(handle));
+  return (int)err;
+}
+
+// Map another process's allocation (its 64-byte handle) into this one, on
+// `device`, with peer access turned on where it lies on another card.
+int tf_ipc_open_handle(const unsigned char* in64, int device, void** ptr) {
+  cudaIpcMemHandle_t handle;
+  memcpy(&handle, in64, sizeof(handle));
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaIpcOpenMemHandle(ptr, handle, cudaIpcMemLazyEnablePeerAccess);
+  if (err != cudaSuccess) cudaGetLastError();
+  const cudaError_t restored = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restored);
+}
+
+int tf_ipc_close_handle(int device, void* ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaIpcCloseMemHandle(ptr);
   const cudaError_t restored = cudaSetDevice(prev);
   return (int)(err != cudaSuccess ? err : restored);
 }

@@ -54,9 +54,16 @@ SIGNATURES = {
 }
 # Entry points that take their streams in their arguments (``call``).
 STREAMLESS_SIGNATURES = {
-    "tf_relax_sharded": (_I, _P, _P, _P, _P, _P, _I, _P, ctypes.c_uint64, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I),
+    "tf_relax_sharded": (_I, _P, _P, _P, _P, _P, _I, _P, ctypes.c_uint64, _P, _P, _P, _P, _I,
+                         ctypes.c_uint, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                         _F),
     "tf_enable_peer_access": (_I, _I),
+    # CUDA IPC of a row's arenas (parallel/ipc.py); out-pointers by ctypes.byref
+    "tf_ipc_alloc": (_I, ctypes.c_size_t, _P),
+    "tf_ipc_free": (_I, _P),
+    "tf_ipc_get_handle": (_P, _P),
+    "tf_ipc_open_handle": (_P, _I, _P),
+    "tf_ipc_close_handle": (_I, _P),
 }
 
 

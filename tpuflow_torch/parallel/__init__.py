@@ -15,7 +15,10 @@ tpuflow/parallel).
     fine levels sharded over ``y``;
   * ``multihost``: ``initialize_distributed``, ``SequenceManifest`` and
     ``process_sequence``, the resumable streaming loop, split over
-    processes by pair index and over a mesh's data positions.
+    processes by pair index and over a mesh's data positions;
+  * ``group``: the gloo group of a mesh over processes (one position a
+    process) and a row's messages over it; ``ipc``: each card's arena of
+    a row over processes, opened in the others from CUDA IPC handles.
 
 ``tpuflow_torch.solver.sharded.compute_flow_sharded`` is the sharded
 pipeline; ``compute_flow(..., mesh=)`` routes by ``plan_parallel``.

@@ -24,6 +24,13 @@ no counterpart.
 on its own mesh position: the prologue and k-sweep kernels on the shard's
 device and stream, the halos moved by copies ordered by CUDA events (the
 port of the shard_map + ppermute route, halo.py:100-289).
+
+On a mesh row whose positions belong to several processes (one position a
+process), ``relax_sharded`` holds only this process's shard: it exchanges
+halo rows with the neighbour processes by messages over the gloo group
+(``group.exchange_with``) at the same points, and gathers T's owned rows
+from the row's processes at the end. Every process of the row has the
+level's whole fields (each computes them), and gets the whole T.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from tpuflow_torch.ops.level import (
     N_TENSOR, _check_planes, jacobi_sweep_plain, jacobi_sweeps, outer_prologue,
     outer_prologue_plain,
 )
+from tpuflow_torch.parallel.group import exchange_with, process_rank, row_all_gather
 from tpuflow_torch.parallel.mesh import Mesh
 
 F = np.float32
@@ -130,15 +138,20 @@ def check_sharded_args(fxyz, uv, cfg: FlowConfig, mesh: Mesh, k_outer: int, J) -
 
 
 def relax_sharded(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConfig, mesh: Mesh,
-                  k_outer: int = 1, J: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  k_outer: int = 1, J: Optional[torch.Tensor] = None,
+                  data: int = 0) -> torch.Tensor:
     """The iterate T (2, h, w) after outer x inner relaxation from T = uv,
-    rows sharded over ``mesh``, halos exchanged once every ``k_outer``
-    outers: the plain version of ``relax_sharded_kernel`` and the
-    counterpart of ``relax`` (solver/level.py), bitwise equal to it. ``sc``
-    is the level's ``LevelScalars``; ``J`` the gradient/log tensor (None
-    for grey). Runs on the tensors' device."""
+    rows sharded over data row ``data`` of ``mesh``, halos exchanged once
+    every ``k_outer`` outers: the plain version of ``relax_sharded_kernel``
+    and the counterpart of ``relax`` (solver/level.py), bitwise equal to
+    it. ``sc`` is the level's ``LevelScalars``; ``J`` the gradient/log
+    tensor (None for grey). Runs on the tensors' device; over a row of
+    several processes, this process's shard only (module docstring)."""
     halo = check_sharded_args(fxyz, uv, cfg, mesh, k_outer, J)
     shards = row_split(uv.shape[1], mesh.n_y, halo)
+    if mesh.row_spans_processes(data):
+        return _relax_process_row(fxyz, uv, sc, cfg, mesh.row_ranks(data), shards, halo,
+                                  k_outer, J)
     e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
     e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
     uv_b = _pad(uv, shards, halo)
@@ -149,12 +162,67 @@ def relax_sharded(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConfig, mes
         if i % k_outer == 0:
             _exchange(T_b, shards, halo)
         for s, sh in enumerate(shards):
-            hoist = outer_prologue_plain(T_b[s], uv_b[s], fxyz_b[s], sc.div2hx, sc.div2hy,
-                                         sc.alpha_hx2, sc.alpha_hy2, e_s2, e_d2, J=J_b[s],
-                                         row0=sh.first, height=uv.shape[1])
-            for _ in range(cfg.inner_iterations_count):
-                T_b[s] = jacobi_sweep_plain(T_b[s], uv_b[s], hoist)
+            T_b[s] = _outer(T_b[s], uv_b[s], fxyz_b[s], J_b[s], sc, cfg, e_s2, e_d2, sh,
+                            uv.shape[1])
     return torch.cat([T[:, sh.top:sh.top + sh.rows] for T, sh in zip(T_b, shards)], dim=1)
+
+
+def _outer(T, uv, fxyz, J, sc, cfg: FlowConfig, e_s2, e_d2, sh: ShardRows, h: int):
+    """One outer iteration of the plain version on a shard's padded block."""
+    hoist = outer_prologue_plain(T, uv, fxyz, sc.div2hx, sc.div2hy, sc.alpha_hx2, sc.alpha_hy2,
+                                 e_s2, e_d2, J=J, row0=sh.first, height=h)
+    for _ in range(cfg.inner_iterations_count):
+        T = jacobi_sweep_plain(T, uv, hoist)
+    return T
+
+
+def _exchange_processes(block: torch.Tensor, s: int, shards: List[ShardRows], halo: int,
+                        ranks) -> None:
+    """``_exchange`` for shard s of a row of processes, in place: its edge
+    owned rows go to the neighbour processes, their edge rows come into its
+    halo rows, as messages over the gloo group (through host memory)."""
+    sh, n = shards[s], len(shards)
+    end = sh.top + sh.rows
+    host = block.detach().cpu()
+    sends, recvs = [], []
+    if s > 0:
+        sends.append((ranks[s - 1], host[:, sh.top:sh.top + halo]))
+        recvs.append((ranks[s - 1], torch.empty_like(host[:, :halo])))
+    if s < n - 1:
+        sends.append((ranks[s + 1], host[:, end - halo:end]))
+        recvs.append((ranks[s + 1], torch.empty_like(host[:, end:])))
+    exchange_with(sends, recvs)
+    for (r, got) in recvs:
+        rows = slice(0, halo) if s > 0 and r == ranks[s - 1] else slice(end, sh.padded)
+        block[:, rows] = got.to(block.device)
+
+
+def _relax_process_row(fxyz, uv, sc, cfg: FlowConfig, ranks, shards: List[ShardRows],
+                       halo: int, k_outer: int, J) -> torch.Tensor:
+    """``relax_sharded`` on a row of processes: this process's shard only,
+    its blocks' halos from the neighbour processes, T's owned rows gathered
+    from every process of the row."""
+    if len(set(ranks)) != len(ranks):
+        raise ValueError(f"a row over processes holds one position a process, got ranks {ranks}")
+    s = ranks.index(process_rank()[0])
+    sh = shards[s]
+    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
+    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
+    fields = [uv, fxyz] + ([] if J is None else [J])
+    # the owned rows of every field in one block, the halos from the neighbours
+    consts = uv.new_zeros((sum(x.shape[0] for x in fields), sh.padded, uv.shape[2]))
+    consts[:, sh.top:sh.top + sh.rows] = torch.cat(fields)[:, sh.row0:sh.row0 + sh.rows]
+    _exchange_processes(consts, s, shards, halo, ranks)
+    uv_b, fxyz_b = consts[:2], consts[2:5]
+    J_b = consts[5:] if J is not None else None
+    T = uv_b.clone()
+    for i in range(cfg.outer_iterations_count):
+        if i % k_outer == 0:
+            _exchange_processes(T, s, shards, halo, ranks)
+        T = _outer(T, uv_b, fxyz_b, J_b, sc, cfg, e_s2, e_d2, sh, uv.shape[1])
+    owned = T[:, sh.top:sh.top + sh.rows].cpu()
+    rows = row_all_gather(owned, ranks, [(2, o.rows, uv.shape[2]) for o in shards])
+    return torch.cat(rows, dim=1).to(uv.device)
 
 
 # ---------------------------------------------------------------------------

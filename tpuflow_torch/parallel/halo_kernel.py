@@ -23,6 +23,27 @@ fields are there), and the caller's stream waits for every card before it
 reads T. Each card's flags (one a card of the row, in its own memory) are
 kept per row of cards, with the epoch they hold, across launches
 (``RowFlags``).
+
+On a row whose positions belong to several processes (one a card, or
+several on one card), each process launches its own card alone, on its
+``card_stream``, after an event of its caller's stream: the shard buffer,
+its card's T and the flags lie in its row arena (parallel/ipc.py), which
+the other processes have opened from its CUDA IPC handle. Each card's
+copy-in reads its own process's fields, its copy-out stores its owned rows
+into every card's T, and a last row barrier over all the row's cards ends
+the launch (``row_barriers(..., processes=True)``). Every process advances
+its arena's epoch by the same steps, since every process runs the same
+levels through the same gates; the lock below orders a process's own
+launches, and one position a process gives each process one launch a
+level. Two risks, checked on the card (chip_smoke.py):
+  * a process that never launches must still make its neighbours trap at
+    the kernel's spin limit (``_skip_card`` names the card of the row that
+    stays out, across processes too);
+  * T is read from the arena on the caller's stream after this card's
+    launch, and no peer stores into it again before this card's next
+    launch has started: the next level's halo and T stores come after row
+    barriers that need this card's next launch, which waits for the
+    caller's stream, behind that read.
 """
 
 from __future__ import annotations
@@ -64,24 +85,30 @@ def kernel_halo_applicable(h: int, n_y: int, cfg: FlowConfig, k_outer: int = 1) 
     return cfg.inner_iterations_count >= 1 and halo_applicable(h, n_y, cfg, k_outer)
 
 
-def row_barriers(cfg: FlowConfig, n_y: int, cards: int = 1, k_outer: int = 1) -> int:
+def row_barriers(cfg: FlowConfig, n_y: int, cards: int = 1, k_outer: int = 1,
+                 processes: bool = False) -> int:
     """The row barriers of one launch on each card (csrc/sharded.cu): two
     an exchange (before and after the push, every ``k_outer`` outers) where
-    the row spans several cards; none on one card."""
+    the row spans several cards; none on one card. Over processes (each
+    card its own process's launch) one more ends the launch."""
     if cards < 2 or n_y < 2:
         return 0
-    return 2 * -(-cfg.outer_iterations_count // k_outer)
+    return 2 * -(-cfg.outer_iterations_count // k_outer) + int(processes)
 
 
-def grid_syncs(cfg: FlowConfig, n_y: int, k_outer: int = 1, cards: int = 1) -> int:
+def grid_syncs(cfg: FlowConfig, n_y: int, k_outer: int = 1, cards: int = 1,
+               processes: bool = False) -> int:
     """The grid-wide syncs of one launch on each card (csrc/sharded.cu): per
     outer one at its top and one after the prologue tiles, one between two
     k-sweep passes, one after each halo push (every ``k_outer`` outers, with
     more than one shard), and one before the copy-out; over several cards a
-    row barrier is two syncs around its flag step, so each adds one."""
+    row barrier in a sync's place is two syncs around its flag step, so
+    each adds one, and over processes the last row barrier adds two."""
     outer, passes = cfg.outer_iterations_count, -(-cfg.inner_iterations_count // KMAX)
     pushes = -(-outer // k_outer) if n_y > 1 else 0
-    return outer * (1 + passes) + pushes + 1 + row_barriers(cfg, n_y, cards, k_outer)
+    last = int(processes and cards > 1 and n_y > 1)
+    return (outer * (1 + passes) + pushes + 1
+            + row_barriers(cfg, n_y, cards, k_outer, processes) + last)
 
 
 @dataclasses.dataclass
@@ -136,6 +163,7 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
                          mesh: Mesh, k_outer: int = 1, J: Optional[torch.Tensor] = None,
                          syncs: Optional[torch.Tensor] = None,
                          barriers: Optional[torch.Tensor] = None, data: int = 0,
+                         reserve: Optional[Tuple[int, int]] = None,
                          _skip_card: Optional[int] = None) -> torch.Tensor:
     """T (2, h, w) after outer x inner relaxation with rows sharded over data
     row ``data`` of ``mesh`` and halos exchanged once every ``k_outer``
@@ -148,7 +176,12 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
     initialised: the kernel writes every row before it reads it.
     ``_skip_card`` leaves that card's launch out, so that its neighbours
     trap at the kernel's spin limit (a test of the limit; the process's
-    CUDA context is then lost)."""
+    CUDA context is then lost).
+
+    Over a row of processes the fields and T lie on this process's card,
+    ``syncs`` and ``barriers`` (one element a process of the row) get this
+    card's counts, and ``reserve`` (h, w) sizes the row's arenas for the
+    finest level to come (the pair's), so that they grow once."""
     if cfg.inner_iterations_count < 1:
         raise ValueError("relax_sharded_kernel needs at least one inner sweep per outer")
     halo = check_sharded_args(fxyz, uv, cfg, mesh, k_outer, J)
@@ -156,7 +189,10 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
         if syncs is not None or barriers is not None:
             raise ValueError("syncs and barriers count the kernel's grid syncs and row "
                              "barriers; the plain version has none")
-        return relax_sharded(fxyz, uv, sc, cfg, mesh, k_outer, J)
+        return relax_sharded(fxyz, uv, sc, cfg, mesh, k_outer, J, data)
+    if mesh.row_spans_processes(data):
+        return _relax_process_row(fxyz, uv, sc, cfg, mesh, k_outer, J, syncs, barriers, data,
+                                  halo, reserve, _skip_card)
     groups = mesh.row_groups(data)
     cards = tuple(dev for dev, _ in groups)
     if uv.device != cards[0]:
@@ -191,24 +227,16 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
                 shard_card[y] = c
     T = torch.empty_like(uv)
     n, n_y = len(cards), mesh.n_y
-    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
-    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
     flags = row_flags(cards) if several else None
+    launch = (1 << n) - 1 if _skip_card is None else ((1 << n) - 1) & ~(1 << _skip_card)
     with _LAUNCH_LOCK:
         epoch = 0 if flags is None else flags.advance(row_barriers(cfg, n_y, n, k_outer))
-        call("tf_relax_sharded", n, (ctypes.c_int * n)(*(dev.index for dev in cards)),
-             (ctypes.c_void_p * n)(*(st.cuda_stream for st in streams)),
-             (ctypes.c_void_p * n_y)(*(b.data_ptr() for b in bufs)),
-             (ctypes.c_int * n_y)(*shard_card),
-             (ctypes.c_int * (n_y + 1))(*[sh.row0 for sh in shards], h), n_y,
-             None if flags is None else (ctypes.c_void_p * n)(*(f.data_ptr()
-                                                                for f in flags.flags)),
-             epoch, uv.data_ptr(), fxyz.data_ptr(), None if J is None else J.data_ptr(),
-             T.data_ptr(), None if syncs is None else syncs.data_ptr(),
-             None if barriers is None else barriers.data_ptr(), h, w, halo,
-             cfg.outer_iterations_count, cfg.inner_iterations_count, k_outer,
-             *map(float, (sc.div2hx, sc.div2hy, sc.alpha_hx2, sc.alpha_hy2, e_s2, e_d2)),
-             -1 if _skip_card is None else _skip_card)
+        _launch(n, [dev.index for dev in cards], [st.cuda_stream for st in streams],
+                [b.data_ptr() for b in bufs], shard_card, shards, h,
+                None if flags is None else [f.data_ptr() for f in flags.flags], epoch,
+                [uv.data_ptr()] * n, [fxyz.data_ptr()] * n,
+                None if J is None else [J.data_ptr()] * n, [T.data_ptr()], launch, syncs,
+                barriers, w, halo, cfg, k_outer, sc)
     if several:
         for stream in streams:
             done = torch.cuda.Event()
@@ -219,3 +247,79 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
 
 
 relax_sharded_kernel.launches = 0
+
+
+def _pointers(values) -> ctypes.Array:
+    return (ctypes.c_void_p * len(values))(*values)
+
+
+def _launch(n: int, devices: List[int], streams: List[int], bufs: List[int], shard_card,
+            shards, h: int, flags: Optional[List[int]], epoch: int, uv: List[int],
+            fxyz: List[int], J: Optional[List[int]], T: List[int], launch: int, syncs,
+            barriers, w: int, halo: int, cfg: FlowConfig, k_outer: int, sc) -> None:
+    """``tf_relax_sharded`` on the cards of ``launch`` (a bit a card)."""
+    n_y = len(shards)
+    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
+    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
+    call("tf_relax_sharded", n, (ctypes.c_int * n)(*devices), _pointers(streams),
+         _pointers(bufs), (ctypes.c_int * n_y)(*shard_card),
+         (ctypes.c_int * (n_y + 1))(*[sh.row0 for sh in shards], h), n_y,
+         None if flags is None else _pointers(flags), epoch, _pointers(uv), _pointers(fxyz),
+         None if J is None else _pointers(J), _pointers(T), len(T), launch,
+         None if syncs is None else syncs.data_ptr(),
+         None if barriers is None else barriers.data_ptr(), h, w, halo,
+         cfg.outer_iterations_count, cfg.inner_iterations_count, k_outer,
+         *map(float, (sc.div2hx, sc.div2hy, sc.alpha_hx2, sc.alpha_hy2, e_s2, e_d2)))
+
+
+def _relax_process_row(fxyz, uv, sc, cfg: FlowConfig, mesh: Mesh, k_outer: int, J,
+                       syncs, barriers, data: int, halo: int,
+                       reserve: Optional[Tuple[int, int]], skip: Optional[int]) -> torch.Tensor:
+    """``relax_sharded_kernel`` on a row of processes: this process's card
+    alone, its shard, T and flags in its row arena (module docstring)."""
+    from tpuflow_torch.parallel.ipc import arena_layout, row_arena
+
+    ranks = mesh.row_ranks(data)
+    positions = mesh.row(data)
+    me = ranks.index(torch.distributed.get_rank())
+    dev, n = mesh.devices[positions[me]], len(ranks)
+    if uv.device != dev:
+        raise ValueError(f"tensors on {uv.device} for this process's position of the row, "
+                         f"on {dev}")
+    _check_counter("syncs", syncs, n, dev)
+    _check_counter("barriers", barriers, n, dev)
+    _, h, w = uv.shape
+    if w < 2:
+        raise ValueError(f"the mirror boundary needs a level at least 2 wide, got {w}")
+    shards = row_split(h, n, halo)
+    planes = N_PLANES if J is None else N_PLANES_TENSOR
+    t_off, buf_off, need = arena_layout(h, w, planes, max(sh.padded for sh in shards))
+    if reserve is not None:
+        # the largest shard any admitted k gives the finest level: halo <= its rows
+        fh, fw = reserve
+        need = max(need, arena_layout(fh, fw, N_PLANES_TENSOR, -(-fh // n) + 2 * (fh // n))[2])
+    arena = row_arena(ranks, [mesh.uuids[p] for p in positions], dev)
+    arena.reserve(need)
+    caller = torch.cuda.current_stream(dev)
+    stream = card_stream(dev)
+    ready = torch.cuda.Event()
+    ready.record(caller)   # the level's fields are in
+    stream.wait_event(ready)
+    base = arena.ptrs
+    with _LAUNCH_LOCK:
+        epoch = arena.flags.advance(row_barriers(cfg, n, n, k_outer, processes=True))
+        launch = 0 if skip == me else 1 << me
+        devices, streams, fields = [dev.index] * n, [None] * n, [None] * n
+        streams[me] = stream.cuda_stream
+        _launch(n, devices, streams, [b + buf_off for b in base], range(n), shards, h, base,
+                epoch, [uv.data_ptr() if c == me else None for c in range(n)],
+                [fxyz.data_ptr() if c == me else None for c in range(n)],
+                None if J is None else [J.data_ptr() if c == me else None for c in range(n)],
+                [b + t_off for b in base], launch, syncs, barriers, w, halo, cfg, k_outer, sc)
+    done = torch.cuda.Event()
+    done.record(stream)
+    caller.wait_event(done)   # this card's T is whole, its fields read
+    T = torch.empty_like(uv)
+    T.copy_(arena.T(h, w))
+    relax_sharded_kernel.launches += int(launch != 0)
+    return T

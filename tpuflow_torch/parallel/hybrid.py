@@ -63,7 +63,13 @@ def compute_flow_hybrid(frames_0, frames_1, cfg: Optional[FlowConfig] = None, *,
                         device="cuda") -> FlowResult:
     """The flows of a (B, H, W) stack of pairs with the two-phase schedule
     above; ``FlowResult`` holds (B, H, W) u and v on the host. ``device``
-    must be the mesh's first device."""
+    must be the mesh's first device. A mesh over processes raises
+    NotImplementedError: moving a pair's working set between processes
+    needs NCCL send/recv, which is not built (ROADMAP Queue 1)."""
+    if mesh.spans_processes:
+        raise NotImplementedError("compute_flow_hybrid over processes needs NCCL send/recv "
+                                  "to move each pair to its row, which is not built (ROADMAP "
+                                  "Queue 1); compute_flow(..., mesh=) deals a stack over them")
     cfg = cfg or FlowConfig()
     f0, f1 = _frames(frames_0, frames_1, stacks=True)
     if f0.ndim != 3:

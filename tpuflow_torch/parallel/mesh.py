@@ -13,14 +13,26 @@ more things, kept per process: peer access between every two cards of a
 row (``enable_peer_access``), and one stream a card (``card_stream``) on
 which every such launch goes, so that the launches reach each card in the
 order the host issued them.
+
+Inside an initialised group of several processes (one process a card),
+``make_mesh`` lays the positions over every process's device in rank
+order, as ``jax.devices()`` orders the devices of all processes
+(tpuflow/parallel/mesh.py:24): position p belongs to rank p. Each position
+then carries its owning rank (``ranks``) and its card's UUID, so that two
+processes on one card count as one card; ``local_positions()`` are this
+process's. A device of another rank's position is that rank's own name for
+it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import socket
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import torch
+
+from tpuflow_torch.parallel.group import process_group, process_rank
 
 # The sharded kernel's by-value shard struct holds at most this many shards
 # (csrc/sharded.cu: MAX_SHARDS), the device count of the JAX tests' mesh.
@@ -54,7 +66,8 @@ class Mesh:
     position, row-major (data outer)."""
 
     def __init__(self, n_y: int, device: Optional[Device] = None, *, n_data: int = 1,
-                 devices: Optional[Sequence[Device]] = None):
+                 devices: Optional[Sequence[Device]] = None,
+                 ranks: Optional[Sequence[int]] = None, uuids: Optional[Sequence[str]] = None):
         if not 1 <= n_y <= MAX_SHARDS:
             raise ValueError(f"a mesh holds 1 to {MAX_SHARDS} row shards, got {n_y}")
         if n_data < 1:
@@ -67,9 +80,24 @@ class Mesh:
             raise ValueError(f"{len(devices)} devices for {n_data} x {n_y} positions")
         self.n_data, self.n_y = int(n_data), int(n_y)
         self.devices: Tuple[torch.device, ...] = tuple(_indexed(d) for d in devices)
+        size = len(self.devices)
+        # The owning rank of each position (this process's for a mesh of one
+        # process) and, over processes, each position's card by UUID.
+        self.ranks: Tuple[int, ...] = (tuple(int(r) for r in ranks) if ranks is not None
+                                       else (process_rank()[0],) * size)
+        self.uuids: Optional[Tuple[str, ...]] = None if uuids is None else tuple(uuids)
+        if len(self.ranks) != size or (self.uuids is not None and len(self.uuids) != size):
+            raise ValueError(f"{size} positions need {size} ranks and card UUIDs")
         self._streams: Dict[int, torch.cuda.Stream] = {}
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the positions belong to more than one process."""
+        return len(set(self.ranks)) > 1
+
     def _key(self):
+        if self.spans_processes:
+            return self.n_data, self.n_y, self.devices, self.ranks, self.uuids
         return self.n_data, self.n_y, self.devices
 
     def __eq__(self, other) -> bool:
@@ -79,7 +107,9 @@ class Mesh:
         return hash(self._key())
 
     def __repr__(self) -> str:
-        return f"Mesh(n_data={self.n_data}, n_y={self.n_y}, devices={list(map(str, self.devices))})"
+        ranks = f", ranks={list(self.ranks)}" if self.spans_processes else ""
+        return (f"Mesh(n_data={self.n_data}, n_y={self.n_y}, "
+                f"devices={list(map(str, self.devices))}{ranks})")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -89,10 +119,14 @@ class Mesh:
     def size(self) -> int:
         return self.n_data * self.n_y
 
+    def _card(self, p: int):
+        return self.devices[p] if self.uuids is None else self.uuids[p]
+
     @property
     def cards(self) -> int:
-        """How many distinct devices the positions span."""
-        return len(set(self.devices))
+        """How many distinct devices the positions span: over processes,
+        distinct cards by UUID (two processes on one card count once)."""
+        return len({self._card(p) for p in range(self.size)})
 
     @property
     def device(self) -> torch.device:
@@ -113,8 +147,30 @@ class Mesh:
         return tuple(self.position(data, y) for y in range(self.n_y))
 
     def row_cards(self, data: int = 0) -> int:
-        """How many distinct devices the shards of one data row span."""
-        return len({self.devices[p] for p in self.row(data)})
+        """How many distinct devices the shards of one data row span (by
+        UUID over processes)."""
+        return len({self._card(p) for p in self.row(data)})
+
+    def row_ranks(self, data: int = 0) -> Tuple[int, ...]:
+        """The owning rank of each position of one data row."""
+        return tuple(self.ranks[p] for p in self.row(data))
+
+    def row_spans_processes(self, data: int = 0) -> bool:
+        """Whether one data row's positions belong to several processes."""
+        return len(set(self.row_ranks(data))) > 1
+
+    def local_positions(self) -> Tuple[int, ...]:
+        """The positions this process owns."""
+        me = process_rank()[0]
+        return tuple(p for p in range(self.size) if self.ranks[p] == me)
+
+    def local_row(self) -> int:
+        """The data row of this process's positions on a mesh over processes
+        (a process holds one position); 0 on a mesh of one process."""
+        mine = self.local_positions()
+        if not mine:
+            raise ValueError(f"this process (rank {process_rank()[0]}) holds no position of {self!r}")
+        return mine[0] // self.n_y if self.spans_processes else 0
 
     def row_groups(self, data: int = 0) -> List[Tuple[torch.device, Tuple[int, ...]]]:
         """The ``y`` indices of one data row grouped by device: (device,
@@ -129,6 +185,8 @@ class Mesh:
         """Position ``p``'s CUDA stream, made on its device at first use;
         None for a CPU position."""
         dev = self.devices[p]
+        if self.ranks[p] != process_rank()[0]:
+            raise ValueError(f"position {p} belongs to rank {self.ranks[p]}, not this process")
         if dev.type != "cuda":
             return None
         if p not in self._streams:
@@ -140,6 +198,14 @@ class Mesh:
         for a CPU position)."""
         stream = self.stream(p)
         return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
+
+def device_uuid(device: torch.device) -> str:
+    """The physical card behind ``device``: its UUID on the card; on the CPU
+    the host's name, so that the CPU positions of one host are one card."""
+    if device.type == "cuda":
+        return str(torch.cuda.get_device_properties(device).uuid)
+    return f"{device.type}@{socket.gethostname()}"
 
 
 _CARD_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
@@ -179,14 +245,39 @@ def default_shape(n: int) -> Tuple[int, int]:
     return (2, n // 2) if n >= 8 and n % 2 == 0 else (1, n)
 
 
+def _process_mesh(shape: Optional[Shape], device: torch.device) -> Mesh:
+    """The mesh over every process of the group, each with ``device``, its
+    one card: position p is rank p's (made by every process at once)."""
+    world = process_rank()[1]
+    cards: List = [None] * world
+    torch.distributed.all_gather_object(cards, (str(device), device_uuid(device)),
+                                        group=process_group())
+    n_data, n_y = default_shape(world) if shape is None else (
+        (1, shape) if isinstance(shape, int) else shape)
+    if int(n_data) * int(n_y) != world:
+        raise ValueError(f"a {n_data} x {n_y} mesh over {world} processes: a mesh over "
+                         "processes has one position a process")
+    return Mesh(int(n_y), n_data=int(n_data), devices=[d for d, _ in cards],
+                ranks=range(world), uuids=[u for _, u in cards])
+
+
 def make_mesh(shape: Optional[Shape] = None,
               device: Union[Device, Sequence[Device]] = "cuda") -> Mesh:
     """A mesh of ``shape`` positions: ``n_y`` (one data row) or ``(n_data,
     n_y)``. ``device`` is one device for every position, or one per
     position, row-major. Without ``shape`` the mesh lays the JAX default
     over the given devices, or over every visible card when ``device`` is
-    ``"cuda"``. ``"cuda"`` raises on a machine without CUDA."""
+    ``"cuda"``. ``"cuda"`` raises on a machine without CUDA.
+
+    Inside an initialised group of several processes, one ``device`` (by
+    default this process's card) makes the mesh over the processes: every
+    process calls it at once, each with its own device, and the positions,
+    one a process, go to the ranks in order (``shape`` defaults to the JAX
+    layout over the world size). A list of devices makes a mesh of this
+    process alone."""
     many = not isinstance(device, (str, torch.device))
+    if not many and process_rank()[1] > 1:
+        return _process_mesh(shape, resolve_device(device))
     if many:
         devices = [resolve_device(d) for d in device]
     elif shape is None and torch.device(device) == torch.device("cuda"):

@@ -22,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import socket
+import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
@@ -31,6 +33,7 @@ import torch
 
 from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.io import FrameLoader, write_flow_image_rgb, write_magnitude_f32, write_raw_f32
+from tpuflow_torch.parallel.group import process_group, process_rank  # noqa: F401
 from tpuflow_torch.parallel.mesh import resolve_device
 from tpuflow_torch.solver.flow2d import _device, _full_float32, _on, compute_flow_async
 
@@ -45,7 +48,11 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     torch's ``env://`` variables (MASTER_ADDR, MASTER_PORT, RANK,
     WORLD_SIZE). It runs over NCCL where CUDA is available, over gloo
     otherwise; on the card each process takes the card of its local rank
-    (LOCAL_RANK, else its rank modulo the cards)."""
+    (LOCAL_RANK, else its rank modulo the cards). A gloo group beside it
+    (``group.process_group``) carries every host object a mesh over the
+    processes exchanges; NCCL communicators are made lazily, at a first
+    NCCL collective, which that path never makes (two ranks on one card
+    then join without complaint)."""
     if num_processes is None and coordinator_address is None:
         env_procs = os.environ.get("TPUFLOW_NUM_PROCESSES")
         if env_procs is None or int(env_procs) <= 1:
@@ -64,6 +71,50 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
         torch.cuda.set_device(local)
     dist.init_process_group("nccl" if cuda else "gloo", **kw)
+    process_group()   # the gloo group for host objects, made by every process at once
+
+
+def run_processes(command: Sequence[str], world: int, timeout: float,
+                  cwd: Optional[str] = None) -> List[Tuple[Optional[int], str]]:
+    """Start ``world`` processes of ``command`` at once, each with three
+    more arguments, ``localhost:PORT RANK WORLD`` (a free port), for
+    ``initialize_distributed``; wait for all of them within ``timeout``
+    seconds and kill what is left. Returns (exit code, None where killed at
+    the timeout; standard output and error) by rank."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([*command, f"localhost:{port}", str(r), str(world)], cwd=cwd,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline, out = time.monotonic() + timeout, []
+    try:
+        for p in procs:
+            try:
+                text = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                out.append((p.returncode, text))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out.append((None, p.communicate()[0]))
+    finally:
+        for p in procs:
+            p.kill()
+    return out
+
+
+def process_results(command: Sequence[str], world: int, timeout: float,
+                    cwd: Optional[str] = None) -> List[dict]:
+    """``run_processes``, then each process's last ``PROCRESULT {json}``
+    line, by rank; raises, with the output's tail, where a process failed or
+    printed none."""
+    results = []
+    for rank, (rc, text) in enumerate(run_processes(command, world, timeout, cwd)):
+        lines = [ln[len("PROCRESULT "):] for ln in text.splitlines()
+                 if ln.startswith("PROCRESULT ")]
+        if rc != 0 or not lines:
+            raise RuntimeError(f"rank {rank} of {world} exited {rc}:\n{text[-4000:]}")
+        results.append(json.loads(lines[-1]))
+    return results
 
 
 @dataclasses.dataclass
@@ -81,15 +132,6 @@ class SequenceManifest:
     def record(self, pair_id: str, seconds: float) -> None:
         with open(self.path, "a") as f:
             f.write(json.dumps({"pair": pair_id, "seconds": seconds}) + "\n")
-
-
-def process_rank() -> Tuple[int, int]:
-    """(rank, world size) of the initialised ``torch.distributed`` group,
-    else (0, 1)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 def write_pair(output_dir: str, counter: str, u: np.ndarray, v: np.ndarray, width: int,

@@ -21,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,12 +49,15 @@ class FlowResult:
     """Final flow in original-pixel units, on the host (numpy): (H, W), or
     (B, H, W) for a stack. ``seconds`` covers upload, the solve and the
     download; ``levels`` holds the per-level records when a trace was asked
-    for."""
+    for. ``pairs`` names the stack indices of a stack's flows where they are
+    only some of them (this process's pairs on a mesh over processes, the
+    counterpart of a global array's addressable shards); None: all."""
 
     u: np.ndarray
     v: np.ndarray
     seconds: float
     levels: List[LevelTrace] = dataclasses.field(default_factory=list)
+    pairs: Optional[Tuple[int, ...]] = None
 
     @property
     def megapixels_per_second(self) -> float:
@@ -154,18 +157,20 @@ def compute_flow_async(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
         return _submit(f0, f1, cfg, device)
 
 
-def plan_parallel(shape, batched: bool, cfg: FlowConfig, mesh) -> str:
+def plan_parallel(shape, batched: bool, cfg: FlowConfig, mesh, data: int = 0) -> str:
     """How ``compute_flow(..., mesh=)`` spreads its work (the JAX front
     door's rule, tpuflow/solver/flow2d.py:63-96): a (B, H, W) stack
     ``"dp"``, its pairs dealt over the mesh's positions; one pair ``"sp"``
     where the cost router (``parallel.model.plan_level``) would shard its
-    finest level over the mesh's ``y`` positions, else ``"single"``."""
+    finest level over the ``y`` positions of data row ``data``, else
+    ``"single"``."""
     from tpuflow_torch.solver.sharded import level_route
 
     if batched:
         return "dp"
     h, w = shape
-    shardable = mesh.n_y > 1 and level_route(h, w, cfg, mesh, "auto")[0] != "replicated"
+    shardable = mesh.n_y > 1 and level_route(h, w, cfg, mesh, "auto",
+                                             data=data)[0] != "replicated"
     return "sp" if shardable else "single"
 
 
@@ -185,6 +190,39 @@ def _compute_flow_dp(f0: np.ndarray, f1: np.ndarray, cfg: FlowConfig, mesh) -> F
     return FlowResult(u=uv[0], v=uv[1], seconds=timer.seconds)
 
 
+# The copy stream of each card that downloads the flows of a mesh over
+# processes (``_compute_flow_processes``).
+_DOWNLOAD_STREAMS: dict = {}
+
+
+def _compute_flow_processes(f0: np.ndarray, f1: np.ndarray, cfg: FlowConfig,
+                            mesh) -> FlowResult:
+    """This process's share of a (B, H, W) stack on a mesh over processes:
+    pair i goes to data row i % n_data, and this process solves its row's
+    pairs in stack order, sharded over the row where the row spans several
+    processes (``halo="auto"``, every process of the row at once), on one
+    position otherwise. Downloads once, pinned, on a copy stream."""
+    from tpuflow_torch.parallel.multihost import _copy_stream, _download
+    from tpuflow_torch.solver.sharded import row_device, sharded_relax_for
+
+    data = mesh.local_row()
+    device = row_device(mesh, data)
+    mine = tuple(i for i in range(f0.shape[0]) if i % mesh.n_data == data)
+    relax_for = (sharded_relax_for(cfg, mesh, "auto", data=data, reserve=f0.shape[1:])
+                 if mesh.n_y > 1 else None)
+    with _full_float32(), _on(device), Timer() as timer:
+        if not mine:
+            uv = np.empty((2, 0, *f0.shape[1:]), dtype=np.float32)
+        else:
+            flows = torch.stack([_submit(f0[i], f1[i], cfg, device, relax_for=relax_for)
+                                 for i in mine], dim=1)
+            host, copied = _download(flows, _copy_stream(_DOWNLOAD_STREAMS, device))
+            if copied is not None:
+                copied.synchronize()
+            uv = host.numpy()
+    return FlowResult(u=uv[0], v=uv[1], seconds=timer.seconds, pairs=mine)
+
+
 def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
                  collect_trace: bool = False, device="cuda", mesh=None,
                  _relax_for=None) -> FlowResult:
@@ -199,6 +237,14 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
     cost router's routes (``compute_flow_sharded(..., halo="auto")``), or
     on one position. Every flow is bitwise that of a call without a mesh.
     ``device`` must be the mesh's first device.
+
+    On a mesh over processes (``make_mesh`` inside a group of several) every
+    process calls it at once with the same frames and its own card as
+    ``device``. A stack's pair i goes to data row i % n_data, and each
+    process returns the flows its row solved, in stack order, named by
+    ``FlowResult.pairs``. One pair is solved by every data row, sharded
+    over the row's processes where the router shards it, and every process
+    returns the whole flow.
 
     ``collect_trace`` fills ``FlowResult.levels`` with one ``LevelTrace``
     per level, timed by CUDA events on the card and by the host clock on
@@ -217,14 +263,17 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
     if mesh is not None:
         from tpuflow_torch.solver.sharded import row_device, sharded_relax_for
 
-        if resolve_device(device) != row_device(mesh):
+        data = mesh.local_row()
+        if resolve_device(device) != row_device(mesh, data):
             raise ValueError(f"device {str(device)!r} is not the mesh's device, "
-                             f"{row_device(mesh)}")
+                             f"{row_device(mesh, data)}")
         if f0.ndim == 3 and not collect_trace:
+            if mesh.spans_processes:
+                return _compute_flow_processes(f0, f1, cfg, mesh)
             return _compute_flow_dp(f0, f1, cfg, mesh)
-        if f0.ndim == 2 and plan_parallel(f0.shape, False, cfg, mesh) == "sp":
-            _relax_for = sharded_relax_for(cfg, mesh, "auto")
-        device = row_device(mesh)
+        if f0.ndim == 2 and plan_parallel(f0.shape, False, cfg, mesh, data) == "sp":
+            _relax_for = sharded_relax_for(cfg, mesh, "auto", data=data, reserve=f0.shape)
+        device = row_device(mesh, data)
     if f0.ndim == 3:
         if collect_trace:
             raise ValueError("collect_trace=True traces one pair; a (B, H, W) stack "

@@ -20,6 +20,18 @@ takes one of three relaxations:
 the caller's k; ``"auto"`` takes each level's route and k from the cost
 model (``parallel.model.plan_level``). Every route gives the flow of
 ``compute_flow``, bit for bit.
+
+On a mesh over processes (one position a process) a data row whose
+positions belong to several processes runs as follows. Every process of
+the row computes the level's whole-field stages (resample, warp,
+derivatives, tensor, add and median) on its own card: the same kernels on
+the same inputs, so the constants are bitwise the same on every card, and
+no card reads another's. Each level's relaxation is ``"replicated"`` or
+the kernel (one launch a process, ``relax_sharded_kernel``); the plan
+depends only on the shape, the config and the constants, so every process
+takes the same one. The explicit route over processes would move its halos
+by NCCL send/recv, which is not built (ROADMAP Queue 1): ``halo="explicit"``
+raises NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -45,19 +57,41 @@ HALO_MODES = ("kernel", "explicit", "auto")
 NOT_PORTED = {"gspmd": "compiler-partitioned stencils are on ROADMAP's 'Do not port' list"}
 
 
+EXPLICIT_OVER_PROCESSES = ("halo='explicit' over a row of processes needs NCCL send/recv "
+                           "between the processes, which is not built (ROADMAP Queue 1); "
+                           "take halo='kernel' or 'auto'")
+
+
 def row_device(mesh: Mesh, data: int = 0):
     """The device of a data row's first position: where the row's
-    whole-field work runs."""
+    whole-field work runs. On a mesh over processes, this process's
+    position's device, where this process runs it."""
+    if mesh.spans_processes:
+        mine = [p for p in mesh.row(data) if p in mesh.local_positions()]
+        if not mine:
+            raise ValueError(f"this process holds no position of data row {data} of {mesh!r}")
+        return mesh.devices[mine[0]]
     return mesh.devices[mesh.row(data)[0]]
 
 
 def level_route(h: int, w: int, cfg: FlowConfig, mesh: Mesh, halo: str, k_outer: int = 1,
                 data: int = 0) -> Tuple[str, int]:
     """(route, k) of an (h, w) level's relaxation over data row ``data``:
-    ``"kernel"``, ``"explicit"`` or ``"replicated"``."""
+    ``"kernel"``, ``"explicit"`` or ``"replicated"`` (over processes the
+    kernel or replication)."""
     n_y, cards = mesh.n_y, mesh.row_cards(data)
+    processes = mesh.row_spans_processes(data)
+    if processes and halo == "explicit":
+        raise NotImplementedError(EXPLICIT_OVER_PROCESSES)
     if halo == "auto":
-        path, k, _ = plan_level(h, w, cfg, n_y, link_params(cards), cards=cards)
+        if processes and cards < n_y:
+            # Processes that share a card take turns on it by time slices, so
+            # every row barrier between them waits for a slice: 6.43 s for a
+            # 1080p full_model() pair's 2,754 row barriers against 0.22 s for
+            # compute_flow, two processes on one H100 (PERF.md section 6).
+            return "replicated", 1
+        paths = ("kernel",) if processes else ("kernel", "explicit")
+        path, k, _ = plan_level(h, w, cfg, n_y, link_params(cards), paths=paths, cards=cards)
         return path, k
     admitted = (kernel_halo_applicable if halo == "kernel" else halo_applicable)
     return (halo if admitted(h, n_y, cfg, k_outer) else "replicated"), k_outer
@@ -72,9 +106,10 @@ def sharded_plan(w: int, h: int, cfg: FlowConfig, mesh: Mesh, halo: str = "auto"
 
 
 def sharded_relax_for(cfg: FlowConfig, mesh: Mesh, halo: str = "auto", k_outer: int = 1,
-                      data: int = 0):
+                      data: int = 0, reserve: Optional[Tuple[int, int]] = None):
     """``solve``'s ``relax_for``: each level's relaxation on its route over
-    data row ``data`` of ``mesh``."""
+    data row ``data`` of ``mesh``. ``reserve`` is the pair's (h, w), which
+    sizes a row of processes' arenas once."""
     if halo in NOT_PORTED:
         raise NotImplementedError(f"halo={halo!r} is not ported: {NOT_PORTED[halo]}")
     if halo not in HALO_MODES:
@@ -85,7 +120,10 @@ def sharded_relax_for(cfg: FlowConfig, mesh: Mesh, halo: str = "auto", k_outer: 
     def relax_for(h: int, w: int):
         route, k = level_route(h, w, cfg, mesh, halo, k_outer, data)
         if route == "kernel":
-            return functools.partial(relax_sharded_kernel, mesh=mesh, k_outer=k, data=data)
+            # a row over processes sizes its arenas for the pair's finest level
+            arenas = {"reserve": reserve} if mesh.row_spans_processes(data) else {}
+            return functools.partial(relax_sharded_kernel, mesh=mesh, k_outer=k, data=data,
+                                     **arenas)
         if route == "explicit":
             return functools.partial(relax_sharded_explicit, mesh=mesh, k_outer=k, data=data)
         return relax
@@ -104,15 +142,20 @@ def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, 
     raises without it); the JAX pipeline's ``"gspmd"`` raises
     NotImplementedError. ``device`` must be the row's first device, its index
     included; ``"cuda"`` raises without CUDA. A (B, H, W) stack goes through
-    ``compute_flow(..., mesh=)``."""
-    relax_for = sharded_relax_for(cfg or FlowConfig(), mesh, halo, k_outer)
+    ``compute_flow(..., mesh=)``. On a mesh over processes every process of
+    the row calls it at once, with its own card as ``device``, and each
+    gets the whole flow."""
+    data = mesh.local_row()
+    relax_for = sharded_relax_for(cfg or FlowConfig(), mesh, halo, k_outer, data,
+                                  reserve=np.shape(frame_0)[-2:])
     if np.ndim(frame_0) == 3:
         raise ValueError("compute_flow_sharded solves one pair; a (B, H, W) stack goes "
                          "through compute_flow(..., mesh=), which deals its pairs over the "
                          "mesh's positions")
-    if resolve_device(device) != row_device(mesh):
-        raise ValueError(f"device {str(device)!r} is not the mesh's device, {row_device(mesh)}")
-    return compute_flow(frame_0, frame_1, cfg, device=row_device(mesh), _relax_for=relax_for)
+    home = row_device(mesh, data)
+    if resolve_device(device) != home:
+        raise ValueError(f"device {str(device)!r} is not the mesh's device, {home}")
+    return compute_flow(frame_0, frame_1, cfg, device=home, _relax_for=relax_for)
 
 
 def reset_launch_counts() -> None:

@@ -22,6 +22,25 @@ row-sharded, one JSON line (the port of tools/report_scaling.py).
         kernel's exchange across two cards timed in the kernel: what one
         row barrier adds to a launch, and what a wider peer-store push adds.
 
+    python -m tpuflow_torch.tools.report_scaling --procs N [--size WxH]
+            [--preset P] [--profile]
+        The same over N processes, one a card (cuda:rank modulo the
+        cards), joined by ``initialize_distributed``: dp (a stack of N pairs
+        on an (N, 1) mesh over the processes, one pair each) and sp (one
+        pair on the row (1, N) over the processes, halo "kernel" and "auto")
+        by the k-slope, in turns with one position in one process and with
+        the one-process routes over the same cards (rank 0 drives them while
+        the others wait), every flow checked bitwise against compute_flow;
+        the level-0 launch of the sharded kernel (grey, k = 1) over the
+        processes against the one-process launch over the same cards, beside
+        its bound (roofline.kernel_work(..., cards=N)); with an even N the
+        row barrier between two processes, timed in the kernel as --link
+        times it between two cards; with --profile, card 0's busy share and
+        the host's launches a pair on the kernel route, in one process and
+        over the processes. The preset is a function of tpuflow_torch.models
+        (default reference_default). Prints rank 0's line with every rank's
+        bitwise checks.
+
     python -m tpuflow_torch.tools.report_scaling --project [W H]
         No card needed: the cost model's table for the default schedule at
         584x388 and 1920x1080 (or W x H), with the shards on one card and
@@ -277,6 +296,222 @@ def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4) -> dict:
     return report
 
 
+PROC_TIMEOUT_S = 1500
+PROC_ROUNDS = 2
+
+
+def measure_procs(n: int, size=SIZE, preset: str = "reference_default",
+                  profile: bool = False, reps: int = 3, k: int = 4) -> dict:
+    """The --procs report (module docstring): N worker processes of this
+    module; any worker's failure raises."""
+    from tpuflow_torch.parallel.multihost import process_results
+
+    _cuda_devices()
+    command = [sys.executable, "-m", "tpuflow_torch.tools.report_scaling", "--proc-worker",
+               f"{size[0]}x{size[1]}", preset, str(int(profile)), str(reps), str(k)]
+    reports = process_results(command, n, PROC_TIMEOUT_S)
+    out = reports[0]
+    out["bitwise_by_rank"] = [r["bitwise"] for r in reports]
+    out["bitwise"] = all(all(r["bitwise"].values()) for r in reports)
+    out["dp_ms_by_rank"] = [r["ms"]["dp"] for r in reports]
+    return out
+
+
+def _profiled(fn, device) -> dict:
+    """One call of ``fn`` under torch.profiler: the wall, this card's busy
+    ms (every kernel, copy and set on it) and idle share, and the kernels
+    this process launched on every card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from tpuflow_torch.profile_pair import PROFILER_OVERHEAD, _device_us
+
+    by_name, launches = {}, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA or evt.name in PROFILER_OVERHEAD:
+            continue
+        if evt.device_index == device.index:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + _device_us(evt, True) / 1e3
+        launches += "memcpy" not in evt.name.lower() and "memset" not in evt.name.lower()
+    busy = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return {"wall_ms": wall * 1e3, "card_busy_ms": busy, "card_busy_share": busy / (wall * 1e3),
+            "card_idle_share": 1.0 - busy / (wall * 1e3), "kernels_launched": launches,
+            "card_ms_by_kernel_top8": top}
+
+
+def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: int,
+                 k: int) -> dict:
+    """One worker's measurements (measure_procs); rank 0 drives the
+    one-process routes while the others wait at a barrier."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpuflow_torch import compute_flow, compute_flow_sharded, make_mesh, models
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.parallel import relax_sharded_kernel
+    from tpuflow_torch.parallel.group import row_barrier
+    from tpuflow_torch.parallel.mesh import Mesh
+    from tpuflow_torch.solver.level import LevelScalars
+    from tpuflow_torch.synthetic import textured_pair
+    from tpuflow_torch.tools.roofline import cuda_ms, device_info, kernel_work
+
+    everyone = list(range(world))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cards = [torch.device("cuda", r % torch.cuda.device_count()) for r in everyone]
+    w, h = size
+    mpix = w * h / 1e6
+    cfg = getattr(models, preset)()
+    f0, f1 = textured_pair(w, h)
+    F0, F1 = np.stack([f0] * world), np.stack([f1] * world)
+    base = compute_flow(f0, f1, cfg, device=dev)
+    dp, row = make_mesh((world, 1)), make_mesh((1, world))
+    runs = {  # name: (every process at once, fn)
+        "one": (False, lambda: compute_flow(f0, f1, cfg, device=dev)),
+        "dp": (True, lambda: compute_flow(F0, F1, cfg, mesh=dp, device=dev)),
+        "sp_kernel": (True, lambda: compute_flow_sharded(f0, f1, cfg, mesh=row, halo="kernel",
+                                                         device=dev)),
+        "sp_auto": (True, lambda: compute_flow_sharded(f0, f1, cfg, mesh=row, halo="auto",
+                                                       device=dev))}
+    one_dp = one_row = None   # rank 0's one-process meshes over the same cards
+    if rank == 0:
+        one_dp, one_row = Mesh(1, n_data=world, devices=cards), Mesh(world, devices=cards)
+        runs["dp_one_process"] = (False, lambda: compute_flow(F0, F1, cfg, mesh=one_dp,
+                                                              device=dev))
+        for halo in ("kernel", "auto"):
+            runs[f"sp_{halo}_one_process"] = (False, lambda hl=halo: compute_flow_sharded(
+                f0, f1, cfg, mesh=one_row, halo=hl, device=dev))
+    names = ["one", "dp", "dp_one_process", "sp_kernel", "sp_kernel_one_process", "sp_auto",
+             "sp_auto_one_process"]
+    bitwise, ms = {}, {name: [] for name in names}
+
+    def each(together: bool, fn):
+        """Every process waits for the others; then all of them run ``fn``,
+        or rank 0 alone."""
+        row_barrier(everyone)
+        return fn() if together or rank == 0 else None
+
+    profiled = {}
+
+    def profile_route(name):
+        together, call = runs.get(name, (False, None))
+        got = each(together, lambda: _profiled(call, dev))
+        if got is not None and rank == 0:
+            profiled[name] = got
+
+    # The routes over the processes first: until rank 0 drives the one-process
+    # routes it holds a context on its own card alone, and a profiler in a
+    # process with contexts on the other cards serialises the kernels there.
+    for name in ("one", "dp", "sp_kernel", "sp_auto", "dp_one_process",
+                 "sp_kernel_one_process", "sp_auto_one_process"):
+        together, call = runs.get(name, (False, None))
+        res = each(together, call)
+        if res is not None:
+            us, vs = (res.u, res.v) if res.u.ndim == 3 else (res.u[None], res.v[None])
+            bitwise[name] = all(u.tobytes() == base.u.tobytes() and v.tobytes() ==
+                                base.v.tobytes() for u, v in zip(us, vs))
+        if profile and name == "sp_auto":
+            profile_route("sp_kernel")
+    for r in range(PROC_ROUNDS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            together, call = runs.get(name, (False, None))
+            t = each(together, lambda: time_best(call, reps, k))
+            if t is not None:
+                ms[name].append(t * 1e3)
+    ms = {name: sorted(v)[len(v) // 2] for name, v in ms.items() if v}
+    pairs = {"dp": world, "dp_one_process": world}
+    report = {"card": device_info()["nvidia_smi"], "size": [w, h], "preset": preset,
+              "processes": world, "distinct_cards": len(set(cards)), "devices": list(map(str, cards)),
+              "timing": f"the k-slope (time_best, reps {reps}, k {k}), the median of "
+                        f"{PROC_ROUNDS} rounds in turns", "ms": ms, "bitwise": bitwise}
+    if "one" in ms:
+        for name, t in ms.items():
+            report[f"mpix_s_{name}"] = pairs.get(name, 1) * mpix / (t * 1e-3)
+            report[f"{name}_speedup"] = pairs.get(name, 1) * ms["one"] / t
+
+    # level 0's relaxation: one launch over the processes, and over the same
+    # cards from this one process, in turns (grey, k = 1)
+    grey = FlowConfig()
+    sc = LevelScalars.make(w, h, 1.0, 1.0, grey.equation_alpha)
+    gen = torch.Generator().manual_seed(1)
+    uv = torch.randn((2, h, w), generator=gen).mul_(2.0).to(dev)
+    fxyz = torch.randn((3, h, w), generator=gen).to(dev)
+    level = {"processes": [], "one_process": []}
+    for r in range(PROC_ROUNDS + 1):
+        for name in (("processes", "one_process") if r % 2 else ("one_process", "processes")):
+            mesh = row if name == "processes" else (one_row if rank == 0 else None)
+            t = each(name == "processes", lambda: cuda_ms(
+                lambda: relax_sharded_kernel(fxyz, uv, sc, grey, mesh), 3))
+            if t is not None and r > 0:   # round 0 warms up and sizes the arenas
+                level[name].append(t)
+    work = kernel_work("relax_sharded", h, w, n_y=world, cards=len(set(cards)))
+    report["level0"] = {"shape": [h, w], "n_y": world, "k": 1, "config": "FlowConfig()",
+                        "ms": sorted(level["processes"])[len(level["processes"]) // 2],
+                        "ms_all": level["processes"], **work}
+    report["level0"]["share"] = work["bound_ms"] / report["level0"]["ms"]
+    if level["one_process"]:
+        report["level0"]["one_process_ms"] = sorted(level["one_process"])[
+            len(level["one_process"]) // 2]
+        report["level0"]["one_process_ms_all"] = level["one_process"]
+
+    if world % 2 == 0:
+        # a row barrier between two processes: as _kernel_link between two
+        # cards, on the rows of a (world / 2, 2) mesh over the processes
+        pairs_mesh, lone = make_mesh((world // 2, 2)), Mesh(1, dev)
+        data = pairs_mesh.local_row()
+        lw = KERNEL_LINK_WIDTHS[0]
+        T = torch.rand((2, 64, lw), generator=gen).to(dev)
+        fx = torch.rand((3, 64, lw), generator=gen).to(dev)
+        T1, fx1 = T[:, :38].contiguous(), fx[:, :38].contiguous()
+        sc2 = LevelScalars.make(lw, 64, 1.0, 1.0, grey.equation_alpha)
+        sc1 = LevelScalars.make(lw, 38, 1.0, 1.0, grey.equation_alpha)
+        delta = {}
+        for outer in (40, 20, 40, 20):
+            c = dataclasses.replace(grey, outer_iterations_count=outer)
+            two_ms = each(True, lambda: cuda_ms(
+                lambda: relax_sharded_kernel(fx, T, sc2, c, pairs_mesh, data=data), 5))
+            alone = cuda_ms(lambda: relax_sharded_kernel(fx1, T1, sc1, c, lone), 5)
+            delta[outer] = two_ms - alone
+        report["process_row_barrier_s"] = (delta[40] - delta[20]) / 20 * 1e-3 / 2
+        report["process_row_barrier_how"] = (
+            "device s a row barrier between two processes adds: relax_sharded_kernel (grey, "
+            "inner 5) on a 64-row, 300-wide level over a row of two processes, less one "
+            "shard's launch of the same 38 padded rows on one card, at 40 and at 20 outers; "
+            "the slope per exchange over 2 (the last barrier of the process mode is in both)")
+
+    if profile:
+        profile_route("sp_kernel_one_process")
+        report["profile"] = profiled
+    return report
+
+
+def _proc_worker(argv) -> int:
+    """``--proc-worker WxH PRESET PROFILE REPS K HOST:PORT RANK WORLD``."""
+    import torch
+
+    from tpuflow_torch.parallel.group import process_group
+    from tpuflow_torch.parallel.multihost import initialize_distributed
+
+    size = tuple(int(x) for x in argv[0].split("x"))
+    preset, profile, reps, k = argv[1], bool(int(argv[2])), int(argv[3]), int(argv[4])
+    address, rank, world = argv[5], int(argv[6]), int(argv[7])
+    initialize_distributed(address, num_processes=world, process_id=rank)
+    report = _proc_report(rank, world, size, preset, profile, reps, k)
+    print("PROCRESULT " + json.dumps(report), flush=True)
+    torch.distributed.barrier(group=process_group())
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def project(w: int = None, h: int = None) -> list:
     """The cost model's rows (module docstring)."""
     from tpuflow_torch.config import FlowConfig
@@ -310,6 +545,8 @@ def project(w: int = None, h: int = None) -> list:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--proc-worker"]:
+        return _proc_worker(argv[1:])
     if "--project" in argv:
         pos = [int(a) for a in argv if not a.startswith("-")]
         print(json.dumps(project(*pos[:2]), indent=1))
@@ -320,6 +557,11 @@ def main(argv=None) -> int:
     size = SIZE
     if "--size" in argv:
         size = tuple(int(x) for x in argv[argv.index("--size") + 1].split("x"))
+    if "--procs" in argv:
+        preset = argv[argv.index("--preset") + 1] if "--preset" in argv else "reference_default"
+        print(json.dumps(measure_procs(int(argv[argv.index("--procs") + 1]), size, preset,
+                                       "--profile" in argv)))
+        return 0
     pos = [a for i, a in enumerate(argv) if not a.startswith("-")
            and (i == 0 or argv[i - 1] != "--size")]
     print(json.dumps(measure(int(pos[0]) if pos else POSITIONS, size)))
