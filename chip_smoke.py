@@ -140,7 +140,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               compute_flow, counts exact, and the level-0 launch's grid syncs
               and row barriers counted on the card against the formulas;
               (c) the race case (the last process held back about 0.1 s);
-              the spin limit with one process never launching
+              (d) the same pair on the row with halo="explicit" at k = 1 and
+              2 and "auto" (the explicit route in its choice) beside the
+              kernel: each process its own shard, halos and owned rows sent
+              by NCCL; bitwise compute_flow, launches, copies and messages
+              exact, timed in turns with compute_flow and the kernel route;
+              (e) compute_flow_hybrid on a (4, 388, 584) grey stack on
+              (PROC_N, 1) (no pair moves) and on (1, PROC_N) (each pair's
+              working set sent to the row by NCCL): each process's pairs
+              bitwise, ``pairs``, launches and messages exact, timed in
+              turns with the stack's compute_flow, dp and, with the row's
+              hybrid, the stack on the row. NCCL refuses two ranks on one
+              card, so where the processes share one, (d) and the row's
+              hybrid must raise before any message, naming NCCL, and the
+              phase prints that they need a card a process; the spin limit
+              with one process never launching
+
+``python3 chip_smoke.py --procs N [--link]`` runs, on a machine with N
+cards, phase 24 alone over N processes one a card, then (d) over two
+processes, (d) at 3840x2160 and (e) on a (4, 1080, 1920) full_model() stack
+over N, each as a JSON line; with ``--link``, first ``report_scaling
+--procs N --link``. It ends with the same two last lines.
 
 Each main-path run of phases 4-6, 11-15, 17, 19-21, 23 and 24 (in each worker), and the measurement
 path of phase 9, sets every launch count to 0 just before it and reads the
@@ -513,12 +533,14 @@ def phase_median(card: str, shapes=(SIZES[0], SIZES[1], SIZE_4K) + PROLOGUE_SHAP
     return out
 
 
-def expected_launches(w: int, h: int, cfg) -> dict:
+def expected_launches(w: int, h: int, cfg, n: int = None) -> dict:
+    """The level kernels' launches of a w x h pair, or of ``n`` of its levels."""
     from tpuflow_torch.config import DataConstancy
     from tpuflow_torch.ops.level import KMAX
     from tpuflow_torch.pyramid import level_schedule
 
-    n = len(level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor))
+    if n is None:
+        n = len(level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor))
     outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
     tensor = cfg.data_constancy != DataConstancy.GREY
     return {"warp": n, "level_derivs": n, "level_tensor": n if tensor else 0,
@@ -1823,35 +1845,49 @@ def phase_mesh_explicit(card: str) -> dict:
     return {"explicit_max_abs_err": max_err, "prologue_blocks": blocks}
 
 
-def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1) -> dict:
-    """Launch counts of compute_flow_sharded on ``halo``'s routes, and the
-    explicit route's copies."""
+def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, data: int = 0,
+                            levels: range = None) -> dict:
+    """Launch counts of compute_flow_sharded on ``halo``'s routes over data
+    row ``data`` (or of ``levels`` of its schedule), the explicit route's
+    copies and, over processes, this process's messages."""
     from tpuflow_torch.ops.level import KMAX
-    from tpuflow_torch.parallel.halo import explicit_copies
+    from tpuflow_torch.parallel.halo import explicit_copies, explicit_sends
     from tpuflow_torch.solver.sharded import sharded_plan
 
-    want = expected_launches(w, h, cfg)
+    plan = sharded_plan(w, h, cfg, mesh, halo, k, data)
+    if levels is not None:
+        plan = plan[levels.start:levels.stop]
+    want = expected_launches(w, h, cfg, len(plan))
     prologue = "outer_prologue" if want["outer_prologue"] else "outer_prologue_tensor"
     outer, passes = cfg.outer_iterations_count, -(-cfg.inner_iterations_count // KMAX)
-    want.update({prologue: 0, "jacobi_sweeps": 0, "relax_sharded": 0, "copies": 0})
-    for lh, _, route, kk in sharded_plan(w, h, cfg, mesh, halo, k):
+    want.update({prologue: 0, "jacobi_sweeps": 0, "relax_sharded": 0, "copies": 0,
+                 "messages": 0})
+    processes = mesh.row_spans_processes(data)
+    shard = mesh.row(data).index(mesh.local_positions()[0]) if processes else None
+    for lh, _, route, kk in plan:
         if route == "kernel":
             # one launch a card; over processes, this process's card's one
-            want["relax_sharded"] += 1 if mesh.row_spans_processes() else mesh.row_cards()
+            want["relax_sharded"] += 1 if processes else mesh.row_cards(data)
             continue
-        n = mesh.n_y if route == "explicit" else 1
+        # the explicit route: every shard here, or this process's one
+        n = mesh.n_y if route == "explicit" and not processes else 1
         want[prologue] += n * outer
         want["jacobi_sweeps"] += n * outer * passes
         if route == "explicit":
-            want["copies"] += explicit_copies(lh, cfg, mesh.n_y, kk, prologue != "outer_prologue")
+            want["copies"] += explicit_copies(lh, cfg, mesh.n_y, kk,
+                                              prologue != "outer_prologue", shard)
+            if processes:
+                want["messages"] += explicit_sends(cfg, mesh.n_y, kk, shard)
     return want
 
 
 def sharded_counts() -> dict:
+    from tpuflow_torch.parallel.group import row_exchange
     from tpuflow_torch.parallel.halo import relax_sharded_explicit
     from tpuflow_torch.solver import sharded
 
-    return {**sharded.launch_counts(), "copies": relax_sharded_explicit.copies}
+    return {**sharded.launch_counts(), "copies": relax_sharded_explicit.copies,
+            "messages": row_exchange.sends}
 
 
 def phase_mesh_e2e(card: str, counts_total: dict) -> dict:
@@ -2121,7 +2157,10 @@ def phase_report_scaling(card: str) -> dict:
 # initialize_distributed (NCCL where CUDA is available, with the gloo group
 # beside it that carries every host object). The workers are this script
 # run with --proc-worker; each prints one PROCRESULT line. On one card the
-# PROC_N processes share cuda:0; with several cards each takes its own.
+# PROC_N processes share cuda:0; with several cards each takes its own. The
+# explicit route and the hybrid send tensors between the processes by NCCL,
+# which refuses two ranks on one card (NCCL 2.28.9: "Duplicate GPU
+# detected"), so on one card they must raise.
 PROC_N = 2
 PROC_TIMEOUT_S = 600
 PROC_ROUNDS = 3
@@ -2249,6 +2288,174 @@ def proc_row(rank: int, world: int, card: str) -> dict:
     return out
 
 
+def proc_device():
+    """This worker's card, which initialize_distributed set."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def in_turns(runs: dict, out: dict) -> None:
+    """Each of ``runs`` timed PROC_ROUNDS times in turns (forward, then
+    backward), every process at once: its median and all its times."""
+    from tpuflow_torch.tools.roofline import cuda_ms
+
+    ms = {name: [] for name in runs}
+    for r in range(PROC_ROUNDS):
+        for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            ms[name].append(cuda_ms(runs[name], 1, warmup=False))
+    for name, v in ms.items():
+        out[f"{name}_ms_median"], out[f"{name}_ms_all"] = statistics.median(v), v
+
+
+def shared_card_raise(fn, out: dict, key: str) -> bool:
+    """Where the processes share a card, ``fn`` must raise before any
+    message, naming NCCL and the shared card: records it under ``key``."""
+    try:
+        fn()
+    except RuntimeError as err:
+        out[f"{key}_raised"] = str(err)
+        out[f"{key}_ran"] = False
+        out[f"{key}_reason"] = NEEDS_A_CARD_EACH
+        return "NCCL" in str(err) and "share card" in str(err)
+    out[f"{key}_raised"] = None
+    return False
+
+
+NEEDS_A_CARD_EACH = ("not run: NCCL refuses two ranks on one card, so it needs a card a "
+                     "process (a machine with several cards)")
+EXPLICIT_ROUTES = {"kernel": ("kernel", 1), "explicit_k1": ("explicit", 1),
+                   "explicit_k2": ("explicit", 2), "auto": ("auto", 1)}
+
+
+def proc_explicit(rank: int, world: int, card: str, size=SIZES[1]) -> dict:
+    """(d): a full_model() pair (1920x1080 unless ``size``) on the row (1,
+    world) over the processes with halo="explicit" at k = 1 and 2 and
+    "auto" (the explicit route in its choice), and halo="kernel": bitwise
+    this process's compute_flow, launches, copies and messages exact; timed
+    in turns with compute_flow. Where the processes share a card the
+    explicit route must raise, naming NCCL, before any message."""
+    from tpuflow_torch import compute_flow, compute_flow_sharded, make_mesh, models
+    from tpuflow_torch.solver import sharded
+    from tpuflow_torch.solver.sharded import sharded_plan
+    from tpuflow_torch.synthetic import textured_pair
+
+    dev = proc_device()
+    w, h = size
+    cfg = models.full_model()
+    f0, f1 = textured_pair(w, h)
+    row = make_mesh((1, world), dev)
+    out = {"case": "explicit", "rank": rank, "device": str(dev), "shape": [h, w],
+           "config": "models.full_model()", "cards": row.cards}
+    if not row.p2p_ok:
+        out["ok"] = shared_card_raise(lambda: compute_flow_sharded(
+            f0, f1, cfg, mesh=row, halo="explicit", device=dev), out, "explicit")
+        return out
+    out["auto_plan"] = [f"{lh}x{lw}:{r}" + (f"@k={k}" if r != "replicated" else "")
+                        for lh, lw, r, k in sharded_plan(w, h, cfg, row, "auto")]
+    base = compute_flow(f0, f1, cfg, device=dev)
+    runs = {"compute_flow": lambda: compute_flow(f0, f1, cfg, device=dev)}
+    ok = True
+    for name, (halo, k) in EXPLICIT_ROUTES.items():
+        runs[name] = lambda hl=halo, kk=k: compute_flow_sharded(f0, f1, cfg, mesh=row, halo=hl,
+                                                                k_outer=kk, device=dev)
+        sharded.reset_launch_counts()
+        res = runs[name]()
+        counts = sharded_counts()
+        want = expected_sharded_counts(w, h, cfg, row, halo, k)
+        want = {key: want.get(key, 0) for key in counts}
+        same = res.u.tobytes() == base.u.tobytes() and res.v.tobytes() == base.v.tobytes()
+        out[f"{name}_bitwise"], out[f"{name}_counts"] = same, counts
+        out[f"{name}_counts_ok"] = counts == want
+        if counts != want:
+            out[f"{name}_expected"] = want
+        ok &= same and counts == want
+    in_turns(runs, out)
+    out["explicit_ran"], out["ok"] = True, bool(ok)
+    return out
+
+
+def expected_hybrid_counts(w: int, h: int, cfg, mesh, b: int) -> dict:
+    """compute_flow_hybrid's counts in this process on a mesh over
+    processes: the coarse levels of the pairs it owns, its row's pairs'
+    fine levels on the router's routes, and its messages (each pair it owns
+    sent to the other processes of its row, the explicit route's sends)."""
+    from tpuflow_torch.parallel.hybrid import hybrid_moves, hybrid_split_level
+    from tpuflow_torch.pyramid import level_schedule
+
+    n = len(level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor))
+    g0 = hybrid_split_level(w, h, cfg, mesh)
+    me, data = mesh.local_positions()[0], mesh.local_row()
+    coarse = scaled(expected_sharded_counts(w, h, cfg, mesh, "auto", data=data,
+                                            levels=range(0, g0)), len(range(me, b, mesh.size)))
+    fine = scaled(expected_sharded_counts(w, h, cfg, mesh, "auto", data=data,
+                                          levels=range(g0, n)),
+                  sum(i % mesh.n_data == data for i in range(b)))
+    want = {key: coarse[key] + fine[key] for key in coarse}
+    want["messages"] += sum(len(to) * (1 + (g0 > 0)) for _, owner, to in hybrid_moves(b, mesh)
+                            if owner == me)
+    return want
+
+
+def proc_hybrid(rank: int, world: int, card: str, size=SIZES[0],
+                preset: str = "reference_default") -> dict:
+    """(e): compute_flow_hybrid on a (4, H, W) stack (584x388 grey unless
+    ``size`` and ``preset``) on (world, 1), where no pair moves, and on (1,
+    world), where each pair's owner sends its working set to the row by
+    NCCL: this process's pairs bitwise its own compute_flow of each,
+    ``pairs`` exact, launches and messages exact; timed in turns with the
+    stack's compute_flow, dp over the processes and, with the row's
+    hybrid, the stack on the row (each pair sharded by the router). Where
+    the processes share a card the row's hybrid must raise, naming NCCL,
+    before any message."""
+    from tpuflow_torch import compute_flow, compute_flow_hybrid, make_mesh, models
+    from tpuflow_torch.parallel.hybrid import hybrid_moves, hybrid_split_level
+    from tpuflow_torch.solver import sharded
+    from tpuflow_torch.synthetic import textured_frames
+
+    dev = proc_device()
+    w, h = size
+    cfg = getattr(models, preset)()
+    frames = np.stack(textured_frames(w, h, [(i * 1.25, i * -0.75) for i in range(DP_FRAMES)]))
+    F0, F1 = frames[:-1], frames[1:]
+    b = len(F0)
+    meshes = {"dp": make_mesh((world, 1), dev), "row": make_mesh((1, world), dev)}
+    singles = [compute_flow(F0[i], F1[i], cfg, device=dev) for i in range(b)]
+    out = {"case": "hybrid", "rank": rank, "device": str(dev), "shape": [b, h, w],
+           "config": f"models.{preset}()", "cards": meshes["row"].cards}
+    runs = {"stack": lambda: compute_flow(F0, F1, cfg, device=dev),
+            "dp": lambda: compute_flow(F0, F1, cfg, mesh=meshes["dp"], device=dev)}
+    ok = True
+    for name, mesh in meshes.items():
+        key = f"hybrid_{name}"
+        run = (lambda m=mesh: compute_flow_hybrid(F0, F1, cfg, mesh=m, device=dev))
+        out[f"{key}_split_level"] = hybrid_split_level(w, h, cfg, mesh)
+        if hybrid_moves(b, mesh) and not mesh.p2p_ok:
+            ok &= shared_card_raise(run, out, key)
+            continue
+        sharded.reset_launch_counts()
+        res = run()
+        counts = sharded_counts()
+        want = expected_hybrid_counts(w, h, cfg, mesh, b)
+        want = {k: want.get(k, 0) for k in counts}
+        mine = tuple(i for i in range(b) if i % mesh.n_data == mesh.local_row())
+        same = res.pairs == mine and all(
+            res.u[j].tobytes() == singles[i].u.tobytes()
+            and res.v[j].tobytes() == singles[i].v.tobytes() for j, i in enumerate(mine))
+        out.update({f"{key}_ran": True, f"{key}_pairs": list(res.pairs),
+                    f"{key}_bitwise": same, f"{key}_counts": counts,
+                    f"{key}_counts_ok": counts == want})
+        if counts != want:
+            out[f"{key}_expected"] = want
+        ok &= same and counts == want
+        if name == "row":
+            runs["row"] = lambda: compute_flow(F0, F1, cfg, mesh=meshes["row"], device=dev)
+        runs[key] = run
+    in_turns(runs, out)
+    out["ok"] = bool(ok)
+    return out
+
+
 def proc_spin(rank: int, world: int) -> None:
     """The spin limit across processes: the last process joins the row's
     arenas but never launches; the others must trap at the kernel's spin
@@ -2282,7 +2489,9 @@ def proc_spin(rank: int, world: int) -> None:
 
 
 def proc_worker(argv) -> int:
-    """One process of phase 24 (``--proc-worker CASE HOST:PORT RANK WORLD``)."""
+    """One process of phase 24 (``--proc-worker CASE HOST:PORT RANK WORLD``;
+    CASE is dp, row, spin, or explicit or hybrid with ``@WxH[@PRESET]`` for
+    another size)."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -2295,7 +2504,15 @@ def proc_worker(argv) -> int:
     if case == "spin":
         proc_spin(rank, world)
     card = device_info()["nvidia_smi"]
-    out = {"dp": proc_dp, "row": proc_row}[case](rank, world, card)
+    # CASE[@WxH[@PRESET]]: the explicit and hybrid cases at another size
+    name, *rest = case.split("@")
+    kw = {}
+    if rest:
+        kw["size"] = tuple(int(x) for x in rest[0].split("x"))
+    if rest[1:]:
+        kw["preset"] = rest[1]
+    out = {"dp": proc_dp, "row": proc_row, "explicit": proc_explicit,
+           "hybrid": proc_hybrid}[name](rank, world, card, **kw)
     out["backend"] = torch.distributed.get_backend()
     print("PROCRESULT " + json.dumps(out), flush=True)
     torch.distributed.barrier(group=process_group())
@@ -2306,8 +2523,11 @@ def proc_worker(argv) -> int:
 def phase_procmesh(card: str, world: int = PROC_N) -> dict:
     """Phase 24: ``world`` processes (one a card, or all on cuda:0 on one
     card): (a) dp, (b) a row over the processes with halo kernel and auto,
-    (c) the race case, and the spin-limit case; each bitwise with exact
-    counts. Returns the kernels line's keys for it."""
+    (c) the race case, (d) the explicit route on the row, (e) the hybrid on
+    (world, 1) and (1, world), and the spin-limit case; each bitwise with
+    exact counts, or, for (d) and the row's hybrid where the processes
+    share a card, the raise that says they need a card a process. Returns
+    the kernels line's keys for it."""
     import torch
 
     from tpuflow_torch.parallel.multihost import run_processes
@@ -2330,6 +2550,25 @@ def phase_procmesh(card: str, world: int = PROC_N) -> dict:
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"procmesh row: {row}")
+    explicit = proc_results(world, "explicit")
+    ran = all(r.get("explicit_ran") for r in explicit)
+    row = {"phase": "procmesh_explicit", "processes": world, "devices": layout, "card": card,
+           "ran": ran, "ranks": explicit}
+    if not ran:
+        row["reason"] = NEEDS_A_CARD_EACH
+    row["ok"] = all(r["ok"] for r in explicit)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"procmesh explicit: {row}")
+    hybrid = proc_results(world, "hybrid")
+    row = {"phase": "procmesh_hybrid", "processes": world, "devices": layout, "card": card,
+           "ranks": hybrid}
+    if not all(r.get("hybrid_row_ran") for r in hybrid):
+        row["hybrid_row"] = NEEDS_A_CARD_EACH
+    row["ok"] = all(r["ok"] and r["hybrid_dp_ran"] for r in hybrid)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"procmesh hybrid: {row}")
     limit = spin_limit_s()
     t1 = time.perf_counter()
     spun = run_processes(proc_command("spin"), world, limit + CROSS_TIMEOUT_MARGIN_S, cwd=REPO)
@@ -2344,11 +2583,21 @@ def phase_procmesh(card: str, world: int = PROC_N) -> dict:
         raise AssertionError(f"the spin limit across processes: {stuck}")
     err = max(max(r["level_max_abs_err"], r["race_max_abs_err"]) for r in rows)
     emit({"phase": "procmesh_done", "processes": world, "seconds": time.perf_counter() - t0})
-    return {"processes": world, "process_row_max_abs_err": err,
-            "process_row_devices": layout,
-            "process_row_kernel_ms": statistics.median(r["kernel_ms_median"] for r in rows),
-            "process_row_compute_flow_ms": statistics.median(r["compute_flow_ms_median"]
-                                                             for r in rows)}
+    out = {"processes": world, "process_row_max_abs_err": err,
+           "process_row_devices": layout,
+           "process_row_kernel_ms": statistics.median(r["kernel_ms_median"] for r in rows),
+           "process_row_compute_flow_ms": statistics.median(r["compute_flow_ms_median"]
+                                                            for r in rows),
+           "process_hybrid_dp_ms": statistics.median(r["hybrid_dp_ms_median"] for r in hybrid)}
+    if ran:
+        out.update(process_row_explicit_ms=statistics.median(
+                       r["explicit_k1_ms_median"] for r in explicit),
+                   process_row_explicit_k2_ms=statistics.median(
+                       r["explicit_k2_ms_median"] for r in explicit),
+                   process_row_explicit_counts=[r["explicit_k1_counts"] for r in explicit])
+    else:
+        out.update(process_row_explicit_ms=None, process_row_explicit=NEEDS_A_CARD_EACH)
+    return out
 
 
 def main() -> int:
@@ -2504,7 +2753,57 @@ def main() -> int:
     return 0
 
 
+PROCS_CASES = ((2, "explicit"), (None, "explicit@3840x2160"),
+               (None, "hybrid@1920x1080@full_model"))
+
+
+def procs_main(argv) -> int:
+    """``--procs N [--link]`` (module docstring): phase 24 and the larger
+    cases over N processes one a card."""
+    import torch
+
+    world = int(argv[0])
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        print(f"chip_smoke --procs {world}: needs {world} CUDA cards", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from tpuflow_torch.ops.cuda_lib import load_library
+    from tpuflow_torch.tools.roofline import device_info
+
+    t_start = time.perf_counter()
+    card = device_info()["nvidia_smi"]
+    emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
+    emit({"phase": "build", "seconds": load_library().build_seconds})
+    if "--link" in argv:
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", "tpuflow_torch.tools.report_scaling",
+                               "--procs", str(world), "--link"], cwd=REPO,
+                              capture_output=True, text=True, timeout=PROC_TIMEOUT_S)
+        if done.returncode:
+            raise RuntimeError(f"report_scaling --procs {world} --link: {done.stderr[-4000:]}")
+        emit({"phase": "procs_link", "seconds": time.perf_counter() - t0,
+              "report": json.loads(done.stdout.strip().splitlines()[-1])})
+    emit({"phase": "procmesh_kernels_keys", **phase_procmesh(card, world)})
+    for n, case in PROCS_CASES:
+        t0 = time.perf_counter()
+        ranks = proc_results(n or world, case)
+        row = {"phase": f"procs_{case}", "processes": n or world,
+               "seconds": time.perf_counter() - t0, "ranks": ranks,
+               "ok": all(r["ok"] for r in ranks)}
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"{case} over {n or world} processes: {row}")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--proc-worker"]:
         sys.exit(proc_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--procs"]:
+        sys.exit(procs_main(sys.argv[2:]))
     sys.exit(main())

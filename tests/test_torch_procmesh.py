@@ -7,12 +7,18 @@ card a process, and two processes a card), solves a stack on ``(world, 1)`` (dp:
 i % world) and one pair on the row ``(1, world)`` (the plain twin of the
 sharded kernel across processes, halos and T's rows exchanged by messages
 over the gloo group) at k = 1 and 2 and by the router, grey and gradient
-(``full_model()``'s constancy), and holds each against its own one-process
-``compute_flow`` and ``relax_sharded``, bitwise; it checks that every
-process takes the same router plan, and what raises over processes. The
-workers import no JAX: the parent holds their flows within the sharded
-pipeline's bound of the JAX package (tests/test_torch_sharded.py: mean EPE
-1e-5, max 1e-4) against ``compute_flow_bucketed_batch``.
+(``full_model()``'s constancy); the explicit route on the row at k = 1 and
+2 (halos and owned rows as point-to-point messages on the default group,
+here gloo), and by the router with the explicit route made the cheap one;
+the hybrid on ``(1, world)`` (each pair's working set sent to the row) and
+``(world, 1)``. It holds each against its own one-process ``compute_flow``
+and ``relax_sharded``, bitwise; it checks that every process takes the
+same router plan, and what raises over processes: with the backend faked
+as NCCL, the explicit route and a hybrid that moves pairs where two
+processes share a (faked) card. The workers import no JAX: the parent
+holds their flows within the sharded pipeline's bound of the JAX package
+(tests/test_torch_sharded.py: mean EPE 1e-5, max 1e-4) against
+``compute_flow_bucketed_batch``.
 """
 
 import ctypes
@@ -39,7 +45,7 @@ KW = dict(warp_levels_count=3, warp_scale_factor=0.7, outer_iterations_count=4,
           inner_iterations_count=3, median_radius=3, gaussian_sigma=0.8)
 B, H, W = 4, 64, 96
 CONSTANCIES = ("grey", "gradient")
-ROUTES = ("k1", "k2", "auto")
+ROUTES = ("k1", "k2", "auto", "explicit_k1", "explicit_k2", "auto_explicit")
 TIMEOUT_S = 120
 
 WORKER = r"""
@@ -53,9 +59,12 @@ from tpuflow_torch import (
     make_mesh,
 )
 from tpuflow_torch.ops.level import level_derivs, level_tensor
-from tpuflow_torch.parallel import Mesh, mesh as mesh_mod, relax_sharded, relax_sharded_kernel
+from tpuflow_torch.parallel import Mesh, group, mesh as mesh_mod, model
+from tpuflow_torch.parallel import relax_sharded, relax_sharded_explicit, relax_sharded_kernel
+from tpuflow_torch.parallel.halo import explicit_copies, explicit_sends
 from tpuflow_torch.parallel.multihost import initialize_distributed, process_sequence
 from tpuflow_torch.solver.level import LevelScalars, relax
+from tpuflow_torch.parallel.hybrid import hybrid_moves, hybrid_split_level
 from tpuflow_torch.solver.sharded import sharded_plan
 
 port, rank, world, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
@@ -85,13 +94,39 @@ shared = make_mesh(device="cpu")
 meta["equal"] &= row != shared and hash(row) != hash(shared)
 meta["row"], meta["dp"], meta["shared"] = layout(row), layout(dp), layout(shared)
 
-# dp: this process's pairs, and its one-process compute_flow of each
+# dp: this process's pairs, and its one-process compute_flow of every pair
 r = compute_flow(F0, F1, cfgs["grey"], mesh=dp, device="cpu")
 meta["dp_pairs"] = list(r.pairs)
 res["dp_u"], res["dp_v"] = r.u, r.v
-for i in r.pairs:
+for i in range(len(F0)):
     one = compute_flow(F0[i], F1[i], cfgs["grey"], device="cpu")
     res[f"dp_ref_u{i}"], res[f"dp_ref_v{i}"] = one.u, one.v
+
+
+
+# this process's sends in compute_flow_hybrid: its pairs' working sets to
+# their rows, and the explicit route's sends in its row's fine levels
+def hybrid_sends(mesh, cfg):
+    h, w = F0.shape[1:]
+    g0, me, data = hybrid_split_level(w, h, cfg, mesh), mesh.local_positions()[0], mesh.local_row()
+    sends = sum(len(to) * (1 + (g0 > 0)) for _, owner, to in hybrid_moves(len(F0), mesh)
+                if owner == me)
+    for lh, _, route, k in sharded_plan(w, h, cfg, mesh, "auto", data=data)[g0:]:
+        if route == "explicit":
+            shard = mesh.row(data).index(me)
+            sends += explicit_sends(cfg, mesh.n_y, k, shard) * sum(
+                i % mesh.n_data == data for i in range(len(F0)))
+    return sends
+
+
+# the hybrid: its row's pairs, each pair's working set moved to its row
+for mesh, key in ((row, "hybrid_row"), (dp, "hybrid_dp")):
+    group.row_exchange.sends = 0
+    r = compute_flow_hybrid(F0, F1, cfgs["grey"], mesh=mesh, device="cpu")
+    meta[f"{key}_pairs"], meta[f"{key}_sends"] = list(r.pairs), group.row_exchange.sends
+    meta[f"{key}_sends_expected"] = hybrid_sends(mesh, cfgs["grey"])
+    meta[f"{key}_split"] = hybrid_split_level(F0.shape[2], F0.shape[1], cfgs["grey"], mesh)
+    res[f"{key}_u"], res[f"{key}_v"] = r.u, r.v
 
 # the row: the pair sharded over the processes
 for name, cfg in cfgs.items():
@@ -104,6 +139,20 @@ for name, cfg in cfgs.items():
     got = compute_flow(F0[0], F1[0], cfg, mesh=row, device="cpu")
     res[f"row_{name}_auto_u"], res[f"row_{name}_auto_v"] = got.u, got.v
     meta[f"row_{name}_pairs"] = got.pairs
+    for k in (1, 2):
+        relax_sharded_explicit.copies = group.row_exchange.sends = 0
+        got = compute_flow_sharded(F0[0], F1[0], cfg, mesh=row, halo="explicit", k_outer=k,
+                                   device="cpu")
+        res[f"row_{name}_explicit_k{k}_u"], res[f"row_{name}_explicit_k{k}_v"] = got.u, got.v
+        levels = [(lh, kk) for lh, _, route, kk in sharded_plan(
+            F0.shape[2], F0.shape[1], cfg, row, "explicit", k) if route == "explicit"]
+        meta[f"row_{name}_explicit_k{k}_copies"] = [
+            relax_sharded_explicit.copies,
+            sum(explicit_copies(lh, cfg, world, kk, name != "grey", shard=rank)
+                for lh, kk in levels)]
+        meta[f"row_{name}_explicit_k{k}_sends"] = [
+            group.row_exchange.sends,
+            sum(explicit_sends(cfg, world, kk, rank) for _, kk in levels)]
     for mesh, key in ((row, "plan"), (shared, "plan_shared")):
         plan = sharded_plan(F0.shape[2], F0.shape[1], cfg, mesh, "auto")
         plans = [None] * world
@@ -130,6 +179,24 @@ for name, cfg in cfgs.items():
                                       twin.numpy().tobytes() == local.numpy().tobytes(),
                                       got.numpy().tobytes() == unsharded.numpy().tobytes()]
 
+# the router with the explicit route made the cheap one (free messages, a
+# slow kernel): its plan mixes explicit and, where a shard would be too
+# short, replicated levels, the same on every process
+saved = model.NCCL, model.KERNEL_PX_S
+model.NCCL = model.ICIParams(bandwidth_bytes_s=1e15, hop_latency_s=0.0, dispatch_s=0.0,
+                             launch_s=0.0)
+model.KERNEL_PX_S = 1.0
+for name, cfg in cfgs.items():
+    got = compute_flow(F0[0], F1[0], cfg, mesh=row, device="cpu")
+    res[f"row_{name}_auto_explicit_u"], res[f"row_{name}_auto_explicit_v"] = got.u, got.v
+    plan = sharded_plan(F0.shape[2], F0.shape[1], cfg, row, "auto")
+    plans = [None] * world
+    dist.all_gather_object(plans, plan)
+    meta[f"plan_explicit_{name}"] = plan
+    meta[f"same_plan_explicit_{name}"] = all(p == plan for p in plans)
+model.NCCL, model.KERNEL_PX_S = saved
+
+
 # what raises over processes
 def raised(fn):
     try:
@@ -139,10 +206,21 @@ def raised(fn):
     return "no raise"
 
 
-meta["explicit"] = raised(lambda: compute_flow_sharded(F0[0], F1[0], cfgs["grey"], mesh=row,
+# NCCL refuses two ranks on one card: with the backend faked as NCCL, the
+# routes that would send between them raise before any message
+group.p2p_backend = lambda: "nccl"
+shared_dp = Mesh(1, n_data=world, devices=shared.devices, ranks=shared.ranks, uuids=shared.uuids)
+meta["explicit"] = raised(lambda: compute_flow_sharded(F0[0], F1[0], cfgs["grey"], mesh=shared,
                                                        halo="explicit", device="cpu"))
-meta["hybrid"] = raised(lambda: compute_flow_hybrid(F0, F1, cfgs["grey"], mesh=row,
+meta["explicit_level"] = raised(lambda: relax_sharded_explicit(fxyz, uv, sc, cfgs["grey"],
+                                                               shared))
+meta["hybrid"] = raised(lambda: compute_flow_hybrid(F0, F1, cfgs["grey"], mesh=shared,
                                                     device="cpu"))
+r = compute_flow_hybrid(F0, F1, cfgs["grey"], mesh=shared_dp, device="cpu")
+meta["hybrid_shared_dp_pairs"] = list(r.pairs)
+res["hybrid_shared_dp_u"], res["hybrid_shared_dp_v"] = r.u, r.v
+meta["explicit_distinct"] = raised(lambda: relax_sharded_explicit(fxyz, uv, sc, cfgs["grey"], row))
+group.p2p_backend = lambda: "gloo"
 meta["sequence"] = raised(lambda: process_sequence([], w, h, os.path.join(out, "seq"),
                                                    cfgs["grey"], mesh=dp, device="cpu"))
 meta["jax_modules"] = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpuflow")]
@@ -275,7 +353,12 @@ def test_every_process_takes_the_same_plan(procs, constancy):
     assert all(meta[f"same_plan_{constancy}"] for _, meta in ranks)
     assert all(p == plans[0] for p in plans)
     routes = {route for _, _, route, _ in plans[0]}
-    assert "kernel" in routes and routes <= {"kernel", "replicated"}
+    assert "kernel" in routes and routes <= {"kernel", "explicit", "replicated"}
+    # with the explicit route made the cheap one, the router takes it
+    explicit = [meta[f"plan_explicit_{constancy}"] for _, meta in ranks]
+    assert all(meta[f"same_plan_explicit_{constancy}"] for _, meta in ranks)
+    assert all(p == explicit[0] for p in explicit)
+    assert "explicit" in {route for _, _, route, _ in explicit[0]}
     # where processes share a (faked) card, their row barriers would wait for
     # time slices: the router replicates every level
     shared = [meta[f"plan_shared_{constancy}"] for _, meta in ranks]
@@ -300,9 +383,55 @@ def test_process_modules_import_no_jax():
 def test_what_raises_over_processes(procs):
     _, ranks = procs
     for _, meta in ranks:
-        assert meta["explicit"].startswith("NotImplementedError") and "ROADMAP" in meta["explicit"]
-        assert meta["hybrid"].startswith("NotImplementedError") and "ROADMAP" in meta["hybrid"]
         assert meta["sequence"].startswith("ValueError")
+
+
+@pytest.mark.parametrize("case", ["explicit", "explicit_level", "hybrid"])
+def test_nccl_refuses_two_processes_on_one_card(procs, case):
+    """With the backend faked as NCCL, a route that sends between processes
+    sharing a (faked) card raises before any message, naming NCCL and the
+    card; on distinct cards the same route is accepted."""
+    _, ranks = procs
+    for _, meta in ranks:
+        assert meta[case].startswith("RuntimeError"), meta[case]
+        assert "NCCL" in meta[case] and "share card card0" in meta[case]
+        assert meta["explicit_distinct"] == "no raise"
+
+
+@pytest.mark.parametrize("mesh", ["hybrid_row", "hybrid_dp", "hybrid_shared_dp"])
+def test_hybrid_over_processes_is_bitwise_compute_flow(procs, mesh):
+    """Each process returns its row's pairs, each bitwise its own
+    compute_flow of the pair; on (world, 1) no pair moves, also where
+    processes share a card under NCCL."""
+    world, ranks = procs
+    for r, (res, meta) in enumerate(ranks):
+        row = 0 if mesh == "hybrid_row" else r
+        n_data = 1 if mesh == "hybrid_row" else world
+        assert meta[f"{mesh}_pairs"] == [i for i in range(B) if i % n_data == row]
+        assert res[f"{mesh}_u"].shape == (len(meta[f"{mesh}_pairs"]), H, W)
+        for j, i in enumerate(meta[f"{mesh}_pairs"]):
+            assert same(res[f"{mesh}_u"][j], res[f"dp_ref_u{i}"])
+            assert same(res[f"{mesh}_v"][j], res[f"dp_ref_v{i}"])
+        if mesh != "hybrid_shared_dp":
+            assert meta[f"{mesh}_sends"] == meta[f"{mesh}_sends_expected"]
+    if mesh == "hybrid_row":
+        # the pair's owner sends its working set to the other processes
+        assert sum(meta["hybrid_row_sends"] for _, meta in ranks) > 0
+    if mesh == "hybrid_dp":
+        assert all(meta["hybrid_dp_sends"] == 0 for _, meta in ranks)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("constancy", CONSTANCIES)
+def test_explicit_route_counts_its_copies_and_sends(procs, constancy, k):
+    _, ranks = procs
+    """Device copies (blocks in, owned rows out) in ``copies``, messages in
+    ``row_exchange.sends``: each counted once, each exact."""
+    for _, meta in ranks:
+        got, want = meta[f"row_{constancy}_explicit_k{k}_copies"]
+        assert got == want > 0
+        got, want = meta[f"row_{constancy}_explicit_k{k}_sends"]
+        assert got == want > 0
 
 
 def bound(u, v, want_u, want_v):
@@ -316,6 +445,16 @@ def test_dp_within_the_bound_of_the_jax_package(procs, jax_flows):
     for res, meta in ranks:
         for j, i in enumerate(meta["dp_pairs"]):
             mean, most = bound(res["dp_u"][j], res["dp_v"][j], want_u[i], want_v[i])
+            assert mean <= 1e-5 and most <= 1e-4, (i, mean, most)
+
+
+@pytest.mark.parametrize("mesh", ["hybrid_row", "hybrid_dp"])
+def test_hybrid_within_the_bound_of_the_jax_package(procs, jax_flows, mesh):
+    _, ranks = procs
+    want_u, want_v = jax_flows["grey"]
+    for res, meta in ranks:
+        for j, i in enumerate(meta[f"{mesh}_pairs"]):
+            mean, most = bound(res[f"{mesh}_u"][j], res[f"{mesh}_v"][j], want_u[i], want_v[i])
             assert mean <= 1e-5 and most <= 1e-4, (i, mean, most)
 
 
@@ -367,3 +506,26 @@ def test_arena_layout():
     assert buf_off % ipc.ALIGN == 0 and buf_off >= t_off + 2 * 1080 * 1920 * 4
     assert nbytes == buf_off + N_PLANES_TENSOR * 600 * 1920 * 4
     assert ctypes.sizeof(ctypes.c_ubyte * ipc.HANDLE_BYTES) == 64
+
+
+def test_point_to_point_messages_take_contiguous_tensors_only():
+    from tpuflow_torch.parallel.group import row_exchange
+
+    block = torch.zeros((2, 10, 4))
+    assert block[0, 2:4].is_contiguous() and not block[:, 2:4].is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        row_exchange([(1, block[:, 2:4])], [])
+
+
+@pytest.mark.parametrize("backend,cards,raises", [
+    ("nccl", ["a", "a", "b"], True), ("nccl", ["a", "b", "c"], False),
+    ("gloo", ["a", "a", "b"], False)])
+def test_the_shared_card_rule_is_nccls(monkeypatch, backend, cards, raises):
+    from tpuflow_torch.parallel import group
+
+    monkeypatch.setattr(group, "p2p_backend", lambda: backend)
+    if raises:
+        with pytest.raises(RuntimeError, match="NCCL.*ranks 0 and 1 share card a"):
+            group.check_p2p_cards([0, 1, 2], cards, "the explicit route")
+    else:
+        group.check_p2p_cards([0, 1, 2], cards, "the explicit route")

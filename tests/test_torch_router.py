@@ -10,7 +10,11 @@ model (tpuflow/parallel/model.py) and its sharded pipeline:
   * ``compute_flow_sharded`` with ``halo="explicit"`` and ``"auto"`` within
     mean EPE 1e-4 of ``compute_flow_bucketed_sharded`` with the same halo;
   * ``report_scaling --project`` runs without a card, its measuring modes
-    raise.
+    raise;
+  * on a row over processes the explicit route is priced with NCCL's
+    constants beside the kernel and taken where it is the cheaper, every
+    level is replicated where processes share a card, and the plan does
+    not depend on the rank that computes it.
 """
 
 import numpy as np
@@ -144,7 +148,9 @@ def test_hybrid_projection_moves_nothing_on_one_card():
     one = model.project_schedule_hybrid(levels, cfg, 4, cards=1)
     many = model.project_schedule_hybrid(levels, cfg, 4, ici=model.NVLINK, cards=4)
     assert one["reshard_us_per_pair"] == 0.0 < many["reshard_us_per_pair"]
-    assert one["split_level"] == model.hybrid_split(levels, cfg, 4, cards=1)
+    assert one["split_level"] == next(
+        i for i, (h, w, t1) in enumerate(levels)
+        if model.plan_level(h, w, cfg, 4, model.ONE_CARD, t1, cards=1)[0] != "replicated")
 
 
 @pytest.mark.parametrize("halo", ["explicit", "auto"])
@@ -255,3 +261,130 @@ def test_kernel_route_is_accepted_on_a_row_over_several_cards():
     split = hybrid_split_level(3840, 2160, cfg, mesh)
     levels = level_schedule(3840, 2160, cfg.warp_levels_count, cfg.warp_scale_factor)
     assert 0 <= split < len(levels)
+
+
+# ---------------------------------------------------------------------------
+# Rows over processes
+# ---------------------------------------------------------------------------
+
+
+def processes(cards):
+    """A row over len(cards) processes, one a position, on the cards named
+    (by UUID; no card or process group is needed to plan on it)."""
+    return Mesh(len(cards), devices=["cpu"] * len(cards), ranks=range(len(cards)), uuids=cards)
+
+
+def test_link_params_over_processes_are_nccls():
+    """Each route's constants, chosen in one place: the explicit route's
+    messages between processes are NCCL's; the kernel's stores stay
+    NVLINK's; on one card every route's are ONE_CARD's."""
+    assert model.link_params(4, "explicit", processes=True) is model.NCCL
+    assert model.link_params(4, "kernel", processes=True) is model.NVLINK
+    assert model.link_params(4, "explicit") is model.NVLINK is model.link_params(4)
+    assert model.link_params(1, "explicit", True) is model.ONE_CARD
+
+
+@pytest.mark.parametrize("n_y", [2, 4])
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_explicit_over_processes_is_priced_by_its_messages(k, n_y):
+    """Every process holds the fields: one batch an exchange after the
+    first (T's halo with its neighbours), the owned rows gathered at the
+    end (one batch with every other process), each at ``dispatch_s`` (what
+    an exchange costs the route, measured with one neighbour and two) and
+    its bytes; one shard's launches on each process's host thread."""
+    from tpuflow_torch.parallel.halo import halo_rows
+
+    cfg, h, w, ici = FlowConfig(), 2160, 3840, model.NCCL
+    row_bytes = halo_rows(cfg, k) * w * 4
+    exchange = ici.dispatch_s + 2 * row_bytes / ici.bandwidth_bytes_s
+    gather = ici.dispatch_s + 2 * (n_y - 1) * -(-h // n_y) * w * 4 / ici.bandwidth_bytes_s
+    want = (-(-40 // k) - 1) * exchange + gather
+    got = model.level_comm_cost(h, w, cfg, n_y, "explicit", ici, k, processes=True)
+    assert got == pytest.approx(want, rel=1e-12)
+    t1 = model.estimate_level_t1(h, w, cfg, ici)
+    t, resolved = model.level_sharded_time(t1, h, w, cfg, n_y, "explicit", ici, k, n_y,
+                                           processes=True)
+    compute = t1 * (h // n_y + 2 * halo_rows(cfg, k)) / h
+    assert resolved == "explicit"
+    assert t == pytest.approx(max(compute, model.relax_launches(cfg) * ici.launch_s) + want)
+    # the router prices each route with its own constants: the kernel with
+    # NVLINK's, as in one process, the explicit route with NCCL's
+    kernel = model.level_sharded_time(t1, h, w, cfg, n_y, "kernel", model.NVLINK, k, n_y,
+                                      processes=True)[0]
+    assert kernel == model.kernel_level_time(h, w, cfg, n_y, model.NVLINK, k, n_y)
+    best = min((kernel, "kernel"), (t, "explicit"), (t1, "replicated"))
+    assert model.plan_level(h, w, cfg, n_y, t1=t1, ks=(k,), cards=n_y,
+                            processes=True)[::2] == (best[1], best[0])
+
+
+@pytest.mark.parametrize("n_y", [2, 4])
+def test_auto_over_processes_on_distinct_cards_can_choose_explicit(n_y):
+    """On a row of processes one a card, the router prices the explicit
+    route with NCCL's constants beside the kernel, and takes it where it is
+    the cheaper: on two processes, the fine levels of a 4K full_model()
+    pair at a large k, where each process issues one shard's launches and
+    few exchanges; on four, where the kernel's padded rows shrink with the
+    shards and an exchange costs the same, the kernel everywhere."""
+    cfg = models_full()
+    mesh = processes([f"c{i}" for i in range(n_y)])
+    plan = sharded_plan(3840, 2160, cfg, mesh, "auto")
+    routes = {route for _, _, route, _ in plan}
+    assert "kernel" in routes and ("explicit" in routes) == (n_y == 2)
+    for h, w, route, k in plan:
+        want = model.plan_level(h, w, cfg, n_y, cards=n_y, processes=True)
+        assert (route, k) == want[:2]
+    assert plan[-1][2] == ("explicit" if n_y == 2 else "kernel")
+
+
+def test_auto_over_processes_replicates_where_processes_share_a_card():
+    cfg = models_full()
+    for cards in (["c0", "c0", "c1", "c1"], ["c0", "c0"]):
+        plan = sharded_plan(3840, 2160, cfg, processes(cards), "auto")
+        assert {route for *_, route, _ in plan} == {"replicated"}
+    # a row of distinct cards beside processes that share one: NCCL's
+    # communicator spans every process, so the explicit route is not offered
+    mesh = Mesh(2, n_data=2, devices=["cpu"] * 4, ranks=range(4), uuids=["c0", "c1", "c2", "c2"])
+    assert {route for *_, route, _ in sharded_plan(3840, 2160, cfg, mesh, "auto")} <= {
+        "kernel", "replicated"}
+
+
+def test_the_plan_over_processes_is_a_function_of_shape_config_and_constants(monkeypatch):
+    """Every process computes the same plan: it reads the shape, the config,
+    the cards by UUID and the constants, not the rank that asks."""
+    from tpuflow_torch.parallel import mesh as mesh_mod
+
+    cfg = models_full()
+    plans = []
+    for rank in range(2):
+        monkeypatch.setattr(mesh_mod, "process_rank", lambda r=rank: (r, 2))
+        plans.append(sharded_plan(3840, 2160, cfg, processes(["c0", "c1"]), "auto"))
+    assert all(p == plans[0] for p in plans)
+    # the same inputs with a dearer NCCL message give another plan
+    monkeypatch.setattr(model, "NCCL", model.ICIParams(
+        bandwidth_bytes_s=model.NCCL.bandwidth_bytes_s, hop_latency_s=model.NCCL.hop_latency_s,
+        dispatch_s=1.0))
+    dear = sharded_plan(3840, 2160, cfg, processes(["c0", "c1"]), "auto")
+    assert "explicit" not in {route for *_, route, _ in dear} and dear != plans[0]
+
+
+@pytest.mark.parametrize("cards,sharded", [(["c0", "c1"], True), (["c0", "c0"], False)])
+def test_hybrid_split_over_processes_is_the_routers_first_sharded_level(cards, sharded):
+    """The hybrid's split on a row over processes is the first level that
+    the router (NCCL's constants for the explicit route) shards; where the
+    processes share a card it replicates every level, so phase A runs
+    them all."""
+    from tpuflow_torch.parallel.hybrid import hybrid_split_level
+
+    cfg = models_full()
+    mesh = processes(cards)
+    plan = sharded_plan(3840, 2160, cfg, mesh, "auto")
+    split = hybrid_split_level(3840, 2160, cfg, mesh)
+    assert split == next((i for i, (*_, route, _) in enumerate(plan) if route != "replicated"),
+                         len(plan))
+    assert (split < len(plan)) == sharded
+
+
+def models_full():
+    from tpuflow_torch import models
+
+    return models.full_model()

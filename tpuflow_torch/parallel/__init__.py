@@ -9,7 +9,8 @@ tpuflow/parallel).
     card (csrc/sharded.cu), halos stored through peer pointers between
     cards, which meet at flag barriers;
   * ``relax_sharded_explicit``: the same with each shard on its position's
-    device and stream, halos copied between them after CUDA events;
+    device and stream, halos copied between them after CUDA events, or,
+    over processes, sent between their cards by NCCL;
   * ``model``: the cost model and the per-level router of ``halo="auto"``;
   * ``hybrid.compute_flow_hybrid``: coarse levels one pair a position,
     fine levels sharded over ``y``;
@@ -17,8 +18,10 @@ tpuflow/parallel).
     ``process_sequence``, the resumable streaming loop, split over
     processes by pair index and over a mesh's data positions;
   * ``group``: the gloo group of a mesh over processes (one position a
-    process) and a row's messages over it; ``ipc``: each card's arena of
-    a row over processes, opened in the others from CUDA IPC handles.
+    process) and a row's host messages over it, and the row's tensor
+    messages between the cards (NCCL point to point on the default group);
+    ``ipc``: each card's arena of a row over processes, opened in the
+    others from CUDA IPC handles.
 
 ``tpuflow_torch.solver.sharded.compute_flow_sharded`` is the sharded
 pipeline; ``compute_flow(..., mesh=)`` routes by ``plan_parallel``.

@@ -23,7 +23,11 @@ no counterpart.
 ``relax_sharded_explicit`` runs the same schedule with each shard's block
 on its own mesh position: the prologue and k-sweep kernels on the shard's
 device and stream, the halos moved by copies ordered by CUDA events (the
-port of the shard_map + ppermute route, halo.py:100-289).
+port of the shard_map + ppermute route, halo.py:100-289). On a row of
+processes each process runs its own shard so, and the halos and T's owned
+rows go between the processes as point-to-point messages on the default
+group (``group.row_exchange``: NCCL between the cards, gloo on the CPU),
+the port of ``ppermute`` across hosts.
 
 On a mesh row whose positions belong to several processes (one position a
 process), ``relax_sharded`` holds only this process's shard: it exchanges
@@ -46,7 +50,9 @@ from tpuflow_torch.ops.level import (
     N_TENSOR, _check_planes, jacobi_sweep_plain, jacobi_sweeps, outer_prologue,
     outer_prologue_plain,
 )
-from tpuflow_torch.parallel.group import exchange_with, process_rank, row_all_gather
+from tpuflow_torch.parallel.group import (
+    exchange_with, process_rank, row_all_gather, row_exchange,
+)
 from tpuflow_torch.parallel.mesh import Mesh
 
 F = np.float32
@@ -270,10 +276,19 @@ def relax_sharded_explicit(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowCo
     destination's stream after the source's event. The owned rows are
     bitwise those of ``relax_sharded`` and ``relax``. Counts the copies it
     makes between positions and the level's fields in
-    ``relax_sharded_explicit.copies``."""
+    ``relax_sharded_explicit.copies``.
+
+    On a row whose positions belong to several processes (one a process)
+    every process of the row calls it at once with the level's fields,
+    which each computed itself, and runs only its own shard: its blocks
+    copied in from its fields, its exchanges as messages with the
+    neighbour processes (``_explicit_process_row``), and every process gets
+    the whole T."""
     halo = check_sharded_args(fxyz, uv, cfg, mesh, k_outer, J)
     _, h, w = uv.shape
     shards = row_split(h, mesh.n_y, halo)
+    if mesh.row_spans_processes(data):
+        return _explicit_process_row(fxyz, uv, sc, cfg, mesh, shards, halo, k_outer, J, data)
     positions = mesh.row(data)
     if any(mesh.devices[p].type != uv.device.type for p in positions):
         raise ValueError(f"fields on {uv.device} for shards on "
@@ -322,10 +337,100 @@ def relax_sharded_explicit(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowCo
 relax_sharded_explicit.copies = 0
 
 
+def _halo_messages(T: torch.Tensor, s: int, shards: List[ShardRows], halo: int, ranks):
+    """The sends and receives of shard s's exchange of T (2, padded, w), one
+    message a plane and side, each a contiguous row range of a plane: its
+    top ``halo`` owned rows to s - 1 and its bottom ones to s + 1, their
+    edge rows into its halo rows. Both sides list a pair's messages plane
+    by plane, so they match in order."""
+    sh, n = shards[s], len(shards)
+    end = sh.top + sh.rows
+    sends, recvs = [], []
+    for c in range(T.shape[0]):
+        if s > 0:
+            sends.append((ranks[s - 1], T[c, sh.top:sh.top + halo]))
+            recvs.append((ranks[s - 1], T[c, :sh.top]))
+        if s < n - 1:
+            sends.append((ranks[s + 1], T[c, end - halo:end]))
+            recvs.append((ranks[s + 1], T[c, end:]))
+    return sends, recvs
+
+
+def _explicit_process_row(fxyz, uv, sc, cfg: FlowConfig, mesh: Mesh, shards: List[ShardRows],
+                          halo: int, k_outer: int, J, data: int) -> torch.Tensor:
+    """``relax_sharded_explicit`` on a row of processes: this process's
+    shard s on its position's stream, its padded blocks copied in from the
+    level's fields (so the first exchange moves nothing and is left out);
+    every ``k_outer`` outers after the first, T's edge owned rows to the
+    neighbour processes and theirs into its halo rows, one batch of
+    messages on its position's stream; at the end its owned rows into T and
+    to every other process of the row, whose owned rows come into T (one
+    batch). Counts its copies in and out in ``relax_sharded_explicit.copies``;
+    its sends are ``row_exchange``'s to count."""
+    ranks = mesh.row_ranks(data)
+    if len(set(ranks)) != len(ranks):
+        raise ValueError(f"a row over processes holds one position a process, got ranks {ranks}")
+    mesh.check_p2p("halo='explicit' over a row of processes")
+    me = process_rank()[0]
+    s = ranks.index(me)
+    p, sh = mesh.row(data)[s], shards[s]
+    _, h, w = uv.shape
+    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
+    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
+    fields = [uv, fxyz] + ([] if J is None else [J])
+    stream = mesh.stream(p)
+    caller = torch.cuda.current_stream(uv.device) if uv.is_cuda else None
+    ready = _event(caller)
+    with mesh.on(p):
+        blocks = [torch.empty((x.shape[0], sh.padded, w), dtype=torch.float32, device=uv.device)
+                  for x in fields]
+        for block, x in zip(blocks, fields):
+            _copy(block, x[:, sh.first:sh.first + sh.padded], stream, caller, ready)
+        uv_b, fxyz_b = blocks[:2]
+        J_b = blocks[2] if J is not None else None
+        T_b = uv_b.clone()
+        for i in range(cfg.outer_iterations_count):
+            if i and i % k_outer == 0:
+                row_exchange(*_halo_messages(T_b, s, shards, halo, ranks))
+            hoist = outer_prologue(T_b, uv_b, fxyz_b, sc.div2hx, sc.div2hy, sc.alpha_hx2,
+                                   sc.alpha_hy2, e_s2, e_d2, J_b, row0=sh.first, height=h)
+            T_b = jacobi_sweeps(T_b, uv_b, hoist, cfg.inner_iterations_count)
+        T = torch.empty_like(uv)
+        T[:, sh.row0:sh.row0 + sh.rows] = T_b[:, sh.top:sh.top + sh.rows]
+        sends, recvs = [], []
+        for o, r in zip(shards, ranks):
+            if r == me:
+                continue
+            for c in range(2):
+                sends.append((r, T[c, sh.row0:sh.row0 + sh.rows]))
+                recvs.append((r, T[c, o.row0:o.row0 + o.rows]))
+        row_exchange(sends, recvs)
+    if caller is not None:
+        caller.wait_stream(stream)
+        T.record_stream(caller)
+    relax_sharded_explicit.copies += len(fields) + 1
+    return T
+
+
+def explicit_sends(cfg: FlowConfig, n_y: int, k_outer: int, shard: int) -> int:
+    """The messages that the process holding shard ``shard`` of a row of
+    ``n_y`` processes sends in one ``relax_sharded_explicit`` call, one a
+    plane: two to each neighbour an exchange after the first, two to each
+    other process of the row at the end."""
+    exchanges = max(-(-cfg.outer_iterations_count // k_outer) - 1, 0)
+    neighbours = (shard > 0) + (shard < n_y - 1)
+    return exchanges * 2 * neighbours + 2 * (n_y - 1)
+
+
 def explicit_copies(h: int, cfg: FlowConfig, n_y: int, k_outer: int = 1,
-                    tensor: bool = False) -> int:
+                    tensor: bool = False, shard: Optional[int] = None) -> int:
     """The copies of one ``relax_sharded_explicit`` call: each shard's
     blocks in (uv, fxyz and J), the halos of every exchange after the first,
-    and the owned rows out."""
-    exchanges = -(-cfg.outer_iterations_count // k_outer) - 1
-    return n_y * (3 if tensor else 2) + max(exchanges, 0) * 2 * (n_y - 1) + n_y
+    and the owned rows out. With ``shard``, the process form: those of the
+    process that holds shard ``shard`` of a row over processes, its blocks
+    in and its owned rows into T (its messages are ``explicit_sends``)."""
+    fields = 3 if tensor else 2
+    if shard is not None:
+        return fields + 1
+    exchanges = max(-(-cfg.outer_iterations_count // k_outer) - 1, 0)
+    return n_y * fields + exchanges * 2 * (n_y - 1) + n_y

@@ -32,7 +32,9 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import torch
 
-from tpuflow_torch.parallel.group import process_group, process_rank
+from tpuflow_torch.parallel.group import (
+    check_p2p_cards, p2p_join, process_group, process_rank, shared_card,
+)
 
 # The sharded kernel's by-value shard struct holds at most this many shards
 # (csrc/sharded.cu: MAX_SHARDS), the device count of the JAX tests' mesh.
@@ -119,14 +121,15 @@ class Mesh:
     def size(self) -> int:
         return self.n_data * self.n_y
 
-    def _card(self, p: int):
+    def card(self, p: int):
+        """Position ``p``'s card: its device, or over processes its UUID."""
         return self.devices[p] if self.uuids is None else self.uuids[p]
 
     @property
     def cards(self) -> int:
         """How many distinct devices the positions span: over processes,
         distinct cards by UUID (two processes on one card count once)."""
-        return len({self._card(p) for p in range(self.size)})
+        return len({self.card(p) for p in range(self.size)})
 
     @property
     def device(self) -> torch.device:
@@ -149,7 +152,7 @@ class Mesh:
     def row_cards(self, data: int = 0) -> int:
         """How many distinct devices the shards of one data row span (by
         UUID over processes)."""
-        return len({self._card(p) for p in self.row(data)})
+        return len({self.card(p) for p in self.row(data)})
 
     def row_ranks(self, data: int = 0) -> Tuple[int, ...]:
         """The owning rank of each position of one data row."""
@@ -180,6 +183,20 @@ class Mesh:
         for y, p in enumerate(self.row(data)):
             groups.setdefault(self.devices[p], []).append(y)
         return [(dev, tuple(ys)) for dev, ys in groups.items()]
+
+    @property
+    def p2p_ok(self) -> bool:
+        """Whether the default group can carry tensor messages between this
+        mesh's processes: always in one process or over gloo, and over NCCL
+        where no two processes share a card (``group.shared_card``)."""
+        return not self.spans_processes or shared_card(
+            self.ranks, [self.card(p) for p in range(self.size)]) is None
+
+    def check_p2p(self, what: str) -> None:
+        """Raise, before any message, where ``what`` would need a message
+        that ``p2p_ok`` refuses (``group.check_p2p_cards``)."""
+        if self.spans_processes:
+            check_p2p_cards(self.ranks, [self.card(p) for p in range(self.size)], what)
 
     def stream(self, p: int) -> Optional[torch.cuda.Stream]:
         """Position ``p``'s CUDA stream, made on its device at first use;
@@ -257,8 +274,11 @@ def _process_mesh(shape: Optional[Shape], device: torch.device) -> Mesh:
     if int(n_data) * int(n_y) != world:
         raise ValueError(f"a {n_data} x {n_y} mesh over {world} processes: a mesh over "
                          "processes has one position a process")
-    return Mesh(int(n_y), n_data=int(n_data), devices=[d for d, _ in cards],
+    mesh = Mesh(int(n_y), n_data=int(n_data), devices=[d for d, _ in cards],
                 ranks=range(world), uuids=[u for _, u in cards])
+    if mesh.p2p_ok:
+        p2p_join(device)
+    return mesh
 
 
 def make_mesh(shape: Optional[Shape] = None,

@@ -23,12 +23,22 @@ replicating. One host thread issues every shard's launches, wherever they
 run: t_host is that thread's pace. With ``launch_s`` = 0 and one shard a card
 the explicit route's price is the JAX model's to the digit.
 
+On a row of processes (``processes=True``, one shard a process and a card)
+each process issues its own shard's launches, so t_host is one shard's, and
+every process holds the level's fields: the explicit route's messages are
+T's halos, one batch an exchange after the first, and the owned rows
+gathered at the end, priced by ``NCCL``: ``dispatch_s`` a batch, as the
+route pays it in step with its neighbours (with one neighbour or two
+alike), and its bytes. ``link_params`` gives each route its constants: the
+kernel keeps NVLINK's over processes.
+
 The constants are the port's, for an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"),
 measured by ``python -m tpuflow_torch.tools.report_scaling --link``
 (chip_smoke.py phase 22 prints them again): ``ONE_CARD``'s on one card,
 ``NVLINK``'s between two of four cards of one host.
 ``ROW_BARRIER_S`` is the cross-card kernel's, from ``report_scaling
---link`` on two of four such cards. ``estimate_level_t1``
+--link`` on two of four such cards. ``NCCL``'s, an exchange between
+processes' cards, from ``report_scaling --procs 4 --link``. ``estimate_level_t1``
 is anchored on the port's own per-level times on the H100 (PERF.md
 sections 5 and 7).
 """
@@ -53,7 +63,8 @@ class ICIParams:
     """What moving a halo and driving a shard cost: the copy rate between
     shards, the device latency of one exchange step (a small copy, or one
     grid sync of the cooperative kernel), the host's time to issue one
-    message (an event wait and a copy) and one kernel launch."""
+    message (an event wait and a copy; for NCCL between processes, one
+    exchange's batch as the route pays it) and one kernel launch."""
 
     bandwidth_bytes_s: float = 1.43e12
     hop_latency_s: float = 5.75e-6
@@ -83,6 +94,17 @@ NVLINK = replace(ONE_CARD, bandwidth_bytes_s=3.57e11, hop_latency_s=2.84e-5,
 # into the same memory and its barrier one grid sync (ONE_CARD).
 ROW_BARRIER_S = 7.82e-6
 
+# Messages between processes' H100s of one host by NCCL send/recv
+# (``group.row_exchange``), from two runs of ``report_scaling --procs 4
+# --link`` on four "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md section 6),
+# reduced together by its ``link_summary``: ``dispatch_s`` is what one
+# exchange costs the explicit route itself, the median of 180-396 us over
+# rows of two and of four processes (the runs' own medians 335 and 249 us;
+# no difference between one neighbour and two showed); the rate and
+# latency are the line through 1 to 64 x 184,320-byte batches (the runs'
+# own 210 and 224 GB/s). The router's choice over processes rests on these.
+NCCL = replace(NVLINK, bandwidth_bytes_s=2.17e11, hop_latency_s=1.25e-5, dispatch_s=2.74e-4)
+
 # Device seconds per level pixel at 40 x (1 + 5) passes: the level kernels
 # unsharded (PERF.md section 6: one 4K full_model() level, 21.6 ms a level
 # of 8.29 Mpx), and the cooperative kernel per padded pixel (4K level 0 on
@@ -92,9 +114,14 @@ KERNEL_PX_S = 3.16e-9
 _PASSES = 240.0
 
 
-def link_params(cards: int) -> ICIParams:
-    """The constants of shards on one card, or over NVLink."""
-    return ONE_CARD if cards == 1 else NVLINK
+def link_params(cards: int, path: str = "kernel", processes: bool = False) -> ICIParams:
+    """The constants of ``path``'s messages between shards on ``cards``
+    cards: on one card ONE_CARD's; across cards NVLINK's (the kernel's
+    stores, and the explicit route's copies in one process), except the
+    explicit route over processes, whose messages are NCCL's."""
+    if cards == 1:
+        return ONE_CARD
+    return NCCL if processes and path == "explicit" else NVLINK
 
 
 def _n_const_fields(cfg: FlowConfig) -> int:
@@ -120,7 +147,7 @@ def level_launches(cfg: FlowConfig) -> int:
 
 
 def level_comm_cost(h: int, w: int, cfg: FlowConfig, n_y: int, path: str, ici: ICIParams,
-                    k: int = 1, cards: Optional[int] = None) -> float:
+                    k: int = 1, cards: Optional[int] = None, processes: bool = False) -> float:
     """Seconds of halo exchange for one level on one shard (both directions
     run at once, so one direction's volume). The explicit route's messages
     are torch copies priced by ``ici``. The kernel's are stores inside the
@@ -129,10 +156,18 @@ def level_comm_cost(h: int, w: int, cfg: FlowConfig, n_y: int, path: str, ici: I
     card ONE_CARD's rate and one grid sync; across cards, ``cards``
     defaulting to one shard a card, NVLINK's rate and two row barriers at
     ROW_BARRIER_S). The kernel's halo is not rounded to 8 rows: that served
-    the TPU's tiles."""
+    the TPU's tiles. Over ``processes`` the explicit route sends one batch
+    an exchange after the first (T's 2 planes each way with each of up to
+    two neighbours) and gathers the other shards' owned rows at the end
+    (one batch with every other process): ``dispatch_s`` a batch, which
+    already holds the device's latency and the wait for the neighbours."""
     outer = cfg.outer_iterations_count
     n_exchanges = -(-outer // k)
     row_bytes = halo_rows(cfg, k) * w * 4
+    if path == "explicit" and processes:
+        exchange = ici.dispatch_s + 2 * row_bytes / ici.bandwidth_bytes_s
+        gather = ici.dispatch_s + 2 * (n_y - 1) * -(-h // n_y) * w * 4 / ici.bandwidth_bytes_s
+        return (n_exchanges - 1) * exchange + gather
     if path == "explicit":
         msgs = _n_const_fields(cfg) + 2 + 2 * n_exchanges
         return msgs * (ici.dispatch_s + ici.hop_latency_s + row_bytes / ici.bandwidth_bytes_s)
@@ -172,12 +207,13 @@ def kernel_level_time(h: int, w: int, cfg: FlowConfig, n_y: int, ici: ICIParams,
 
 
 def level_sharded_time(t1_s: float, h: int, w: int, cfg: FlowConfig, n_y: int, path: str,
-                       ici: ICIParams, k: int = 1,
-                       cards: Optional[int] = None) -> Tuple[float, str]:
+                       ici: ICIParams, k: int = 1, cards: Optional[int] = None,
+                       processes: bool = False) -> Tuple[float, str]:
     """(projected seconds on n_y shards over ``cards`` cards, resolved path)
     for one level. The gates route as ``compute_flow_sharded`` does: the
     kernel where its gate holds, on one card or across cards, else the
-    explicit route, else replication."""
+    explicit route, else replication. Over ``processes`` one host thread
+    issues each shard."""
     cards = n_y if cards is None else cards
     resolved = path
     if path == "kernel" and not kernel_halo_applicable(h, n_y, cfg, k):
@@ -188,8 +224,9 @@ def level_sharded_time(t1_s: float, h: int, w: int, cfg: FlowConfig, n_y: int, p
         return kernel_level_time(h, w, cfg, n_y, ici, k, cards), resolved
     halo = halo_rows(cfg, k)
     compute = t1_s * math.ceil(n_y / cards) * (h // n_y + 2 * halo) / h
-    host = n_y * relax_launches(cfg) * ici.launch_s
-    return max(compute, host) + level_comm_cost(h, w, cfg, n_y, resolved, ici, k), resolved
+    host = (1 if processes else n_y) * relax_launches(cfg) * ici.launch_s
+    comm = level_comm_cost(h, w, cfg, n_y, resolved, ici, k, processes=processes)
+    return max(compute, host) + comm, resolved
 
 
 def project_schedule(levels: Sequence[Tuple[int, int, float]], cfg: FlowConfig, n_y: int,
@@ -242,17 +279,21 @@ def estimate_level_t1(h: int, w: int, cfg: FlowConfig, ici: ICIParams = ONE_CARD
 _PLAN_KS = (1, 2, 4, 5, 8, 10, 20, 40)
 
 
-def plan_level(h: int, w: int, cfg: FlowConfig, n_y: int, ici: ICIParams = ONE_CARD,
+def plan_level(h: int, w: int, cfg: FlowConfig, n_y: int, ici: Optional[ICIParams] = None,
                t1: Optional[float] = None, paths: Sequence[str] = ("kernel", "explicit"),
-               ks: Sequence[int] = _PLAN_KS,
-               cards: Optional[int] = None) -> Tuple[str, int, float]:
+               ks: Sequence[int] = _PLAN_KS, cards: Optional[int] = None,
+               processes: bool = False) -> Tuple[str, int, float]:
     """The cheapest (path, k, projected seconds) for one level: replicate,
-    or each admitted path at each k."""
-    t1 = estimate_level_t1(h, w, cfg, ici) if t1 is None else t1
+    or each admitted path at each k, priced with ``ici`` or, by default,
+    with each path's own constants (``link_params``)."""
+    links = {p: ici or link_params(n_y if cards is None else cards, p, processes)
+             for p in paths}
+    t1 = estimate_level_t1(h, w, cfg, ici or ONE_CARD) if t1 is None else t1
     best = (t1, "replicated", 1)
     for path in paths:
         for k in ks:
-            tt, resolved = level_sharded_time(t1, h, w, cfg, n_y, path, ici, k, cards)
+            tt, resolved = level_sharded_time(t1, h, w, cfg, n_y, path, links[path], k, cards,
+                                              processes)
             if resolved == path and tt < best[0]:
                 best = (tt, path, k)
     return best[1], best[2], best[0]
@@ -290,16 +331,6 @@ def project_schedule_auto(levels: Sequence[Tuple[int, int, float]], cfg: FlowCon
             (t1_total - t_repl) / tail_free / n_y if tail_free else float("inf"), 3),
         "plan": plan,
     }
-
-
-def hybrid_split(levels: Sequence[Tuple[int, int, float]], cfg: FlowConfig, n_y: int,
-                 ici: ICIParams = ONE_CARD, paths: Sequence[str] = ("kernel", "explicit"),
-                 cards: Optional[int] = None) -> int:
-    """The index of the first level the router shards: the hybrid runs the
-    levels before it one pair a position."""
-    return next((i for i, (h, w, t1) in enumerate(levels)
-                 if plan_level(h, w, cfg, n_y, ici, t1, paths, cards=cards)[0] != "replicated"),
-                len(levels))
 
 
 def project_schedule_hybrid(levels: Sequence[Tuple[int, int, float]], cfg: FlowConfig,

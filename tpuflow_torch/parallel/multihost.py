@@ -50,9 +50,10 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     otherwise; on the card each process takes the card of its local rank
     (LOCAL_RANK, else its rank modulo the cards). A gloo group beside it
     (``group.process_group``) carries every host object a mesh over the
-    processes exchanges; NCCL communicators are made lazily, at a first
-    NCCL collective, which that path never makes (two ranks on one card
-    then join without complaint)."""
+    processes exchanges; NCCL's communicator is made lazily, at the first
+    batch of tensor messages (``make_mesh`` over processes sends one where
+    every process has a card of its own), so two ranks on one card join
+    without complaint."""
     if num_processes is None and coordinator_address is None:
         env_procs = os.environ.get("TPUFLOW_NUM_PROCESSES")
         if env_procs is None or int(env_procs) <= 1:

@@ -26,12 +26,15 @@ positions belong to several processes runs as follows. Every process of
 the row computes the level's whole-field stages (resample, warp,
 derivatives, tensor, add and median) on its own card: the same kernels on
 the same inputs, so the constants are bitwise the same on every card, and
-no card reads another's. Each level's relaxation is ``"replicated"`` or
-the kernel (one launch a process, ``relax_sharded_kernel``); the plan
-depends only on the shape, the config and the constants, so every process
-takes the same one. The explicit route over processes would move its halos
-by NCCL send/recv, which is not built (ROADMAP Queue 1): ``halo="explicit"``
-raises NotImplementedError there.
+no card reads another's. Each level's relaxation is ``"replicated"``, the
+kernel (one launch a process, ``relax_sharded_kernel``) or the explicit
+route (each process its own shard, halos and owned rows as NCCL messages
+between the cards, ``relax_sharded_explicit``). ``"auto"`` prices the two
+with the row's constants (``NCCL`` for the explicit route's messages);
+where processes share a card it replicates, and ``halo="explicit"``
+raises there, since NCCL refuses two ranks on one card. The plan depends
+only on the shape, the config and the constants, so every process takes
+the same one.
 """
 
 from __future__ import annotations
@@ -44,10 +47,11 @@ import numpy as np
 from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.ops.level import launch_counts as level_launch_counts
 from tpuflow_torch.ops.level import reset_launch_counts as reset_level_launch_counts
+from tpuflow_torch.parallel.group import row_exchange
 from tpuflow_torch.parallel.halo import halo_applicable, relax_sharded_explicit
 from tpuflow_torch.parallel.halo_kernel import kernel_halo_applicable, relax_sharded_kernel
 from tpuflow_torch.parallel.mesh import Mesh, resolve_device
-from tpuflow_torch.parallel.model import link_params, plan_level
+from tpuflow_torch.parallel.model import plan_level
 from tpuflow_torch.pyramid import level_schedule
 from tpuflow_torch.solver.flow2d import FlowResult, compute_flow
 from tpuflow_torch.solver.level import relax
@@ -56,10 +60,6 @@ HALO_MODES = ("kernel", "explicit", "auto")
 # The halo mode of the JAX pipeline that the port does not run.
 NOT_PORTED = {"gspmd": "compiler-partitioned stencils are on ROADMAP's 'Do not port' list"}
 
-
-EXPLICIT_OVER_PROCESSES = ("halo='explicit' over a row of processes needs NCCL send/recv "
-                           "between the processes, which is not built (ROADMAP Queue 1); "
-                           "take halo='kernel' or 'auto'")
 
 
 def row_device(mesh: Mesh, data: int = 0):
@@ -77,12 +77,9 @@ def row_device(mesh: Mesh, data: int = 0):
 def level_route(h: int, w: int, cfg: FlowConfig, mesh: Mesh, halo: str, k_outer: int = 1,
                 data: int = 0) -> Tuple[str, int]:
     """(route, k) of an (h, w) level's relaxation over data row ``data``:
-    ``"kernel"``, ``"explicit"`` or ``"replicated"`` (over processes the
-    kernel or replication)."""
+    ``"kernel"``, ``"explicit"`` or ``"replicated"``."""
     n_y, cards = mesh.n_y, mesh.row_cards(data)
     processes = mesh.row_spans_processes(data)
-    if processes and halo == "explicit":
-        raise NotImplementedError(EXPLICIT_OVER_PROCESSES)
     if halo == "auto":
         if processes and cards < n_y:
             # Processes that share a card take turns on it by time slices, so
@@ -90,8 +87,9 @@ def level_route(h: int, w: int, cfg: FlowConfig, mesh: Mesh, halo: str, k_outer:
             # 1080p full_model() pair's 2,754 row barriers against 0.22 s for
             # compute_flow, two processes on one H100 (PERF.md section 6).
             return "replicated", 1
-        paths = ("kernel",) if processes else ("kernel", "explicit")
-        path, k, _ = plan_level(h, w, cfg, n_y, link_params(cards), paths=paths, cards=cards)
+        # over processes the explicit route's messages need ``mesh.p2p_ok``
+        paths = ("kernel", "explicit") if mesh.p2p_ok else ("kernel",)
+        path, k, _ = plan_level(h, w, cfg, n_y, paths=paths, cards=cards, processes=processes)
         return path, k
     admitted = (kernel_halo_applicable if halo == "kernel" else halo_applicable)
     return (halo if admitted(h, n_y, cfg, k_outer) else "replicated"), k_outer
@@ -139,8 +137,9 @@ def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, 
     row, halos exchanged once every ``k_outer`` outers (``"auto"`` picks k
     per level). ``halo`` is ``"kernel"``, ``"explicit"`` or ``"auto"``
     (over several cards the kernel needs peer access between them, and
-    raises without it); the JAX pipeline's ``"gspmd"`` raises
-    NotImplementedError. ``device`` must be the row's first device, its index
+    raises without it; over processes the explicit route needs a card a
+    process, and raises where two share one); the JAX pipeline's
+    ``"gspmd"`` raises NotImplementedError. ``device`` must be the row's first device, its index
     included; ``"cuda"`` raises without CUDA. A (B, H, W) stack goes through
     ``compute_flow(..., mesh=)``. On a mesh over processes every process of
     the row calls it at once, with its own card as ``device``, and each
@@ -159,11 +158,12 @@ def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, 
 
 
 def reset_launch_counts() -> None:
-    """Set the launch counts of the sharded path's kernels, and the explicit
-    route's copies, to 0."""
+    """Set the launch counts of the sharded path's kernels, the explicit
+    route's copies and the rows' messages between processes to 0."""
     reset_level_launch_counts()
     relax_sharded_kernel.launches = 0
     relax_sharded_explicit.copies = 0
+    row_exchange.sends = 0
 
 
 def launch_counts() -> dict:

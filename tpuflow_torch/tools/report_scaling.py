@@ -26,11 +26,14 @@ row-sharded, one JSON line (the port of tools/report_scaling.py).
             [--preset P] [--profile]
         The same over N processes, one a card (cuda:rank modulo the
         cards), joined by ``initialize_distributed``: dp (a stack of N pairs
-        on an (N, 1) mesh over the processes, one pair each) and sp (one
-        pair on the row (1, N) over the processes, halo "kernel" and "auto")
-        by the k-slope, in turns with one position in one process and with
-        the one-process routes over the same cards (rank 0 drives them while
-        the others wait), every flow checked bitwise against compute_flow;
+        on an (N, 1) mesh over the processes, one pair each), sp (one pair
+        on the row (1, N) over the processes, halo "kernel", "explicit" at
+        k = 1, its halos and owned rows sent by NCCL, and "auto") and the
+        hybrid (the stack of N pairs on the row, each pair's working set
+        sent to it by NCCL) by the k-slope, in turns with one position in
+        one process and with the one-process routes over the same cards
+        (rank 0 drives them while the others wait), every flow checked
+        bitwise against compute_flow;
         the level-0 launch of the sharded kernel (grey, k = 1) over the
         processes against the one-process launch over the same cards, beside
         its bound (roofline.kernel_work(..., cards=N)); with an even N the
@@ -40,6 +43,22 @@ row-sharded, one JSON line (the port of tools/report_scaling.py).
         over the processes. The preset is a function of tpuflow_torch.models
         (default reference_default). Prints rank 0's line with every rank's
         bitwise checks.
+
+    python -m tpuflow_torch.tools.report_scaling --procs N --link
+        The constants of ``parallel.model.NCCL``, over N processes one a
+        card (N even): ranks 2i and 2i + 1 exchange one halo message each
+        way (``group.row_exchange``, one batch) of 1, 2, 3, 4, 16 and 64 x
+        184,320 bytes (a 6-row, 3840-wide, 2-plane halo): the host's time to
+        issue one (while the card sleeps), its device time (a run of them
+        queued behind a sleep, timed by CUDA events), bytes over device
+        time, and the line through every rank's device times: its intercept
+        (the latency) and the inverse of its slope (the rate); the host's
+        time for a batch of two messages each way (one a plane, as the
+        explicit route sends them); and what one exchange costs the
+        explicit route itself (a 1920x1080 grey level at k = 1 less k = 2)
+        on rows of two and (N >= 4) on the row of all N, whose middle
+        processes have two neighbours: their median is the model's
+        ``dispatch_s``.
 
     python -m tpuflow_torch.tools.report_scaling --project [W H]
         No card needed: the cost model's table for the default schedule at
@@ -298,6 +317,7 @@ def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4) -> dict:
 
 PROC_TIMEOUT_S = 1500
 PROC_ROUNDS = 2
+SP_HALOS = ("kernel", "explicit", "auto")
 
 
 def measure_procs(n: int, size=SIZE, preset: str = "reference_default",
@@ -356,7 +376,9 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
     import numpy as np
     import torch
 
-    from tpuflow_torch import compute_flow, compute_flow_sharded, make_mesh, models
+    from tpuflow_torch import (
+        compute_flow, compute_flow_hybrid, compute_flow_sharded, make_mesh, models,
+    )
     from tpuflow_torch.config import FlowConfig
     from tpuflow_torch.parallel import relax_sharded_kernel
     from tpuflow_torch.parallel.group import row_barrier
@@ -378,20 +400,22 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
     runs = {  # name: (every process at once, fn)
         "one": (False, lambda: compute_flow(f0, f1, cfg, device=dev)),
         "dp": (True, lambda: compute_flow(F0, F1, cfg, mesh=dp, device=dev)),
-        "sp_kernel": (True, lambda: compute_flow_sharded(f0, f1, cfg, mesh=row, halo="kernel",
-                                                         device=dev)),
-        "sp_auto": (True, lambda: compute_flow_sharded(f0, f1, cfg, mesh=row, halo="auto",
-                                                       device=dev))}
+        "hybrid": (True, lambda: compute_flow_hybrid(F0, F1, cfg, mesh=row, device=dev))}
+    for halo in SP_HALOS:
+        runs[f"sp_{halo}"] = (True, lambda hl=halo: compute_flow_sharded(
+            f0, f1, cfg, mesh=row, halo=hl, device=dev))
     one_dp = one_row = None   # rank 0's one-process meshes over the same cards
     if rank == 0:
         one_dp, one_row = Mesh(1, n_data=world, devices=cards), Mesh(world, devices=cards)
         runs["dp_one_process"] = (False, lambda: compute_flow(F0, F1, cfg, mesh=one_dp,
                                                               device=dev))
-        for halo in ("kernel", "auto"):
+        runs["hybrid_one_process"] = (False, lambda: compute_flow_hybrid(
+            F0, F1, cfg, mesh=one_row, device=dev))
+        for halo in SP_HALOS:
             runs[f"sp_{halo}_one_process"] = (False, lambda hl=halo: compute_flow_sharded(
                 f0, f1, cfg, mesh=one_row, halo=hl, device=dev))
-    names = ["one", "dp", "dp_one_process", "sp_kernel", "sp_kernel_one_process", "sp_auto",
-             "sp_auto_one_process"]
+    names = ["one", "dp", "dp_one_process", "hybrid", "hybrid_one_process"] + [
+        f"sp_{halo}{mode}" for halo in SP_HALOS for mode in ("", "_one_process")]
     bitwise, ms = {}, {name: [] for name in names}
 
     def each(together: bool, fn):
@@ -411,8 +435,7 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
     # The routes over the processes first: until rank 0 drives the one-process
     # routes it holds a context on its own card alone, and a profiler in a
     # process with contexts on the other cards serialises the kernels there.
-    for name in ("one", "dp", "sp_kernel", "sp_auto", "dp_one_process",
-                 "sp_kernel_one_process", "sp_auto_one_process"):
+    for name in sorted(names, key=lambda nm: nm.endswith("_one_process")):
         together, call = runs.get(name, (False, None))
         res = each(together, call)
         if res is not None:
@@ -428,7 +451,7 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
             if t is not None:
                 ms[name].append(t * 1e3)
     ms = {name: sorted(v)[len(v) // 2] for name, v in ms.items() if v}
-    pairs = {"dp": world, "dp_one_process": world}
+    pairs = {name: world for name in ("dp", "dp_one_process", "hybrid", "hybrid_one_process")}
     report = {"card": device_info()["nvidia_smi"], "size": [w, h], "preset": preset,
               "processes": world, "distinct_cards": len(set(cards)), "devices": list(map(str, cards)),
               "timing": f"the k-slope (time_best, reps {reps}, k {k}), the median of "
@@ -494,18 +517,201 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
     return report
 
 
+HALO_BYTES = 2 * 6 * 3840 * 4      # a 6-row, 3840-wide, 2-plane halo: 184,320 bytes
+LINK_SIZES = (1, 2, 3, 4, 16, 64)  # messages of 1 to 4 halos, and large enough for the rate
+LINK_MESSAGES = 64
+
+
+def measure_procs_link(n: int) -> dict:
+    """The --procs N --link report (module docstring): N worker processes;
+    rank 0's line with every rank's numbers."""
+    from tpuflow_torch.ops.cuda_lib import load_library
+    from tpuflow_torch.parallel.multihost import process_results
+
+    _cuda_devices()
+    if n < 2 or n % 2:
+        raise ValueError(f"--procs --link pairs the processes: N must be even, got {n}")
+    load_library()                        # built once, for every worker
+    command = [sys.executable, "-m", "tpuflow_torch.tools.report_scaling", "--proc-link"]
+    return link_summary(process_results(command, n, PROC_TIMEOUT_S))
+
+
+def link_summary(reports: List[dict]) -> dict:
+    """The --procs N --link line from its workers' reports (``by_rank``):
+    the line through the device times, the host times, and the explicit
+    route's exchange, whose median is ``NCCL.dispatch_s``."""
+    xs = [x for r in reports for x in r["sizes_bytes"]]
+    ys = [t * 1e-6 for r in reports for t in r["device_us"]]
+    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+    slope = (sum((a - mx) * (b - my) for a, b in zip(xs, ys))
+             / sum((a - mx) ** 2 for a in xs))
+    host = [t for r in reports for t in r["host_us"][:4]]
+    two = [r["two_planes_host_us"] for r in reports]
+    exchange = {key: sorted(r["route_exchange_us"][key] for r in reports)
+                for key in ("pairs", "row")}
+    every = sorted(exchange["pairs"] + exchange["row"])
+    out = {"card": reports[0]["card"], "processes": len(reports),
+           "hop_latency_s": my - slope * mx,
+           "bandwidth_bytes_s": 1.0 / slope if slope > 0 else None,
+           "dispatch_s": every[len(every) // 2] * 1e-6,
+           "batch_host_us": sum(host) / len(host),
+           "two_planes_batch_host_us": sum(two) / len(two),
+           "exchange_one_peer_us": exchange["pairs"],
+           "exchange_two_peers_us": exchange["row"]}
+    out["how"] = {
+        "hop_latency_s": "intercept of every rank's device us a batch against bytes (one "
+                         f"line through them all, {LINK_SIZES} x 184,320 bytes)",
+        "bandwidth_bytes_s": "inverse slope of that line",
+        "batch_host_us": "host us to issue a batch of one send and one receive of 1 to 4 "
+                         "halos, the card asleep (mean over the ranks)",
+        "two_planes_batch_host_us": "the same for two sends and two receives (184,320 "
+                                    "bytes in all)",
+        "exchange_one_peer_us": "what one exchange costs the explicit route on rows of two "
+                                "processes, every rank's: a 1920x1080 grey level's "
+                                "relax_sharded_explicit at k = 1 less k = 2, over the 20 "
+                                "exchanges k = 2 leaves out",
+        "exchange_two_peers_us": "the same on the row of all the processes, whose middle "
+                                 "ones have two neighbours",
+        "dispatch_s": "s an exchange: the median of both lists"}
+    out["by_rank"] = reports
+    return out
+
+
+def _explicit_exchange_s(dev, mesh, rounds: int = 5, size=(1920, 1080)) -> float:
+    """Seconds one exchange costs the explicit route over processes: one
+    grey level of ``size`` through ``relax_sharded_explicit`` on this
+    process's row of ``mesh`` at k = 1 and 2, in turns, the difference over
+    the exchanges k = 2 leaves out; the median of ``rounds``. Every
+    process of the row calls it at once."""
+    import torch
+
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.parallel.group import row_barrier
+    from tpuflow_torch.parallel.halo import relax_sharded_explicit
+    from tpuflow_torch.solver.level import LevelScalars
+
+    cfg, (w, h) = FlowConfig(), size
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fxyz = torch.rand((3, h, w), device=dev, generator=gen)
+    uv = torch.zeros((2, h, w), device=dev)
+    sc = LevelScalars.make(w, h, 1.0, 1.0, cfg.equation_alpha)
+    data = mesh.local_row()
+
+    def run(k: int) -> float:
+        torch.cuda.synchronize()
+        row_barrier(mesh.row_ranks(data))
+        t0 = time.perf_counter()
+        relax_sharded_explicit(fxyz, uv, sc, cfg, mesh, k, data=data)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(1), run(2)                        # build, connect and warm up
+    exchanges = {k: -(-cfg.outer_iterations_count // k) - 1 for k in (1, 2)}
+    diffs = []
+    for r in range(rounds):
+        t = {k: run(k) for k in ((1, 2) if r % 2 == 0 else (2, 1))}
+        diffs.append((t[1] - t[2]) / (exchanges[1] - exchanges[2]))
+    return sorted(diffs)[len(diffs) // 2]
+
+
+def _proc_link(rank: int, world: int, messages: int = LINK_MESSAGES,
+               sleep_cycles: int = 200_000_000) -> dict:
+    """One worker of measure_procs_link: this rank and its partner (rank ^ 1)
+    exchange one message each way per batch, at each of LINK_SIZES; then
+    what an exchange costs the explicit route on rows of two (this rank and
+    its partner) and on the row of every rank."""
+    import torch
+
+    from tpuflow_torch.parallel import make_mesh
+    from tpuflow_torch.parallel.group import row_barrier, row_exchange
+    from tpuflow_torch.tools.roofline import device_info
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((world, 1), dev)     # every process at once: joins the messages
+    peer, everyone = rank ^ 1, list(range(world))
+    out = {"card": device_info()["nvidia_smi"], "device": str(dev), "rank": rank,
+           "peer": peer, "distinct_cards": mesh.cards, "sizes_bytes": [], "host_us": [],
+           "device_us": [], "bytes_s": []}
+    def queued(x, got, count: int):
+        """(host s to issue ``count`` batches, device s they take), queued
+        behind a sleep of the card."""
+        torch.cuda.synchronize()
+        row_barrier(everyone)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(count):
+            row_exchange([(peer, x)], [(peer, got)])
+        host = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        return host, start.elapsed_time(end) * 1e-3
+
+    for m in LINK_SIZES:
+        nbytes = m * HALO_BYTES
+        x = torch.rand(nbytes // 4, device=dev)
+        got = torch.empty_like(x)
+        for _ in range(8):                # connect and warm up
+            row_exchange([(peer, x)], [(peer, got)])
+        few, many = queued(x, got, messages // 4), queued(x, got, messages)
+        # the slope between the two runs: the partners' skew at the start drops out
+        device_s = (many[1] - few[1]) / (messages - messages // 4)
+        out["sizes_bytes"].append(nbytes)
+        out["host_us"].append(many[0] / messages * 1e6)
+        out["device_us"].append(device_s * 1e6)
+        out["bytes_s"].append(nbytes / device_s)
+    # two messages each way a batch, one a plane of a halo, as the route sends
+    x = torch.rand(HALO_BYTES // 4, device=dev)
+    got = torch.empty_like(x)
+    half = x.numel() // 2
+    sends = [(peer, x[:half]), (peer, x[half:])]
+    recvs = [(peer, got[:half]), (peer, got[half:])]
+    for _ in range(8):
+        row_exchange(sends, recvs)
+    torch.cuda.synchronize()
+    row_barrier(everyone)
+    torch.cuda._sleep(sleep_cycles)
+    t0 = time.perf_counter()
+    for _ in range(messages):
+        row_exchange(sends, recvs)
+    out["two_planes_host_us"] = (time.perf_counter() - t0) / messages * 1e6
+    torch.cuda.synchronize()
+    out["route_exchange_us"] = {
+        "pairs": _explicit_exchange_s(dev, make_mesh((world // 2, 2), dev)) * 1e6,
+        "row": _explicit_exchange_s(dev, make_mesh((1, world), dev)) * 1e6,
+        "row_peers": [r for r in (rank - 1, rank + 1) if 0 <= r < world]}
+    out["how"] = {"host_us": f"host us to issue one batch ({messages} in a row, the card "
+                             "asleep): a send and a receive with the partner",
+                  "device_us": f"device us a batch: {messages} and {messages // 4} queued "
+                               "behind a sleep, CUDA events on the caller's stream, which "
+                               "waits for each; the slope between the two",
+                  "two_planes_host_us": "the same host us for a batch of two sends and two "
+                                        "receives, half the bytes each",
+                  "route_exchange_us": "us an exchange costs the explicit route "
+                                       "(_explicit_exchange_s): on rows of two, and on the "
+                                       "row of all, with this rank's neighbours"}
+    return out
+
+
 def _proc_worker(argv) -> int:
-    """``--proc-worker WxH PRESET PROFILE REPS K HOST:PORT RANK WORLD``."""
+    """``--proc-worker WxH PRESET PROFILE REPS K HOST:PORT RANK WORLD``, or
+    ``--proc-link HOST:PORT RANK WORLD``."""
     import torch
 
     from tpuflow_torch.parallel.group import process_group
     from tpuflow_torch.parallel.multihost import initialize_distributed
 
-    size = tuple(int(x) for x in argv[0].split("x"))
-    preset, profile, reps, k = argv[1], bool(int(argv[2])), int(argv[3]), int(argv[4])
-    address, rank, world = argv[5], int(argv[6]), int(argv[7])
-    initialize_distributed(address, num_processes=world, process_id=rank)
-    report = _proc_report(rank, world, size, preset, profile, reps, k)
+    if argv[0] == "--proc-link":
+        address, rank, world = argv[1], int(argv[2]), int(argv[3])
+        initialize_distributed(address, num_processes=world, process_id=rank)
+        report = _proc_link(rank, world)
+    else:
+        size = tuple(int(x) for x in argv[0].split("x"))
+        preset, profile, reps, k = argv[1], bool(int(argv[2])), int(argv[3]), int(argv[4])
+        address, rank, world = argv[5], int(argv[6]), int(argv[7])
+        initialize_distributed(address, num_processes=world, process_id=rank)
+        report = _proc_report(rank, world, size, preset, profile, reps, k)
     print("PROCRESULT " + json.dumps(report), flush=True)
     torch.distributed.barrier(group=process_group())
     torch.distributed.destroy_process_group()
@@ -547,9 +753,14 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--proc-worker"]:
         return _proc_worker(argv[1:])
+    if argv[:1] == ["--proc-link"]:
+        return _proc_worker(argv)
     if "--project" in argv:
         pos = [int(a) for a in argv if not a.startswith("-")]
         print(json.dumps(project(*pos[:2]), indent=1))
+        return 0
+    if "--link" in argv and "--procs" in argv:
+        print(json.dumps(measure_procs_link(int(argv[argv.index("--procs") + 1]))))
         return 0
     if "--link" in argv:
         print(json.dumps(measure_link()))
