@@ -21,6 +21,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               (and the kernel's other region height and layout) by
               CUDA-graph replay; and
               add_median at R = 3, 5, 7 bitwise at every shape its window fits
+ 3b. banded   the banded kernel (csrc/banded.cu) under its two wrappers,
+              bitwise against its plain version: gaussian_smooth at
+              584x388, 1920x1080 and 3840x2160 and at 4x4 and 7x5 (sigma
+              1.5 and 8), resample of the frames at every level of those
+              sizes' full_model() schedules and of each level's flow from
+              the level before; per 3840x2160 pair, each wrapper's device
+              ms by CUDA-graph replay in turns with the dense torch.matmul
+              pair of the same weights (TF32 off), its plain ms, its bound,
+              and the dense matrices' bytes against the tables'
   4. e2e      compute_flow(FlowConfig()) (grey) at 584x388 and 1920x1080 on
               a textured pair shifted by (+1.25, -0.75) px: kernel path vs
               plain path, the recovered shift, and at 584x388 the NumPy
@@ -90,9 +99,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               least once), the flow bitwise compute_flow's
  16. async    with a 3840x2160 full_model() pair and a 0.5 s device sleep
               queued, the next pair's staged upload returns while they still
-              run, where a pageable upload waits; the presmooth's matrices
-              come from the device cache; how many launches the host queues
-              ahead of the card before one waits
+              run, where a pageable upload waits; the banded kernel's
+              tables come from the device cache (one hit a launch, no
+              upload); how many launches the host queues ahead of the card
+              before one waits
  17. bench    python -m tpuflow_torch.bench's line (bench.main, in this
               process) for 584x388 grey (with --epe: the full-schedule EPE
               against the oracle for grey, full_model() and
@@ -219,8 +229,11 @@ BOUNDS = {"warp": 1e-4, "level_derivs": 1e-5, "level_tensor_gradient": 1e-5,
           "level_tensor_log": 0.0, "outer_prologue": 0.0, "outer_prologue_tensor": 0.0,
           "jacobi_sweep": 1e-5, "jacobi_sweeps": 1e-5, "add_median": 0.0}
 # The kernels by the names of their launch counts (the kernels line's rows).
-KERNELS = ("warp", "level_derivs", "level_tensor", "outer_prologue", "outer_prologue_tensor",
-           "jacobi_sweep", "jacobi_sweeps", "add_median")
+KERNELS = ("gaussian_smooth", "resample", "warp", "level_derivs", "level_tensor",
+           "outer_prologue", "outer_prologue_tensor", "jacobi_sweep", "jacobi_sweeps",
+           "add_median")
+# The banded kernel's two wrappers (phase 3b); the rest are the level kernels.
+BANDED = ("gaussian_smooth", "resample")
 # jacobi_sweeps against as many chained one-sweep launches: the same
 # expression on the same operands, bitwise.
 CHAIN_BOUND = 0.0
@@ -245,6 +258,15 @@ KSWEEP_SHAPES = ((40, 300), (300, 20), (54, 22), (55, 23), (53, 21), (63, 31), (
                  (55, 15), (53, 13), (63, 23))
 KSWEEP_INNERS = (1, 2, 5, 7)
 MEDIAN_RADII = (3, 5, 7)
+# Phase 3b: the banded kernel (csrc/banded.cu) against its plain version.
+# Both add the same terms in the same order, each operation rounded as
+# float32 (--fmad=false): bitwise. The presmooth also where its radius
+# (4 at sigma 1.5, 24 at 8) exceeds the frame.
+BANDED_BOUND = 0.0
+BANDED_SIZES = (SIZES[0], SIZES[1], SIZE_4K)
+BANDED_SMALL = ((4, 4), (7, 5))
+BANDED_SIGMAS = (1.5, 8.0)
+BANDED_REPLAYS = 5
 # The kernels redesigned since their first port, and what changed. The
 # earlier kernels are gone from the tree, so their times are in PERF.md, not
 # in the kernels line, which holds only what this run measured.
@@ -265,6 +287,11 @@ RELAX = ("tpuflow/ops/pallas/relax_bucket.py:400; tpuflow/ops/pallas/relax_bucke
          "tpuflow/ops/pallas/relax_du.py:457; tpuflow/ops/pallas/relax_du.py:874; "
          "tpuflow/ops/pallas/relax_du.py:241")
 REPLACES = {
+    "gaussian_smooth": "tpuflow/ops/gaussian.py:92 (gaussian_smooth: two banded Toeplitz "
+                       "matmuls, not a pallas_call)",
+    "resample": "tpuflow/ops/resample.py:233,252 (resample_rows_blocked, "
+                "resample_cols_blocked: block-banded matmuls, not a pallas_call) via "
+                "tpuflow/solver/bucketed.py:903 (_resample_trim) and :588 (_resample_top)",
     "warp": "tpuflow/ops/pallas/level_fused.py:179 (_warp_shift_sum in "
             "level_fused_whole); tpuflow/solver/bucketed.py:266",
     "level_derivs": "tpuflow/ops/pallas/level_fused.py:526 (level_fused_whole, "
@@ -533,17 +560,206 @@ def phase_median(card: str, shapes=(SIZES[0], SIZES[1], SIZE_4K) + PROLOGUE_SHAP
     return out
 
 
-def expected_launches(w: int, h: int, cfg, n: int = None) -> dict:
-    """The level kernels' launches of a w x h pair, or of ``n`` of its levels."""
+def banded_inputs(w: int, h: int, seed: int = 2) -> dict:
+    """A seeded frame pair (2, h, w) of intensities and, for each level of
+    the full_model() schedule after the coarsest, a flow at the size of the
+    level before it, all on the card."""
+    import torch
+
+    from tpuflow_torch import models
+    from tpuflow_torch.pyramid import level_schedule
+
+    cfg = models.full_model()
+    specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    flows = [t(rng.standard_normal((2, a.height, a.width)) * 4.0) for a in specs[:-1]]
+    return {"cfg": cfg, "specs": specs, "pair": t(rng.random((2, h, w)) * 255.0),
+            "flows": flows}
+
+
+def banded_calls(x: dict, smoothed) -> dict:
+    """One pair's calls of the banded kernel as the solve makes them, by
+    wrapper: the presmooth of the pair; the frames of every level but level
+    0 from ``smoothed``, and each level's flow from the level before:
+    {wrapper: [(kind, input, sigma or out_w, None or out_h)]}, kind
+    "gaussian" or "resample" (``banded_runner`` makes them)."""
+    sigma = x["cfg"].gaussian_sigma
+    calls = {"gaussian_smooth": [("gaussian", x["pair"], sigma, None)], "resample": []}
+    for p, s in enumerate(x["specs"]):
+        if s.level != 0:
+            calls["resample"].append(("resample", smoothed, s.width, s.height))
+        if p > 0:
+            calls["resample"].append(("resample", x["flows"][p - 1], s.width, s.height))
+    return calls
+
+
+def banded_runner(calls: list, form: str):
+    """A function that makes ``calls`` in ``form``: "kernel" (the wrapper),
+    "plain" (its plain version) or "dense" (the dense torch.matmul pair of
+    the same weights, the library yardstick; its matrices are uploaded
+    here, once)."""
+    import torch
+
+    from tpuflow_torch.ops.gaussian import conv_matrix, gaussian_smooth, gaussian_smooth_plain
+    from tpuflow_torch.ops.resample import resample, resample_plain, resample_weights
+
+    if form != "dense":
+        fns = {"kernel": {"gaussian": gaussian_smooth, "resample": resample},
+               "plain": {"gaussian": gaussian_smooth_plain, "resample": resample_plain}}[form]
+        return lambda: [fns[k](img, a, b) if b is not None else fns[k](img, a)
+                        for k, img, a, b in calls]
+    mats = []
+    for kind, img, a, b in calls:
+        ih, iw = img.shape[-2:]
+        if kind == "gaussian":
+            mx, my = conv_matrix(iw, float(a)), conv_matrix(ih, float(a))
+        else:
+            mx, my = resample_weights(iw, a), resample_weights(ih, b)
+        mats.append((img, torch.from_numpy(mx).cuda(), torch.from_numpy(my).cuda()))
+    return lambda: [torch.matmul(my, torch.matmul(img, mx.T)) for img, mx, my in mats]
+
+
+def banded_time(x: dict, smoothed, card: str) -> dict:
+    """Per pair of ``x``'s size: each wrapper's device ms by CUDA-graph replay
+    of the pair's calls, in turns with the dense torch.matmul pair of the
+    same weights (TF32 off; the library yardstick, which the port does not
+    call), the plain version's ms, and the bound; and the dense matrices'
+    bytes against the tables'. Emits the row and returns it."""
+    import torch
+
+    from tpuflow_torch.ops.banded import band_table
+    from tpuflow_torch.ops.gaussian import gaussian_band
+    from tpuflow_torch.ops.resample import resample_band
+    from tpuflow_torch.tools.roofline import (
+        F32_ISSUE_PER_S, PEAK_BYTES_PER_S, banded_launches, cuda_ms, graph_ms, kernel_work,
+    )
+
+    h, w = x["pair"].shape[-2:]
+    calls = banded_calls(x, smoothed)
+    launches = banded_launches(w, h, x["cfg"])
+    bounds = {"gaussian_smooth": launches[:2], "resample": launches[2:]}
+    row = {"phase": "banded_time", "shape": [h, w], "config": "models.full_model()",
+           "card": card, "timing": "CUDA-graph replay of one pair's calls, in turns "
+           "(kernel, dense, dense, kernel); plain: CUDA events over one call, host-paced"}
+    for name in BANDED:
+        runs = {form: banded_runner(calls[name], form) for form in ("kernel", "dense")}
+        ms = {form: [] for form in runs}
+        for form in ("kernel", "dense", "dense", "kernel"):
+            ms[form].append(graph_ms(runs[form], calls=1, replays=BANDED_REPLAYS))
+        works = [kernel_work(n, lh, lw, **kw) for n, lh, lw, kw in bounds[name]]
+        t_bytes = sum(k["bytes"] for k in works) / PEAK_BYTES_PER_S * 1e3
+        t_ops = sum(k["instructions"] for k in works) / F32_ISSUE_PER_S * 1e3
+        row[name] = {"launches_per_pair": len(works), "ms": min(ms["kernel"]),
+                     "ms_all": ms["kernel"], "library_ms": min(ms["dense"]),
+                     "library_ms_all": ms["dense"],
+                     "plain_ms": cuda_ms(banded_runner(calls[name], "plain"), 1),
+                     "bound_ms": sum(k["bound_ms"] for k in works),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes_per_pair": sum(k["bytes"] for k in works)}
+        row[name]["share"] = row[name]["bound_ms"] / row[name]["ms"]
+        row[name]["speedup_over_dense"] = row[name]["library_ms"] / row[name]["ms"]
+        del runs
+        torch.cuda.empty_cache()
+    # what each form keeps on the card: every dense matrix of a pair against
+    # every table
+    dense_keys, table_keys = set(), set()
+    for kind, img, a, b in calls["gaussian_smooth"] + calls["resample"]:
+        ih, iw = img.shape[-2:]
+        if kind == "gaussian":
+            dense_keys |= {("g", iw), ("g", ih)}
+            table_keys |= {(gaussian_band, iw, float(a)), (gaussian_band, ih, float(a))}
+        else:
+            dense_keys |= {("r", iw, a), ("r", ih, b)}
+            table_keys |= {(resample_band, iw, a), (resample_band, ih, b)}
+    row["dense_matrix_bytes"] = sum(4 * k[1] * (k[1] if k[0] == "g" else k[2])
+                                    for k in dense_keys)
+    row["table_bytes"] = sum(band_table(*k, torch.device("cuda", 0)).nbytes
+                             for k in table_keys)
+    row["tables"] = len(table_keys)
+    emit(row)
+    return row
+
+
+def phase_banded(card: str) -> dict:
+    """Phase 3b: the banded kernel under both wrappers, bitwise (BANDED_BOUND)
+    against its plain version: the presmooth at BANDED_SIZES (sigma 1.5) and
+    at BANDED_SMALL (sigma 1.5 and 8, radius over the frame), the frames of
+    every level of their full_model() schedules from the smoothed pair, and
+    every level's flow from the level before; then ``banded_time`` at each
+    of BANDED_SIZES. Returns {wrapper: kernels-line numbers at 3840x2160},
+    with the dense matrices' and the tables' bytes there. Launches here are
+    not counted on the main path."""
+    import torch
+
+    from tpuflow_torch.ops.gaussian import gaussian_smooth, gaussian_smooth_plain
+    from tpuflow_torch.ops.resample import resample, resample_plain
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for matmuls: the dense yardstick would not be float32")
+    out = {name: {"max_abs_err": 0.0, "checks": 0} for name in BANDED}
+
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        entry = out[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["checks"] += 1
+        if not (err <= BANDED_BOUND and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{name} {what}: max abs {err} > {BANDED_BOUND}, or non-finite")
+
+    for w, h in BANDED_SMALL:
+        pair = torch.from_numpy(np.random.default_rng(w).random((2, h, w), np.float32)).cuda()
+        for sigma in BANDED_SIGMAS:
+            check("gaussian_smooth", gaussian_smooth(pair, sigma),
+                  gaussian_smooth_plain(pair, sigma), f"at {w}x{h}, sigma {sigma}")
+    for w, h in BANDED_SIZES:
+        x = banded_inputs(w, h)
+        sigma = x["cfg"].gaussian_sigma
+        sm = gaussian_smooth(x["pair"], sigma)
+        check("gaussian_smooth", sm, gaussian_smooth_plain(x["pair"], sigma), f"at {w}x{h}")
+        for kind, img, ow, oh in banded_calls(x, sm)["resample"]:
+            check("resample", resample(img, ow, oh), resample_plain(img, ow, oh),
+                  f"{tuple(img.shape)} -> {oh}x{ow}")
+        emit({"phase": "banded", "shape": [h, w], "config": "models.full_model()",
+              "levels": len(x["specs"]), "checks": {k: v["checks"] for k, v in out.items()},
+              "max_abs_err": {k: v["max_abs_err"] for k, v in out.items()},
+              "bound": BANDED_BOUND, "ok": True})
+        row = banded_time(x, sm, card)
+        for name in BANDED:
+            out[name].setdefault("ms_by_shape", {})[f"{w}x{h}"] = {
+                k: row[name][k] for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
+        del x, sm
+        torch.cuda.empty_cache()
+    for name in BANDED:        # the kernels line's numbers: the last size, 3840x2160
+        out[name].update({k: row[name][k] for k in (
+            "ms", "library_ms", "plain_ms", "bound_ms", "bound_by", "share",
+            "launches_per_pair", "bytes_per_pair")})
+    out["dense_matrix_bytes"], out["table_bytes"] = row["dense_matrix_bytes"], row["table_bytes"]
+    return out
+
+
+def expected_launches(w: int, h: int, cfg, levels: range = None, smooth: bool = True) -> dict:
+    """The solve's launches of a w x h pair, or of the positions ``levels``
+    of its schedule (``smooth``: with the presmooth). The banded kernel:
+    two passes (X, then Y) for the presmooth, for the frames at every level
+    but level 0 (from the full-size pair) and for the flow at every level
+    after the coarsest whose size differs from the level before."""
     from tpuflow_torch.config import DataConstancy
     from tpuflow_torch.ops.level import KMAX
     from tpuflow_torch.pyramid import level_schedule
 
-    if n is None:
-        n = len(level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor))
+    specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    levels = range(len(specs)) if levels is None else levels
+    n = len(levels)
+    resamples = sum((specs[p].level != 0)
+                    + (p > 0 and (specs[p - 1].width, specs[p - 1].height)
+                       != (specs[p].width, specs[p].height)) for p in levels)
     outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
     tensor = cfg.data_constancy != DataConstancy.GREY
-    return {"warp": n, "level_derivs": n, "level_tensor": n if tensor else 0,
+    return {"gaussian_smooth": 2 if smooth and cfg.gaussian_sigma > 0 else 0,
+            "resample": 2 * resamples,
+            "warp": n, "level_derivs": n, "level_tensor": n if tensor else 0,
             "outer_prologue": 0 if tensor else n * outer,
             "outer_prologue_tensor": n * outer if tensor else 0, "jacobi_sweep": 0,
             "jacobi_sweeps": n * outer * -(-inner // KMAX), "add_median": n, "levels": n}
@@ -1564,15 +1780,17 @@ def phase_async(card: str) -> None:
     """compute_flow_async's upload does not wait for the card: with a
     3840x2160 full_model() pair and SLEEP_CYCLES queued, the next pair's
     staged upload returns while they still run, where a pageable upload in
-    the same place waits; the presmooth's matrices come from the device
-    cache; the second pair's flow is bitwise the first's. Also how many
+    the same place waits; the banded kernel's tables (presmooth and
+    resample) come from the device cache, one hit a launch and no upload;
+    the second pair's flow is bitwise the first's. Also how many
     launches the host can queue ahead of the card before a launch waits."""
     import torch
 
     from tpuflow_torch import compute_flow_async, models
-    from tpuflow_torch.ops import gaussian
+    from tpuflow_torch.ops.banded import band_table
     from tpuflow_torch.solver import flow2d
     from tpuflow_torch.synthetic import textured_pair
+    from tpuflow_torch.tools.roofline import banded_launches
 
     w, h = SIZE_4K
     cfg = models.full_model()
@@ -1580,7 +1798,7 @@ def phase_async(card: str) -> None:
     f0, f1 = textured_pair(w, h)
     compute_flow_async(f0, f1, cfg)          # warm: staging ring, caches
     torch.cuda.synchronize()
-    before = gaussian._device_matrix.cache_info()
+    before = band_table.cache_info()
     queued = torch.cuda.Event()
     t0 = time.perf_counter()
     first = compute_flow_async(f0, f1, cfg)
@@ -1594,7 +1812,7 @@ def phase_async(card: str) -> None:
     second = compute_flow_async(f0, f1, cfg)
     t4 = time.perf_counter()
     second_behind_queue = not queued.query()
-    after = gaussian._device_matrix.cache_info()
+    after = band_table.cache_info()
     torch.cuda.synchronize()
     same = torch.equal(first, second)
     # the contrast: a pageable upload behind the same queue
@@ -1628,11 +1846,13 @@ def phase_async(card: str) -> None:
            "launches_per_pair": sum(expected_launches(w, h, cfg)[k] for k in MAIN_PATH),
            "launches_queued_before_a_launch_waits": depth,
            "second_flow_bitwise_first": same,
-           "gaussian_matrix_uploads": after.misses - before.misses,
-           "gaussian_matrix_cache_hits": after.hits - before.hits}
+           "band_table_uploads": after.misses - before.misses,
+           "band_table_cache_hits": after.hits - before.hits,
+           # one table a launch of the banded kernel, for each of the two pairs
+           "band_table_cache_hits_expected": 2 * len(banded_launches(w, h, cfg))}
     row["ok"] = (upload_behind_queue and pageable_waited and same
-                 and row["gaussian_matrix_uploads"] == 0
-                 and row["gaussian_matrix_cache_hits"] == 4)
+                 and row["band_table_uploads"] == 0
+                 and row["band_table_cache_hits"] == row["band_table_cache_hits_expected"])
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"async: {row}")
@@ -1846,10 +2066,11 @@ def phase_mesh_explicit(card: str) -> dict:
 
 
 def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, data: int = 0,
-                            levels: range = None) -> dict:
+                            levels: range = None, smooth: bool = True) -> dict:
     """Launch counts of compute_flow_sharded on ``halo``'s routes over data
-    row ``data`` (or of ``levels`` of its schedule), the explicit route's
-    copies and, over processes, this process's messages."""
+    row ``data`` (or of ``levels`` of its schedule, with the presmooth if
+    ``smooth``), the explicit route's copies and, over processes, this
+    process's messages."""
     from tpuflow_torch.ops.level import KMAX
     from tpuflow_torch.parallel.halo import explicit_copies, explicit_sends
     from tpuflow_torch.solver.sharded import sharded_plan
@@ -1857,7 +2078,7 @@ def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, da
     plan = sharded_plan(w, h, cfg, mesh, halo, k, data)
     if levels is not None:
         plan = plan[levels.start:levels.stop]
-    want = expected_launches(w, h, cfg, len(plan))
+    want = expected_launches(w, h, cfg, levels, smooth)
     prologue = "outer_prologue" if want["outer_prologue"] else "outer_prologue_tensor"
     outer, passes = cfg.outer_iterations_count, -(-cfg.inner_iterations_count // KMAX)
     want.update({prologue: 0, "jacobi_sweeps": 0, "relax_sharded": 0, "copies": 0,
@@ -2389,7 +2610,7 @@ def expected_hybrid_counts(w: int, h: int, cfg, mesh, b: int) -> dict:
     coarse = scaled(expected_sharded_counts(w, h, cfg, mesh, "auto", data=data,
                                             levels=range(0, g0)), len(range(me, b, mesh.size)))
     fine = scaled(expected_sharded_counts(w, h, cfg, mesh, "auto", data=data,
-                                          levels=range(g0, n)),
+                                          levels=range(g0, n), smooth=False),
                   sum(i % mesh.n_data == data for i in range(b)))
     want = {key: coarse[key] + fine[key] for key in coarse}
     want["messages"] += sum(len(to) * (1 + (g0 > 0)) for _, owner, to in hybrid_moves(b, mesh)
@@ -2636,6 +2857,7 @@ def main() -> int:
     table = phase_kernels()
     ksweep = phase_ksweep(card)
     median = phase_median(card)
+    banded = phase_banded(card)
     counts, pairs = {}, {}
     for w, h in SIZES:
         pairs[(w, h, "reference_default")] = phase_e2e(w, h, "reference_default", counts,
@@ -2698,7 +2920,23 @@ def main() -> int:
 
     # The kernels line: times and bounds at 3840x2160 (1920x1080 beside them).
     rows = []
+    for name in BANDED:
+        b = banded[name]
+        rows.append({"name": name, "route": "cuda", "source": "tpuflow_torch/csrc/banded.cu",
+                     "replaces": REPLACES[name], "launches": counts[name],
+                     "max_abs_err": b["max_abs_err"], "checks": b["checks"],
+                     "shape": list(SIZE_4K[::-1]), "per": "one 3840x2160 full_model() pair",
+                     "launches_per_pair": b["launches_per_pair"], "ms": b["ms"],
+                     "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"], "resource": "device memory",
+                     "share": b["share"], "library_ms": b["library_ms"],
+                     "library": "torch.matmul, the dense pair of the same weights (TF32 off)",
+                     "dense_matrix_bytes_4k": banded["dense_matrix_bytes"],
+                     "table_bytes_4k": banded["table_bytes"],
+                     "device_ms_by_shape": b["ms_by_shape"]})
     for name in KERNELS:
+        if name in BANDED:
+            continue
         t = table["level_tensor_gradient" if name == "level_tensor" else name]
         b = bounds["level_tensor_gradient" if name == "level_tensor" else name]
         row = {"name": name, "route": "cuda", "source": "tpuflow_torch/csrc/level.cu",

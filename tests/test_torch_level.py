@@ -12,6 +12,10 @@ for grey constancy, and for the gradient and log constancies, whose
 second-order tensor the TPU kernels build in-kernel (level_fused.py:291-322)
 or take through ``tensor=``.
 
+The whole level takes its resampled frames and flow from the JAX step's
+own resample (``_resample_trim``), against which the port's resample is
+held within 1e-6 of max |value|.
+
 Bounds: 1 outer x 1 inner agrees to max abs 1e-4 (the class of
 tests/test_level_fused.py:205); more iterations are bounded on mean EPE
 1e-3, because the lagged nonlinearity amplifies cross-program ulp noise at
@@ -31,7 +35,8 @@ from tpuflow.ops.pallas.level_fused import level_fused
 from tpuflow.ops.pallas.relax_bucket import relax_bucket_fused
 from tpuflow.ops.pallas.relax_du import relax_du_fused
 from tpuflow.solver.bucketed import (
-    LevelScalars as JLevelScalars, _trim_eff, bucket_dims, bucketed_level_step_trim,
+    LevelScalars as JLevelScalars, _resample_trim, _trim_eff, bucket_dims,
+    bucketed_level_step_trim,
     level_constants, maintain_mirror1, maintain_mirror2,
 )
 
@@ -51,6 +56,9 @@ def cfgs(constancy="grey", **kw):
 
 
 TENSOR = ["gradient", "log"]
+# the port's resample against JAX's matmuls: the same products, summed in
+# another order (tests/test_torch_banded.py)
+RESAMPLE_REL = 1e-6
 
 
 def max_abs(got_uv, want_u, want_v, ch, cw):
@@ -98,7 +106,18 @@ def run_whole(s, jcfg, tcfg, finest=False):
     uv_prev = T(np.ascontiguousarray(s["uv_t"][:, :s["prev_ch"], :s["prev_cw"]]))
     sc = LevelScalars.make(cw, ch, w0 / cw, h0 / ch, 35.0)
     frames_l = frames if finest else resample(frames, cw, ch)
-    got = level_step(frames_l, resample(uv_prev, cw, ch), sc, tcfg).numpy()
+    uv_l = resample(uv_prev, cw, ch)
+    # The level's inputs as the JAX step resamples them. The port's resample
+    # adds each window in the reference's order (bitwise oracle_np.resample),
+    # JAX's box matmuls in another; a 24 px random flow carries that last-bit
+    # difference through the warp. So the port's resample is held to JAX's
+    # here, and the level step is given JAX's.
+    jres = np.asarray(_resample_trim(
+        jnp.asarray(s["f"]), jnp.asarray(s["uv_t"][0]), jnp.asarray(s["uv_t"][1]), jsc, eff,
+        s["top_bucket"], finest))[:, :ch, :cw]
+    for mine, theirs in ((frames_l.numpy(), jres[:2]), (uv_l.numpy(), jres[2:])):
+        assert np.abs(mine - theirs).max() <= RESAMPLE_REL * np.abs(theirs).max()
+    got = level_step(T(jres[:2].copy()), T(jres[2:].copy()), sc, tcfg).numpy()
     return got, want_u, want_v
 
 

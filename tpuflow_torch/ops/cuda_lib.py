@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("level.cu", "probes.cu", "sharded.cu")
+SOURCES = ("level.cu", "probes.cu", "sharded.cu", "banded.cu")
 HEADERS = ("level_body.cuh",)
 # No fast math: sqrtf and '/' must round as IEEE. --fmad=false keeps every
 # multiply and add rounded on its own, as the JAX kernels associate them.
@@ -51,6 +51,7 @@ SIGNATURES = {
     "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
     "tf_roofline_micro": (_P, _P, _P, _I, _I, _I, _I, _P),
     "tf_probe_matmul": (_P, _P, _P, _I, _I, _I, _P),
+    "tf_banded": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 # Entry points that take their streams in their arguments (``call``).
 STREAMLESS_SIGNATURES = {

@@ -1,7 +1,8 @@
 """A bounded cache of tensors built on the host and kept on their device.
 
-The presmooth's and the resample's matrices are read by every stream of a
-device: the mesh's positions each have one. A tensor is made by a copy from
+The banded kernel's tables (the presmooth's and the resample's windows,
+``ops/banded.py``) are read by every stream of a device: the mesh's
+positions each have one. A tensor is made by a copy from
 pageable memory, which has completed when the copy returns, so any stream
 may read it at once. Its memory may go back to the allocator only when no
 stream still has a read of it queued: the allocator knows only the stream

@@ -34,7 +34,9 @@ from __future__ import annotations
 import torch
 
 from tpuflow_torch.ops.cuda_lib import launch, on_cuda
+from tpuflow_torch.ops.gaussian import gaussian_smooth
 from tpuflow_torch.ops.median import effective_radius, median_plain
+from tpuflow_torch.ops.resample import resample
 from tpuflow_torch.ops.solver_ops import (
     derivative_tensor, edge_weights, first_derivs, ksi_grey, phi_from_T, shifts,
 )
@@ -315,8 +317,11 @@ for _fn in (level_derivs, level_tensor, outer_prologue, jacobi_sweep, jacobi_swe
     _fn.launches = 0
 outer_prologue.tensor_launches = 0
 
-# Every kernel of the level path by name, as (wrapper, its counter attribute).
+# Every kernel of the solve's path by name, as (wrapper, its counter attribute):
+# the banded kernel under its two wrappers, then the level kernels.
 KERNELS = {
+    "gaussian_smooth": (gaussian_smooth, "launches"),
+    "resample": (resample, "launches"),
     "warp": (warp, "launches"),
     "level_derivs": (level_derivs, "launches"),
     "level_tensor": (level_tensor, "launches"),

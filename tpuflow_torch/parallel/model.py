@@ -141,7 +141,7 @@ def relax_launches(cfg: FlowConfig) -> int:
 def level_launches(cfg: FlowConfig) -> int:
     """Launches of one unsharded level: the relaxation, the warp, the
     derivatives, the tensor (gradient and log), the median and the four
-    resample matmuls."""
+    banded resample passes (the frames' and the flow's, X then Y)."""
     tensor = cfg.data_constancy != DataConstancy.GREY
     return relax_launches(cfg) + 3 + int(tensor) + 4
 

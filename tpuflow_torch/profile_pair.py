@@ -9,7 +9,8 @@ the wall ms, the device busy ms (the sum of the device time of every kernel
 and copy), the idle share, the device ms by kernel name, and the device ms
 of the layers ``gaussian`` (presmooth) and ``resample`` (frames and flow),
 read from the ``record_function`` ranges that ``ops/gaussian.py`` and
-``ops/resample.py`` open, and for each level kernel its device ms and
+``ops/resample.py`` open, and for each kernel of the solve (the level
+kernels, and the banded kernel's passes along x and y) its device ms and
 launches beside the pair's bound (``roofline.pair_bounds``: launches x
 bound at each level's own size) and the gap between them, largest first.
 
@@ -64,7 +65,9 @@ REPS = 3
 LAYERS = ("gaussian", "resample")
 PROFILER_OVERHEAD = ("Activity Buffer Request",)  # CUPTI's own device records
 # roofline.kernel_work names -> the demangled kernel name in csrc/level.cu
+# and csrc/banded.cu
 LEVEL_KERNELS = {
+    "banded_x": "banded_x_kernel(", "banded_y": "banded_y_kernel(",
     "warp": "warp_kernel(", "level_derivs": "level_derivs_kernel(",
     "level_tensor_gradient": "level_tensor_kernel(",
     "level_tensor_log": "level_tensor_log_kernel(",
@@ -89,7 +92,7 @@ def profile_pair(w: int, h: int, preset: str) -> dict:
     cfg = getattr(models, preset)()
     f0, f1 = textured_pair(w, h)
     run = lambda: compute_flow(f0, f1, cfg, device="cuda")  # noqa: E731
-    run()  # warm-up: builds the kernels and the resample weights
+    run()  # warm-up: builds the kernels and the band tables
     wall = []
     for _ in range(REPS):
         t0 = time.perf_counter()

@@ -297,8 +297,26 @@ def _ksweep_design_bytes(h: int, w: int, inner: int) -> int:
     return total * 4
 
 
+def _banded_work(name: str, h: int, w: int, out_n: int | None, sigma: float | None,
+                 planes: int) -> tuple:
+    """(bytes, instructions) of one banded pass over (planes, h, w): the
+    input and the band's table read once, the output written once; a
+    multiply and an add per term of each output's window and one multiply
+    by norm, counted from the band's own windows."""
+    from tpuflow_torch.ops.gaussian import gaussian_band
+    from tpuflow_torch.ops.resample import resample_band
+
+    along = w if name == "banded_x" else h
+    band = gaussian_band(along, float(sigma)) if sigma else resample_band(along, out_n)
+    other = h if name == "banded_x" else w
+    outs = planes * other * band.out_n
+    nbytes = (planes * h * w + outs) * 4 + band.packed().nbytes
+    return nbytes, planes * other * (2 * int(band.count.sum()) + band.out_n)
+
+
 def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: int = 1,
-                cfg: FlowConfig | None = None, inner: int = 5, cards: int = 1) -> dict:
+                cfg: FlowConfig | None = None, inner: int = 5, cards: int = 1,
+                out_n: int | None = None, sigma: float | None = None, planes: int = 2) -> dict:
     """What one launch of kernel ``name`` on an (h, w) level needs, and its
     bound on this card: the largest of device-memory bytes over the memory
     rate (each input byte read once, each output byte written once),
@@ -318,8 +336,10 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
     the halos one card sends one neighbour card, at NVLINK_BYTES_PER_S),
     ``roofline_micro_<body>`` (one call of
     ``PASSES`` passes on an (h, w) field, one shared-memory load per pass by
-    the probe's design) and ``probe_matmul`` ((h, H0) @ (H0, w), one FFMA
-    per product)."""
+    the probe's design), ``probe_matmul`` ((h, H0) @ (H0, w), one FFMA
+    per product) and ``banded_x``/``banded_y`` (one banded pass over
+    ``planes`` (h, w) planes along x or y: the resample's to ``out_n``, or
+    with ``sigma`` the Gaussian's; ``_banded_work``)."""
     npix = h * w
     shared = 0
     extra = {}
@@ -345,6 +365,9 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
         nbytes = (N_IN + 1) * npix * 4
         shared = PASSES * npix * BODIES[body][1]["loads"] * 4
         instr, flops = (PASSES * npix * n for n in _instructions_and_flops(_BODY_OPS[body]))
+    elif name in ("banded_x", "banded_y"):
+        nbytes, instr = _banded_work(name, h, w, out_n, sigma, planes)
+        flops = instr
     elif name == "probe_matmul":
         from tpuflow_torch.tools.probe_kernel_matmul import H0
 
@@ -402,11 +425,39 @@ def level_bound_ms(h: int, w: int, cfg: FlowConfig | None = None) -> float:
                for name, n, kw in level_launches(cfg))
 
 
+def banded_launches(w: int, h: int, cfg: FlowConfig | None = None) -> list:
+    """The banded kernel's launches of one (w, h) pair (``solver/level.py``)
+    under ``cfg``, as (``kernel_work`` name, h, w, keyword arguments): the
+    presmooth's two passes over the full-size pair (none at sigma <= 0);
+    then at each level the frames' two passes from the full-size pair (not
+    at level 0) and the flow's from the level before (not at the coarsest,
+    nor where the size stays), X then Y."""
+    from tpuflow_torch.pyramid import level_schedule
+
+    cfg = cfg or FlowConfig()
+    out = []
+    if cfg.gaussian_sigma > 0.0:
+        sigma = float(cfg.gaussian_sigma)
+        out += [("banded_x", h, w, {"sigma": sigma}), ("banded_y", h, w, {"sigma": sigma})]
+    prev = None
+    for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor):
+        sources = ([(h, w)] if s.level != 0 else []) + (
+            [(prev.height, prev.width)] if prev is not None
+            and (prev.height, prev.width) != (s.height, s.width) else [])
+        for ih, iw in sources:
+            out += [("banded_x", ih, iw, {"out_n": s.width}),
+                    ("banded_y", ih, s.width, {"out_n": s.height})]
+        prev = s
+    return out
+
+
 def pair_bounds(w: int, h: int, cfg: FlowConfig | None = None) -> dict:
     """{kernel: {"launches", "bound_ms"}} of one (w, h) pair of the level
     path (``solver/level.py``) under ``cfg`` (default ``FlowConfig()``):
     each level kernel's launches over the level schedule, and the sum over
-    the levels of launches x ``kernel_work`` at the level's own size. The
+    the levels of launches x ``kernel_work`` at the level's own size; and
+    the banded kernel's passes along x and y (``banded_launches``: the
+    presmooth and every level's resample), each at its own sizes. The
     pyramid's levels are smaller than level 0, so this is the bound a pair's
     device time by kernel (``profile_pair``) is read against, not launches
     x the level-0 bound."""
@@ -419,6 +470,10 @@ def pair_bounds(w: int, h: int, cfg: FlowConfig | None = None) -> dict:
         for name, n, kw in per_level:
             out[name]["launches"] += n
             out[name]["bound_ms"] += n * kernel_work(name, s.height, s.width, **kw)["bound_ms"]
+    for name, lh, lw, kw in banded_launches(w, h, cfg):
+        entry = out.setdefault(name, {"launches": 0, "bound_ms": 0.0})
+        entry["launches"] += 1
+        entry["bound_ms"] += kernel_work(name, lh, lw, **kw)["bound_ms"]
     return out
 
 
