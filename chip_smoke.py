@@ -21,15 +21,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               (and the kernel's other region height and layout) by
               CUDA-graph replay; and
               add_median at R = 3, 5, 7 bitwise at every shape its window fits
- 3b. banded   the banded kernel (csrc/banded.cu) under its two wrappers,
-              bitwise against its plain version: gaussian_smooth at
-              584x388, 1920x1080 and 3840x2160 and at 4x4 and 7x5 (sigma
-              1.5 and 8), resample of the frames at every level of those
-              sizes' full_model() schedules and of each level's flow from
-              the level before; per 3840x2160 pair, each wrapper's device
-              ms by CUDA-graph replay in turns with the dense torch.matmul
-              pair of the same weights (TF32 off), its plain ms, its bound,
-              and the dense matrices' bytes against the tables'
+ 3b. banded   both banded kernels (csrc/banded.cu: banded_x_kernel,
+              banded_y_kernel) under their wrappers, bitwise against their
+              plain versions: gaussian_smooth at 584x388, 1920x1080 and
+              3840x2160 and at 4x4 and 7x5 (sigma 0.5, 1.5 and 8); the frame
+              pyramid of those sizes' full_model() schedules in its one X
+              and one Y launch (each level, and each level's X output alone)
+              and each level's flow from the level before; rows too wide for
+              one staged buffer of 8 rows (BANDED_WIDE, unstaged); per pair,
+              each wrapper's device ms by CUDA-graph replay in turns with
+              the dense torch.matmul pair of the same weights (TF32 off), its
+              X and Y launches alone, its plain ms, its bound, and the dense
+              matrices' bytes against the plans'
   4. e2e      compute_flow(FlowConfig()) (grey) at 584x388 and 1920x1080 on
               a textured pair shifted by (+1.25, -0.75) px: kernel path vs
               plain path, the recovered shift, and at 584x388 the NumPy
@@ -99,10 +102,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               least once), the flow bitwise compute_flow's
  16. async    with a 3840x2160 full_model() pair and a 0.5 s device sleep
               queued, the next pair's staged upload returns while they still
-              run, where a pageable upload waits; the banded kernel's
-              tables come from the device cache (one hit a launch, no
-              upload); how many launches the host queues ahead of the card
-              before one waits
+              run, where a pageable upload waits; the banded kernels' plans
+              come from the device cache (one hit a launch, no upload); how
+              many launches the host queues ahead of the card before one
+              waits
  17. bench    python -m tpuflow_torch.bench's line (bench.main, in this
               process) for 584x388 grey (with --epe: the full-schedule EPE
               against the oracle for grey, full_model() and
@@ -232,7 +235,7 @@ BOUNDS = {"warp": 1e-4, "level_derivs": 1e-5, "level_tensor_gradient": 1e-5,
 KERNELS = ("gaussian_smooth", "resample", "warp", "level_derivs", "level_tensor",
            "outer_prologue", "outer_prologue_tensor", "jacobi_sweep", "jacobi_sweeps",
            "add_median")
-# The banded kernel's two wrappers (phase 3b); the rest are the level kernels.
+# The banded kernels' two wrappers (phase 3b); the rest are the level kernels.
 BANDED = ("gaussian_smooth", "resample")
 # jacobi_sweeps against as many chained one-sweep launches: the same
 # expression on the same operands, bitwise.
@@ -258,14 +261,19 @@ KSWEEP_SHAPES = ((40, 300), (300, 20), (54, 22), (55, 23), (53, 21), (63, 31), (
                  (55, 15), (53, 13), (63, 23))
 KSWEEP_INNERS = (1, 2, 5, 7)
 MEDIAN_RADII = (3, 5, 7)
-# Phase 3b: the banded kernel (csrc/banded.cu) against its plain version.
+# Phase 3b: the banded kernels (csrc/banded.cu) against their plain versions.
 # Both add the same terms in the same order, each operation rounded as
 # float32 (--fmad=false): bitwise. The presmooth also where its radius
 # (4 at sigma 1.5, 24 at 8) exceeds the frame.
 BANDED_BOUND = 0.0
 BANDED_SIZES = (SIZES[0], SIZES[1], SIZE_4K)
 BANDED_SMALL = ((4, 4), (7, 5))
-BANDED_SIGMAS = (1.5, 8.0)
+# Rows too wide for one staged buffer of 8 rows in shared memory (the
+# unstaged instantiation), as w x h.
+BANDED_WIDE = ((9001, 6),)
+# 0.5: three taps, one interior weight shared by every window (not 1: a
+# taps level); 8: a radius over the frame.
+BANDED_SIGMAS = (0.5, 1.5, 8.0)
 BANDED_REPLAYS = 5
 # The kernels redesigned since their first port, and what changed. The
 # earlier kernels are gone from the tree, so their times are in PERF.md, not
@@ -578,45 +586,84 @@ def banded_inputs(w: int, h: int, seed: int = 2) -> dict:
             "flows": flows}
 
 
+def frame_sizes(specs, w: int, h: int) -> tuple:
+    """The frame pyramid's sizes as the solve takes them: each distinct size
+    of the levels but level 0 and the full size."""
+    return tuple(dict.fromkeys((s.width, s.height) for s in specs
+                               if s.level != 0 and (s.width, s.height) != (w, h)))
+
+
 def banded_calls(x: dict, smoothed) -> dict:
-    """One pair's calls of the banded kernel as the solve makes them, by
-    wrapper: the presmooth of the pair; the frames of every level but level
-    0 from ``smoothed``, and each level's flow from the level before:
-    {wrapper: [(kind, input, sigma or out_w, None or out_h)]}, kind
-    "gaussian" or "resample" (``banded_runner`` makes them)."""
-    sigma = x["cfg"].gaussian_sigma
-    calls = {"gaussian_smooth": [("gaussian", x["pair"], sigma, None)], "resample": []}
-    for p, s in enumerate(x["specs"]):
-        if s.level != 0:
-            calls["resample"].append(("resample", smoothed, s.width, s.height))
-        if p > 0:
-            calls["resample"].append(("resample", x["flows"][p - 1], s.width, s.height))
+    """One pair's calls of the banded kernels as the solve makes them, by
+    wrapper: the presmooth of the pair; the frame pyramid of ``smoothed``
+    (every level's frames, one call); each level's flow from the level
+    before where the size changes: {wrapper: [(kind, input, specs along x,
+    specs along y)]}, kind "gaussian", "levels" or "resample"
+    (``banded_runner`` makes them)."""
+    from tpuflow_torch.ops.gaussian import gaussian_band
+    from tpuflow_torch.ops.resample import resample_band
+
+    sigma = float(x["cfg"].gaussian_sigma)
+    h, w = x["pair"].shape[-2:]
+    calls = {"gaussian_smooth": [("gaussian", x["pair"], ((gaussian_band, w, sigma),),
+                                  ((gaussian_band, h, sigma),))], "resample": []}
+    sizes = frame_sizes(x["specs"], w, h)
+    if sizes:
+        calls["resample"].append(("levels", smoothed,
+                                  tuple((resample_band, w, a) for a, _ in sizes),
+                                  tuple((resample_band, h, b) for _, b in sizes)))
+    for p, s in enumerate(x["specs"][1:], 1):
+        flow = x["flows"][p - 1]
+        ih, iw = flow.shape[-2:]
+        if (ih, iw) != (s.height, s.width):
+            calls["resample"].append(("resample", flow, ((resample_band, iw, s.width),),
+                                      ((resample_band, ih, s.height),)))
     return calls
 
 
 def banded_runner(calls: list, form: str):
     """A function that makes ``calls`` in ``form``: "kernel" (the wrapper),
-    "plain" (its plain version) or "dense" (the dense torch.matmul pair of
-    the same weights, the library yardstick; its matrices are uploaded
-    here, once)."""
+    "plain" (its plain version), "x" or "y" (only the X, or only the Y,
+    launches of the wrapper's kernels; "y" reads X's outputs, made here
+    once) or "dense" (the dense torch.matmul pair of the same weights, the
+    library yardstick; its matrices are uploaded here, once)."""
     import torch
 
+    from tpuflow_torch.ops import banded as B
     from tpuflow_torch.ops.gaussian import conv_matrix, gaussian_smooth, gaussian_smooth_plain
-    from tpuflow_torch.ops.resample import resample, resample_plain, resample_weights
+    from tpuflow_torch.ops.resample import (
+        resample, resample_levels, resample_levels_plain, resample_plain, resample_weights,
+    )
 
-    if form != "dense":
-        fns = {"kernel": {"gaussian": gaussian_smooth, "resample": resample},
-               "plain": {"gaussian": gaussian_smooth_plain, "resample": resample_plain}}[form]
-        return lambda: [fns[k](img, a, b) if b is not None else fns[k](img, a)
-                        for k, img, a, b in calls]
+    def sizes(xs, ys):
+        return tuple((bx[2], by[2]) for bx, by in zip(xs, ys))
+
+    if form in ("kernel", "plain"):
+        kernel = form == "kernel"
+
+        def one(kind, img, xs, ys):
+            if kind == "gaussian":
+                return (gaussian_smooth if kernel else gaussian_smooth_plain)(img, xs[0][2])
+            if kind == "levels":
+                return (resample_levels if kernel else resample_levels_plain)(img, sizes(xs, ys))
+            return (resample if kernel else resample_plain)(img, xs[0][2], ys[0][2])
+        return lambda: [one(*c) for c in calls]
+    if form == "x":
+        return lambda: [B.banded_x(img, xs) for _, img, xs, _ in calls]
+    if form == "y":
+        tmps = [(B.banded_x(img, xs), tuple(img.shape[:-2]), img.shape[-2],
+                 tuple(b.out_n for b in B.bands(xs)), ys) for _, img, xs, ys in calls]
+        return lambda: [B.banded_y(tmp, lead, h, ys, widths)
+                        for tmp, lead, h, widths, ys in tmps]
     mats = []
-    for kind, img, a, b in calls:
+    for kind, img, xs, ys in calls:
         ih, iw = img.shape[-2:]
-        if kind == "gaussian":
-            mx, my = conv_matrix(iw, float(a)), conv_matrix(ih, float(a))
-        else:
-            mx, my = resample_weights(iw, a), resample_weights(ih, b)
-        mats.append((img, torch.from_numpy(mx).cuda(), torch.from_numpy(my).cuda()))
+        for (_, _, a), (_, _, b) in zip(xs, ys):
+            if kind == "gaussian":
+                mx, my = conv_matrix(iw, float(a)), conv_matrix(ih, float(a))
+            else:
+                mx, my = resample_weights(iw, a), resample_weights(ih, b)
+            mats.append((img, torch.from_numpy(mx).cuda(), torch.from_numpy(my).cuda()))
     return lambda: [torch.matmul(my, torch.matmul(img, mx.T)) for img, mx, my in mats]
 
 
@@ -624,13 +671,12 @@ def banded_time(x: dict, smoothed, card: str) -> dict:
     """Per pair of ``x``'s size: each wrapper's device ms by CUDA-graph replay
     of the pair's calls, in turns with the dense torch.matmul pair of the
     same weights (TF32 off; the library yardstick, which the port does not
-    call), the plain version's ms, and the bound; and the dense matrices'
-    bytes against the tables'. Emits the row and returns it."""
+    call), its X and Y launches alone, the plain version's ms, and the
+    bounds; and the dense matrices' bytes against the plans'. Emits the row
+    and returns it."""
     import torch
 
-    from tpuflow_torch.ops.banded import band_table
-    from tpuflow_torch.ops.gaussian import gaussian_band
-    from tpuflow_torch.ops.resample import resample_band
+    from tpuflow_torch.ops import banded as B
     from tpuflow_torch.tools.roofline import (
         F32_ISSUE_PER_S, PEAK_BYTES_PER_S, banded_launches, cuda_ms, graph_ms, kernel_work,
     )
@@ -641,59 +687,73 @@ def banded_time(x: dict, smoothed, card: str) -> dict:
     bounds = {"gaussian_smooth": launches[:2], "resample": launches[2:]}
     row = {"phase": "banded_time", "shape": [h, w], "config": "models.full_model()",
            "card": card, "timing": "CUDA-graph replay of one pair's calls, in turns "
-           "(kernel, dense, dense, kernel); plain: CUDA events over one call, host-paced"}
+           "(kernel, dense, dense, kernel; then X alone, Y alone); plain: CUDA events over "
+           "one call, host-paced"}
     for name in BANDED:
         runs = {form: banded_runner(calls[name], form) for form in ("kernel", "dense")}
         ms = {form: [] for form in runs}
         for form in ("kernel", "dense", "dense", "kernel"):
             ms[form].append(graph_ms(runs[form], calls=1, replays=BANDED_REPLAYS))
-        works = [kernel_work(n, lh, lw, **kw) for n, lh, lw, kw in bounds[name]]
-        t_bytes = sum(k["bytes"] for k in works) / PEAK_BYTES_PER_S * 1e3
-        t_ops = sum(k["instructions"] for k in works) / F32_ISSUE_PER_S * 1e3
+        del runs
+        works = [(n, kernel_work(n, lh, lw, **kw)) for n, lh, lw, kw in bounds[name]]
+        t_bytes = sum(k["bytes"] for _, k in works) / PEAK_BYTES_PER_S * 1e3
+        t_ops = sum(k["instructions"] for _, k in works) / F32_ISSUE_PER_S * 1e3
         row[name] = {"launches_per_pair": len(works), "ms": min(ms["kernel"]),
                      "ms_all": ms["kernel"], "library_ms": min(ms["dense"]),
                      "library_ms_all": ms["dense"],
                      "plain_ms": cuda_ms(banded_runner(calls[name], "plain"), 1),
-                     "bound_ms": sum(k["bound_ms"] for k in works),
+                     "bound_ms": sum(k["bound_ms"] for _, k in works),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "bytes_per_pair": sum(k["bytes"] for k in works)}
+                     "bytes_per_pair": sum(k["bytes"] for _, k in works), "passes": {}}
+        for axis, kernel in (("x", "banded_x_kernel"), ("y", "banded_y_kernel")):
+            mine = [k for n, k in works if n == f"banded_{axis}"]
+            run = banded_runner(calls[name], axis)
+            t = graph_ms(run, calls=1, replays=BANDED_REPLAYS)
+            bound = sum(k["bound_ms"] for k in mine)
+            row[name]["passes"][kernel] = {"launches_per_pair": len(mine), "ms": t,
+                                           "bound_ms": bound, "share": bound / t}
+            del run
         row[name]["share"] = row[name]["bound_ms"] / row[name]["ms"]
         row[name]["speedup_over_dense"] = row[name]["library_ms"] / row[name]["ms"]
-        del runs
         torch.cuda.empty_cache()
     # what each form keeps on the card: every dense matrix of a pair against
-    # every table
-    dense_keys, table_keys = set(), set()
-    for kind, img, a, b in calls["gaussian_smooth"] + calls["resample"]:
+    # every plan
+    dense_keys, plan_bytes = set(), 0
+    for kind, img, xs, ys in calls["gaussian_smooth"] + calls["resample"]:
         ih, iw = img.shape[-2:]
-        if kind == "gaussian":
-            dense_keys |= {("g", iw), ("g", ih)}
-            table_keys |= {(gaussian_band, iw, float(a)), (gaussian_band, ih, float(a))}
-        else:
-            dense_keys |= {("r", iw, a), ("r", ih, b)}
-            table_keys |= {(resample_band, iw, a), (resample_band, ih, b)}
+        for (_, _, a), (_, _, b) in zip(xs, ys):
+            dense_keys |= ({("g", iw), ("g", ih)} if kind == "gaussian"
+                           else {("r", iw, a), ("r", ih, b)})
+        widths = tuple(bd.out_n for bd in B.bands(xs))
+        planes = int(np.prod(img.shape[:-2]))
+        plan_bytes += (B.plan_table(B.AXIS_X, xs, (), 0, img.device).nbytes
+                       + B.plan_table(B.AXIS_Y, ys, widths, planes, img.device).nbytes)
     row["dense_matrix_bytes"] = sum(4 * k[1] * (k[1] if k[0] == "g" else k[2])
                                     for k in dense_keys)
-    row["table_bytes"] = sum(band_table(*k, torch.device("cuda", 0)).nbytes
-                             for k in table_keys)
-    row["tables"] = len(table_keys)
+    row["table_bytes"] = plan_bytes
+    row["plans"] = 2 * len(calls["gaussian_smooth"] + calls["resample"])
     emit(row)
     return row
 
 
 def phase_banded(card: str) -> dict:
-    """Phase 3b: the banded kernel under both wrappers, bitwise (BANDED_BOUND)
-    against its plain version: the presmooth at BANDED_SIZES (sigma 1.5) and
-    at BANDED_SMALL (sigma 1.5 and 8, radius over the frame), the frames of
-    every level of their full_model() schedules from the smoothed pair, and
-    every level's flow from the level before; then ``banded_time`` at each
-    of BANDED_SIZES. Returns {wrapper: kernels-line numbers at 3840x2160},
-    with the dense matrices' and the tables' bytes there. Launches here are
-    not counted on the main path."""
+    """Phase 3b: both banded kernels under both wrappers, bitwise
+    (BANDED_BOUND) against their plain versions: the presmooth at
+    BANDED_SIZES (sigma 1.5) and at BANDED_SMALL (BANDED_SIGMAS); the frame pyramid of their full_model() schedules from
+    the smoothed pair in its one X and one Y launch (every level's X output
+    against banded_plain along x, every level against resample_plain), and
+    every level's flow from the level before; rows too wide for one staged
+    buffer of 8 rows (BANDED_WIDE); then ``banded_time`` at each of
+    BANDED_SIZES. Returns {wrapper: kernels-line numbers at 3840x2160}, with
+    the dense matrices' and the plans' bytes there. Launches here are not
+    counted on the main path."""
     import torch
 
+    from tpuflow_torch.ops import banded as B
     from tpuflow_torch.ops.gaussian import gaussian_smooth, gaussian_smooth_plain
-    from tpuflow_torch.ops.resample import resample, resample_plain
+    from tpuflow_torch.ops.resample import (
+        resample, resample_band, resample_levels, resample_levels_plain, resample_plain,
+    )
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for matmuls: the dense yardstick would not be float32")
@@ -708,19 +768,40 @@ def phase_banded(card: str) -> dict:
         if not (err <= BANDED_BOUND and bool(torch.isfinite(got).all())):
             raise AssertionError(f"{name} {what}: max abs {err} > {BANDED_BOUND}, or non-finite")
 
+    def pyramid(img, sizes, what):
+        """The frame pyramid in its two launches, level by level, and the X
+        launch's intermediate."""
+        h, w = img.shape[-2:]
+        for (ow, oh), got, want in zip(sizes, resample_levels(img, sizes),
+                                       resample_levels_plain(img, sizes)):
+            check("resample", got, want, f"{what} {tuple(img.shape)} -> {oh}x{ow}")
+        xs = tuple((resample_band, w, ow) for ow, _ in sizes)
+        tmp = B.banded_x(img, xs)
+        for (ow, _), band, got in zip(sizes, B.bands(xs), B.x_views(
+                tmp, tuple(img.shape[:-2]), h, tuple(ow for ow, _ in sizes))):
+            check("resample", got, B.banded_plain(img, band, B.AXIS_X),
+                  f"{what} X pass {tuple(img.shape)} -> {ow} wide")
+
     for w, h in BANDED_SMALL:
         pair = torch.from_numpy(np.random.default_rng(w).random((2, h, w), np.float32)).cuda()
         for sigma in BANDED_SIGMAS:
             check("gaussian_smooth", gaussian_smooth(pair, sigma),
                   gaussian_smooth_plain(pair, sigma), f"at {w}x{h}, sigma {sigma}")
+    for w, h in BANDED_WIDE:
+        pair = torch.from_numpy(np.random.default_rng(h).random((2, h, w), np.float32)).cuda()
+        check("gaussian_smooth", gaussian_smooth(pair, 1.5), gaussian_smooth_plain(pair, 1.5),
+              f"a row of {w} floats")
+        pyramid(pair, ((w // 2 + 1, h), (w // 7, max(1, h // 2)), (5, 1)), "a wide row:")
     for w, h in BANDED_SIZES:
         x = banded_inputs(w, h)
         sigma = x["cfg"].gaussian_sigma
         sm = gaussian_smooth(x["pair"], sigma)
         check("gaussian_smooth", sm, gaussian_smooth_plain(x["pair"], sigma), f"at {w}x{h}")
-        for kind, img, ow, oh in banded_calls(x, sm)["resample"]:
-            check("resample", resample(img, ow, oh), resample_plain(img, ow, oh),
-                  f"{tuple(img.shape)} -> {oh}x{ow}")
+        pyramid(sm, frame_sizes(x["specs"], w, h), "frames")
+        for kind, img, xs, ys in banded_calls(x, sm)["resample"][1:]:
+            check("resample", resample(img, xs[0][2], ys[0][2]),
+                  resample_plain(img, xs[0][2], ys[0][2]),
+                  f"flow {tuple(img.shape)} -> {ys[0][2]}x{xs[0][2]}")
         emit({"phase": "banded", "shape": [h, w], "config": "models.full_model()",
               "levels": len(x["specs"]), "checks": {k: v["checks"] for k, v in out.items()},
               "max_abs_err": {k: v["max_abs_err"] for k, v in out.items()},
@@ -728,37 +809,37 @@ def phase_banded(card: str) -> dict:
         row = banded_time(x, sm, card)
         for name in BANDED:
             out[name].setdefault("ms_by_shape", {})[f"{w}x{h}"] = {
-                k: row[name][k] for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
+                k: row[name][k] for k in ("ms", "library_ms", "plain_ms", "bound_ms", "passes")}
         del x, sm
         torch.cuda.empty_cache()
     for name in BANDED:        # the kernels line's numbers: the last size, 3840x2160
         out[name].update({k: row[name][k] for k in (
             "ms", "library_ms", "plain_ms", "bound_ms", "bound_by", "share",
-            "launches_per_pair", "bytes_per_pair")})
+            "launches_per_pair", "bytes_per_pair", "passes")})
     out["dense_matrix_bytes"], out["table_bytes"] = row["dense_matrix_bytes"], row["table_bytes"]
     return out
 
 
 def expected_launches(w: int, h: int, cfg, levels: range = None, smooth: bool = True) -> dict:
     """The solve's launches of a w x h pair, or of the positions ``levels``
-    of its schedule (``smooth``: with the presmooth). The banded kernel:
-    two passes (X, then Y) for the presmooth, for the frames at every level
-    but level 0 (from the full-size pair) and for the flow at every level
-    after the coarsest whose size differs from the level before."""
+    of its schedule (``smooth``: with the presmooth). The banded kernels
+    (``roofline.banded_launches``): two (X, then Y) for the presmooth, two
+    for the frame pyramid of the levels (every level but level 0 and the
+    full size, at once; none if there is none) and two for the flow at every
+    level after the coarsest whose size differs from the level before."""
     from tpuflow_torch.config import DataConstancy
     from tpuflow_torch.ops.level import KMAX
     from tpuflow_torch.pyramid import level_schedule
+    from tpuflow_torch.tools.roofline import banded_launches
 
     specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
     levels = range(len(specs)) if levels is None else levels
     n = len(levels)
-    resamples = sum((specs[p].level != 0)
-                    + (p > 0 and (specs[p - 1].width, specs[p - 1].height)
-                       != (specs[p].width, specs[p].height)) for p in levels)
+    smoothing = 2 if smooth and cfg.gaussian_sigma > 0 else 0
     outer, inner = cfg.outer_iterations_count, cfg.inner_iterations_count
     tensor = cfg.data_constancy != DataConstancy.GREY
-    return {"gaussian_smooth": 2 if smooth and cfg.gaussian_sigma > 0 else 0,
-            "resample": 2 * resamples,
+    return {"gaussian_smooth": smoothing,
+            "resample": len(banded_launches(w, h, cfg, levels, smooth)) - smoothing,
             "warp": n, "level_derivs": n, "level_tensor": n if tensor else 0,
             "outer_prologue": 0 if tensor else n * outer,
             "outer_prologue_tensor": n * outer if tensor else 0, "jacobi_sweep": 0,
@@ -1780,14 +1861,15 @@ def phase_async(card: str) -> None:
     """compute_flow_async's upload does not wait for the card: with a
     3840x2160 full_model() pair and SLEEP_CYCLES queued, the next pair's
     staged upload returns while they still run, where a pageable upload in
-    the same place waits; the banded kernel's tables (presmooth and
-    resample) come from the device cache, one hit a launch and no upload;
+    the same place waits; the banded kernels' plans (presmooth, frame
+    pyramid and flows) come from the device cache, one hit a launch and no
+    upload;
     the second pair's flow is bitwise the first's. Also how many
     launches the host can queue ahead of the card before a launch waits."""
     import torch
 
     from tpuflow_torch import compute_flow_async, models
-    from tpuflow_torch.ops.banded import band_table
+    from tpuflow_torch.ops.banded import plan_table
     from tpuflow_torch.solver import flow2d
     from tpuflow_torch.synthetic import textured_pair
     from tpuflow_torch.tools.roofline import banded_launches
@@ -1798,7 +1880,7 @@ def phase_async(card: str) -> None:
     f0, f1 = textured_pair(w, h)
     compute_flow_async(f0, f1, cfg)          # warm: staging ring, caches
     torch.cuda.synchronize()
-    before = band_table.cache_info()
+    before = plan_table.cache_info()
     queued = torch.cuda.Event()
     t0 = time.perf_counter()
     first = compute_flow_async(f0, f1, cfg)
@@ -1812,7 +1894,7 @@ def phase_async(card: str) -> None:
     second = compute_flow_async(f0, f1, cfg)
     t4 = time.perf_counter()
     second_behind_queue = not queued.query()
-    after = band_table.cache_info()
+    after = plan_table.cache_info()
     torch.cuda.synchronize()
     same = torch.equal(first, second)
     # the contrast: a pageable upload behind the same queue
@@ -1846,13 +1928,13 @@ def phase_async(card: str) -> None:
            "launches_per_pair": sum(expected_launches(w, h, cfg)[k] for k in MAIN_PATH),
            "launches_queued_before_a_launch_waits": depth,
            "second_flow_bitwise_first": same,
-           "band_table_uploads": after.misses - before.misses,
-           "band_table_cache_hits": after.hits - before.hits,
-           # one table a launch of the banded kernel, for each of the two pairs
-           "band_table_cache_hits_expected": 2 * len(banded_launches(w, h, cfg))}
+           "plan_table_uploads": after.misses - before.misses,
+           "plan_table_cache_hits": after.hits - before.hits,
+           # one plan a launch of the banded kernels, for each of the two pairs
+           "plan_table_cache_hits_expected": 2 * len(banded_launches(w, h, cfg))}
     row["ok"] = (upload_behind_queue and pageable_waited and same
-                 and row["band_table_uploads"] == 0
-                 and row["band_table_cache_hits"] == row["band_table_cache_hits_expected"])
+                 and row["plan_table_uploads"] == 0
+                 and row["plan_table_cache_hits"] == row["plan_table_cache_hits_expected"])
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"async: {row}")
@@ -2227,6 +2309,7 @@ def mesh_dp_run(card: str, counts_total: dict, dp, hyb, F0, F1, singles) -> dict
     """Phase 20 on one layout of the positions."""
     from tpuflow_torch import FlowConfig, compute_flow, compute_flow_hybrid
     from tpuflow_torch.parallel.hybrid import hybrid_split_level
+    from tpuflow_torch.pyramid import level_schedule
     from tpuflow_torch.solver import sharded
     from tpuflow_torch.solver.sharded import sharded_plan
     from tpuflow_torch.tools.roofline import cuda_ms
@@ -2236,7 +2319,13 @@ def mesh_dp_run(card: str, counts_total: dict, dp, hyb, F0, F1, singles) -> dict
     split = hybrid_split_level(w, h, cfg, hyb)
     plan = sharded_plan(w, h, cfg, hyb, "auto")
     per_pair = expected_launches(w, h, cfg)
-    hyb_want = expected_sharded_counts(w, h, cfg, hyb, "auto")
+    # phase A (the presmooth and levels before the split) and phase B: each
+    # takes the frame pyramid of its own levels
+    n = len(level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor))
+    parts = (expected_sharded_counts(w, h, cfg, hyb, "auto", levels=range(0, split)),
+             expected_sharded_counts(w, h, cfg, hyb, "auto", levels=range(split, n),
+                                     smooth=False))
+    hyb_want = {key: parts[0][key] + parts[1][key] for key in parts[0]}
     row = {"phase": "mesh_dp", "shape": [len(F0), h, w], "config": "FlowConfig()", "card": card,
            "devices": [str(d) for d in hyb.devices], "hybrid_split_level": split,
            "hybrid_phase_b_plan": [f"{lh}x{lw}:{r}" for lh, lw, r, _ in plan[split:]]}

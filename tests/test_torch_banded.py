@@ -5,8 +5,9 @@ JAX package (within 1e-6 of max |JAX|: its matmuls sum the same products
 in another order), the tables against the dense matrices, and the bounds'
 byte counts.
 
-The CUDA kernel (csrc/banded.cu) is held bitwise against these plain
-versions on the card by chip_smoke.py (phase 3b).
+The CUDA kernels (csrc/banded.cu) are held bitwise against these plain
+versions on the card by chip_smoke.py (phase 3b); tests/test_torch_pyramid.py
+emulates them over their plans.
 
     PYTHONPATH=. python tests/test_torch_banded.py
 
@@ -30,7 +31,9 @@ from tpuflow.ops.resample import resample_weights as jresample_weights
 
 from tpuflow_torch import oracle_np
 from tpuflow_torch.config import FlowConfig
-from tpuflow_torch.ops.banded import AXIS_X, AXIS_Y, Band, band_table, banded_plain
+from tpuflow_torch.ops.banded import (
+    AXIS_X, AXIS_Y, Band, banded_plain, plan_table, x_plan, y_plan,
+)
 from tpuflow_torch.ops.gaussian import (
     conv_matrix, gaussian_band, gaussian_kernel_taps, gaussian_smooth, gaussian_smooth_plain,
 )
@@ -213,12 +216,20 @@ def test_packed_table_and_its_cache():
     assert np.array_equal(packed[:, 0], band.first) and np.array_equal(packed[:, 1], band.count)
     assert same_bits(np.ascontiguousarray(packed[:, 2:]).view(np.float32), band.weights)
     cpu = torch.device("cpu")
-    before = band_table.cache_info()
-    t = band_table(resample_band, 584, 5, cpu)
-    assert band_table(resample_band, 584, 5, cpu) is t
-    after = band_table.cache_info()
+    specs = ((resample_band, 584, 5),)
+    before = plan_table.cache_info()
+    t = plan_table(AXIS_Y, specs, (7,), 2, cpu)
+    assert plan_table(AXIS_Y, specs, (7,), 2, cpu) is t
+    after = plan_table.cache_info()
     assert after.hits - before.hits >= 1
-    assert np.array_equal(t.numpy(), packed)
+    # the Y plan holds the band's packed table whole; its first block's
+    # entry points at the table's first row
+    plan = t.numpy()
+    entry = plan[plan[3]:plan[3] + 12]
+    assert tuple(entry[:4]) == (0, 0, 0, 0)
+    at, stride = entry[8], entry[9]
+    assert stride == packed.shape[1]
+    assert np.array_equal(plan[at:at + packed.size].reshape(packed.shape), packed)
 
 
 def test_bands_never_move_backwards():
@@ -242,27 +253,40 @@ def test_kernel_work_of_the_banded_passes(h, w):
     ow, oh = w // 2 - 3, h // 3 + 1
     bx, by = resample_band(w, ow), resample_band(h, oh)
     x = R.kernel_work("banded_x", h, w, out_n=ow)
-    assert x["bytes"] == 2 * (h * w + h * ow) * 4 + bx.packed().nbytes
+    assert x["bytes"] == 2 * (h * w + h * ow) * 4 + x_plan(((resample_band, w, ow),)).nbytes
     assert x["instructions"] == x["flops"] == 2 * h * (2 * int(bx.count.sum()) + ow)
     y = R.kernel_work("banded_y", h, ow, out_n=oh)
-    assert y["bytes"] == 2 * (h * ow + oh * ow) * 4 + by.packed().nbytes
+    assert y["bytes"] == (2 * (h * ow + oh * ow) * 4
+                          + y_plan(((resample_band, h, oh),), (ow,), 2).nbytes)
     assert y["instructions"] == 2 * ow * (2 * int(by.count.sum()) + oh)
     g = R.kernel_work("banded_y", h, w, sigma=1.5)
-    assert g["bytes"] == 2 * 2 * h * w * 4 + gaussian_band(h, 1.5).packed().nbytes
-    for work in (x, y, g):
+    assert g["bytes"] == (2 * 2 * h * w * 4
+                          + y_plan(((gaussian_band, h, 1.5),), (w,), 2).nbytes)
+    # the frame pyramid: the pair read once by X for every level's width;
+    # each level's own columns read by Y
+    ws, hs = (ow, w // 5), (oh, h // 7)
+    xp = R.kernel_work("banded_x", h, w, out_n=ws)
+    specs_x = tuple((resample_band, w, a) for a in ws)
+    assert xp["bytes"] == 2 * h * (w + sum(ws)) * 4 + x_plan(specs_x).nbytes
+    yp = R.kernel_work("banded_y", h, w, out_n=hs, widths=ws)
+    specs_y = tuple((resample_band, h, b) for b in hs)
+    assert yp["bytes"] == (2 * sum((h + b) * a for a, b in zip(ws, hs)) * 4
+                           + y_plan(specs_y, ws, 2).nbytes)
+    for work in (x, y, g, xp, yp):
         assert work["bound_by"] == "bytes"
         assert work["bound_ms"] == work["bytes"] / R.PEAK_BYTES_PER_S * 1e3
 
 
 @pytest.mark.parametrize("size", SCHEDULES)
 def test_pair_bounds_count_every_banded_launch(size):
-    """Two presmooth passes, then two passes for the frames at every level
-    but level 0 and two for the flow at every level after the coarsest."""
+    """Two presmooth launches, two for the frames of every level but level 0
+    (the frame pyramid), then two for the flow at every level after the
+    coarsest whose size changes."""
     w, h = size
     cfg = FlowConfig()
     specs = levels(w, h)
     flows = sum((a.height, a.width) != (b.height, b.width) for a, b in zip(specs, specs[1:]))
-    want = 1 + (len(specs) - 1) + flows
+    want = 1 + 1 + flows
     pb = R.pair_bounds(w, h, cfg)
     assert pb["banded_x"]["launches"] == pb["banded_y"]["launches"] == want
     launches = R.banded_launches(w, h, cfg)
@@ -276,8 +300,8 @@ def test_pair_bounds_count_every_banded_launch(size):
 def test_profiles_name_both_passes():
     from tpuflow_torch.profile_pair import LEVEL_KERNELS
 
-    for axis in "xy":
-        name = f"void (anonymous namespace)::banded_{axis}_kernel(const float*, float*, ...)"
+    for axis, args in (("x", "<true>"), ("x", "<false>"), ("y", "")):
+        name = f"void (anonymous namespace)::banded_{axis}_kernel{args}(const float*, float*, ...)"
         assert [k for k, pattern in LEVEL_KERNELS.items() if pattern in name] == [f"banded_{axis}"]
 
 

@@ -252,13 +252,17 @@ def test_profile_pair_without_cuda_raises():
 
 def test_layer_ranges_are_recorded():
     # profile_pair reads the gaussian and resample layers from these ranges:
-    # one presmooth per pair, and one resample of the frames and one of the
-    # flow at every level after the first.
+    # one presmooth per pair, one resample of every level's frames at once
+    # (the frame pyramid), and one of the flow at every level after the
+    # first whose size changes.
     f0, f1 = two_blob_pair()
     cfg = FlowConfig(**SMALL_CFG)
-    levels = level_schedule(f0.shape[1], f0.shape[0], cfg.warp_levels_count,
-                            cfg.warp_scale_factor)
+    h0, w0 = f0.shape
+    levels = level_schedule(w0, h0, cfg.warp_levels_count, cfg.warp_scale_factor)
+    pyramid = any(s.level != 0 and (s.width, s.height) != (w0, h0) for s in levels)
+    flows = sum((a.width, a.height) != (b.width, b.height) for a, b in zip(levels, levels[1:]))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         compute_flow(f0, f1, cfg, device="cpu")
     calls = {e.key: e.count for e in prof.key_averages() if e.key in ("gaussian", "resample")}
-    assert calls == {"gaussian": 1, "resample": 2 * (len(levels) - 1)}
+    assert pyramid and flows == len(levels) - 1
+    assert calls == {"gaussian": 1, "resample": 1 + flows}

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 # Every entry point returns cudaGetLastError() after its launch; the last
 # argument is the stream.
 SIGNATURES = {
@@ -51,7 +51,8 @@ SIGNATURES = {
     "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
     "tf_roofline_micro": (_P, _P, _P, _I, _I, _I, _I, _P),
     "tf_probe_matmul": (_P, _P, _P, _I, _I, _I, _P),
-    "tf_banded": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "tf_banded_x": (_P, _P, _P, _I, _I, _L, _L, _I, _I, _P),
+    "tf_banded_y": (_P, _P, _P, _I, _I, _I, _I, _L, _P),
 }
 # Entry points that take their streams in their arguments (``call``).
 STREAMLESS_SIGNATURES = {

@@ -1,6 +1,6 @@
 """A bounded cache of tensors built on the host and kept on their device.
 
-The banded kernel's tables (the presmooth's and the resample's windows,
+The banded kernels' plans (the presmooth's and the resample's windows,
 ``ops/banded.py``) are read by every stream of a device: the mesh's
 positions each have one. A tensor is made by a copy from
 pageable memory, which has completed when the copy returns, so any stream

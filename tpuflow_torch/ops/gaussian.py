@@ -8,10 +8,11 @@ the window truncated at the edges: the zero padding's terms add +0 to a
 sum that is never -0, so this is the reference's convolution
 (convolution_2d.cu:74-261, transliterated in oracle_np.py:71-92) to the
 bit. It runs once per frame pair. On the card it is two launches of the
-banded kernel, which replaces the JAX package's two banded Toeplitz matmuls
-(tpuflow/ops/gaussian.py:92); ``gaussian_smooth_plain`` is the same sum on
-any device. The windows are built on the host once per (n, sigma) and kept
-on the device (``banded.band_table``).
+banded kernels with a one-level plan, which replace the JAX package's two
+banded Toeplitz matmuls (tpuflow/ops/gaussian.py:92);
+``gaussian_smooth_plain`` is the same sum on any device. The windows are
+built on the host once per shape and sigma and kept on the device
+(``banded.plan_table``).
 
 ``conv_matrix`` is the dense Toeplitz matrix of the same taps, byte for
 byte the JAX package's; the port's solve does not use it.
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from tpuflow_torch.ops.banded import AXIS_X, AXIS_Y, Band, band_table, banded_pass, banded_plain
+from tpuflow_torch.ops.banded import AXIS_X, AXIS_Y, Band, banded_levels, banded_plain
 from tpuflow_torch.ops.cuda_lib import on_cuda
 
 MAX_TAPS = 51  # same cap as the reference __constant__ c_Kernel[51]
@@ -94,7 +95,7 @@ def gaussian_smooth_plain(img: torch.Tensor, sigma: float) -> torch.Tensor:
 
 def gaussian_smooth(img: torch.Tensor, sigma: float) -> torch.Tensor:
     """Smooth the last two dims of ``img`` (rows, then columns): on a CUDA
-    tensor two launches of the banded kernel, counted in
+    tensor two launches of the banded kernels, counted in
     ``gaussian_smooth.launches``; on a CPU tensor ``gaussian_smooth_plain``.
 
     No-op when sigma <= 0 (reference: src/optical_flow/optical_flow_2d.cpp:218).
@@ -107,9 +108,8 @@ def gaussian_smooth(img: torch.Tensor, sigma: float) -> torch.Tensor:
         img = img.contiguous()
         if not on_cuda(img):
             return gaussian_smooth_plain(img, sigma)
-        dev = img.device
-        tmp = banded_pass(img, band_table(gaussian_band, w, sigma, dev), 1.0, AXIS_X)
-        out = banded_pass(tmp, band_table(gaussian_band, h, sigma, dev), 1.0, AXIS_Y)
+        out = banded_levels(img, ((gaussian_band, w, sigma),),
+                            ((gaussian_band, h, sigma),))[0]
         if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
             gaussian_smooth.launches += 2
         return out

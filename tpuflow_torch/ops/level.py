@@ -318,7 +318,7 @@ for _fn in (level_derivs, level_tensor, outer_prologue, jacobi_sweep, jacobi_swe
 outer_prologue.tensor_launches = 0
 
 # Every kernel of the solve's path by name, as (wrapper, its counter attribute):
-# the banded kernel under its two wrappers, then the level kernels.
+# the banded kernels under their two wrappers, then the level kernels.
 KERNELS = {
     "gaussian_smooth": (gaussian_smooth, "launches"),
     "resample": (resample, "launches"),

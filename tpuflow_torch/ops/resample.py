@@ -5,11 +5,14 @@ delta]`` overlaps, with fractional end weights, in ascending input order,
 and multiplies the sum once by ``out/in`` (reference:
 src/kernels/resample_2d.cu:44-74, transliterated in oracle_np.py:125-156);
 X is applied first, then Y (reference: cuda_operation_resample_2d.cpp:99-106).
-On the card that is two launches of the banded kernel, which replaces the
+On the card that is two launches of the banded kernels, which replace the
 JAX package's block-banded matmuls (tpuflow/ops/resample.py:233, :252, via
-tpuflow/solver/bucketed.py:903); ``resample_plain`` is the same sum on any
-device, bitwise the oracle's. The windows are built on the host once per
-(in, out) pair and kept on the device (``banded.band_table``).
+tpuflow/solver/bucketed.py:903): ``resample`` for one size, and
+``resample_levels`` for many sizes of one image (every level's frames from
+the smoothed pair) in the same two launches; ``resample_plain`` and
+``resample_levels_plain`` are the same sums on any device, bitwise the
+oracle's. The windows are built on the host once per shape and kept on the
+device (``banded.plan_table``).
 
 ``resample_weights`` is the dense (out, in) matrix of the same weights with
 the normalisation folded in, byte for byte the JAX package's; the port's
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from tpuflow_torch.ops.banded import AXIS_X, AXIS_Y, Band, band_table, banded_pass, banded_plain
+from tpuflow_torch.ops.banded import AXIS_X, AXIS_Y, Band, banded_levels, banded_plain
 from tpuflow_torch.ops.cuda_lib import on_cuda
 
 F = np.float32
@@ -71,25 +74,41 @@ def resample_plain(img: torch.Tensor, out_w: int, out_h: int) -> torch.Tensor:
     return banded_plain(tmp, resample_band(in_h, out_h), AXIS_Y)
 
 
-def resample(img: torch.Tensor, out_w: int, out_h: int) -> torch.Tensor:
-    """Resample the last two dims of ``img`` to (out_h, out_w): on a CUDA
-    tensor two launches of the banded kernel (X, then Y), counted in
-    ``resample.launches``; on a CPU tensor ``resample_plain``."""
+def resample_levels_plain(img: torch.Tensor, sizes) -> list:
+    """``resample_levels`` on any device: a loop of ``resample_plain``."""
+    return [resample_plain(img, w, h) for w, h in sizes]
+
+
+def resample_levels(img: torch.Tensor, sizes) -> list:
+    """Resample the last two dims of ``img`` to each (w, h) of ``sizes``: on
+    a CUDA tensor one X and one Y launch of the banded kernels for all of
+    them (none for no sizes), counted in ``resample.launches``, the outputs
+    contiguous views of one buffer; on a CPU tensor
+    ``resample_levels_plain``."""
     in_h, in_w = img.shape[-2:]
-    if (in_h, in_w) == (out_h, out_w):
-        return img
+    sizes = tuple((int(w), int(h)) for w, h in sizes)
     with record_function("resample"):  # the layer's range in a profile
         img = img.contiguous()
         if not on_cuda(img):
-            return resample_plain(img, out_w, out_h)
-        dev = img.device
-        tmp = banded_pass(img, band_table(resample_band, in_w, out_w, dev),
-                          resample_band(in_w, out_w).norm, AXIS_X)
-        out = banded_pass(tmp, band_table(resample_band, in_h, out_h, dev),
-                          resample_band(in_h, out_h).norm, AXIS_Y)
+            return resample_levels_plain(img, sizes)
+        if not sizes:
+            return []
+        out = banded_levels(img, tuple((resample_band, in_w, w) for w, _ in sizes),
+                            tuple((resample_band, in_h, h) for _, h in sizes))
         if not torch.cuda.is_current_stream_capturing():  # a capture launches nothing
             resample.launches += 2
         return out
+
+
+def resample(img: torch.Tensor, out_w: int, out_h: int) -> torch.Tensor:
+    """Resample the last two dims of ``img`` to (out_h, out_w): on a CUDA
+    tensor two launches of the banded kernels (X, then Y; ``resample_levels``
+    with one size), counted in ``resample.launches``; on a CPU tensor
+    ``resample_plain``. The same size returns ``img``."""
+    in_h, in_w = img.shape[-2:]
+    if (in_h, in_w) == (out_h, out_w):
+        return img
+    return resample_levels(img, ((out_w, out_h),))[0]
 
 
 resample.launches = 0

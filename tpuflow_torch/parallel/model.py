@@ -140,8 +140,10 @@ def relax_launches(cfg: FlowConfig) -> int:
 
 def level_launches(cfg: FlowConfig) -> int:
     """Launches of one unsharded level: the relaxation, the warp, the
-    derivatives, the tensor (gradient and log), the median and the four
-    banded resample passes (the frames' and the flow's, X then Y)."""
+    derivatives, the tensor (gradient and log), the median and four banded
+    launches: the flow's resample, X then Y, and two more, though the frames
+    of every level come from one pyramid a solve (two launches a solve), so
+    this prices a level two launches high."""
     tensor = cfg.data_constancy != DataConstancy.GREY
     return relax_launches(cfg) + 3 + int(tensor) + 4
 

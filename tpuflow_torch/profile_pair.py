@@ -5,12 +5,13 @@
 Runs ``compute_flow(..., device="cuda")`` on the seeded textured pair of
 ``synthetic.py``: one warm-up pair, ``REPS`` unprofiled pairs timed on the
 host clock, then one pair under ``torch.profiler``. Prints one JSON line:
-the wall ms, the device busy ms (the sum of the device time of every kernel
+the wall ms, the peak device memory of the unprofiled pairs
+(``torch.cuda.max_memory_allocated``), the device busy ms (the sum of the device time of every kernel
 and copy), the idle share, the device ms by kernel name, and the device ms
 of the layers ``gaussian`` (presmooth) and ``resample`` (frames and flow),
 read from the ``record_function`` ranges that ``ops/gaussian.py`` and
 ``ops/resample.py`` open, and for each kernel of the solve (the level
-kernels, and the banded kernel's passes along x and y) its device ms and
+kernels, and the banded kernels along x and y) its device ms and
 launches beside the pair's bound (``roofline.pair_bounds``: launches x
 bound at each level's own size) and the gap between them, largest first.
 
@@ -67,7 +68,7 @@ PROFILER_OVERHEAD = ("Activity Buffer Request",)  # CUPTI's own device records
 # roofline.kernel_work names -> the demangled kernel name in csrc/level.cu
 # and csrc/banded.cu
 LEVEL_KERNELS = {
-    "banded_x": "banded_x_kernel(", "banded_y": "banded_y_kernel(",
+    "banded_x": "banded_x_kernel<", "banded_y": "banded_y_kernel(",
     "warp": "warp_kernel(", "level_derivs": "level_derivs_kernel(",
     "level_tensor_gradient": "level_tensor_kernel(",
     "level_tensor_log": "level_tensor_log_kernel(",
@@ -92,12 +93,15 @@ def profile_pair(w: int, h: int, preset: str) -> dict:
     cfg = getattr(models, preset)()
     f0, f1 = textured_pair(w, h)
     run = lambda: compute_flow(f0, f1, cfg, device="cuda")  # noqa: E731
-    run()  # warm-up: builds the kernels and the band tables
+    run()  # warm-up: builds the kernels and the banded kernels' plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     wall = []
     for _ in range(REPS):
         t0 = time.perf_counter()
         run()
         wall.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -123,6 +127,7 @@ def profile_pair(w: int, h: int, preset: str) -> dict:
     level = dict(sorted(level.items(), key=lambda kv: -kv[1]["gap_ms"]))
     return {"shape": [h, w], "preset": preset, "constancy": cfg.data_constancy.value,
             "wall_ms_unprofiled": wall, "wall_ms_profiled": profiled_ms,
+            "max_memory_allocated_bytes_unprofiled": peak,
             "device_busy_ms": busy, "idle_share_of_profiled_wall": 1.0 - busy / profiled_ms,
             "layer_device_ms": layers,
             "layer_share_of_busy": {k: v / busy for k, v in layers.items()} if busy else {},

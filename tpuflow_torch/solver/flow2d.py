@@ -12,7 +12,7 @@ the kernels' plain PyTorch versions.
 On the card a pair is submitted without a host fence: the frames go up
 through a ring of pinned staging buffers (a copy from pageable memory would
 wait for every pair queued before it), the presmooth's and resample's
-band tables stay on the device, and ``solve`` has no synchronisation inside.
+plans stay on the device, and ``solve`` has no synchronisation inside.
 ``compute_flow`` waits for the card once, in its final copy to the host.
 """
 
@@ -253,7 +253,7 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
 
     It switches TF32 off for matmuls and cuDNN for the solve (any matmul
     there must be full float32, as the JAX package's are, Precision.HIGHEST;
-    the presmooth and the resample are the banded kernel's, which never
+    the presmooth and the resample are the banded kernels', which never
     rounds to TF32) and gives both process-wide flags back as the caller
     set them, also when the solve raises. ``_relax_for`` is ``solve``'s
     per-level relaxation, for ``compute_flow_sharded``.

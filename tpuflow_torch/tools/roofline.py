@@ -297,26 +297,44 @@ def _ksweep_design_bytes(h: int, w: int, inner: int) -> int:
     return total * 4
 
 
-def _banded_work(name: str, h: int, w: int, out_n: int | None, sigma: float | None,
-                 planes: int) -> tuple:
-    """(bytes, instructions) of one banded pass over (planes, h, w): the
-    input and the band's table read once, the output written once; a
-    multiply and an add per term of each output's window and one multiply
-    by norm, counted from the band's own windows."""
+def _banded_work(name: str, h: int, w: int, out_n, sigma: float | None, planes: int,
+                 widths: tuple | None = None) -> tuple:
+    """(bytes, instructions) of one banded launch over (planes, h, w): the
+    input and the launch's plan (``ops/banded.py``) read once, every
+    output written once; a multiply and an add per term of each output's
+    window and one multiply by norm, counted from the bands' own windows.
+    ``banded_x`` sums every width of ``out_n`` (an int or a tuple, one a
+    level) from the same rows; ``banded_y`` sums level l's ``widths[l]``
+    columns (default w) to ``out_n[l]`` rows, each level reading its own
+    columns; with ``sigma`` the Gaussian's band, one level."""
+    from tpuflow_torch.ops.banded import x_plan, y_plan
     from tpuflow_torch.ops.gaussian import gaussian_band
     from tpuflow_torch.ops.resample import resample_band
 
     along = w if name == "banded_x" else h
-    band = gaussian_band(along, float(sigma)) if sigma else resample_band(along, out_n)
-    other = h if name == "banded_x" else w
-    outs = planes * other * band.out_n
-    nbytes = (planes * h * w + outs) * 4 + band.packed().nbytes
-    return nbytes, planes * other * (2 * int(band.count.sum()) + band.out_n)
+    if sigma:
+        specs = ((gaussian_band, along, float(sigma)),)
+    else:
+        outs = out_n if isinstance(out_n, tuple) else (out_n,)
+        specs = tuple((resample_band, along, o) for o in outs)
+    bands = [build(n, a) for build, n, a in specs]
+    if name == "banded_x":
+        plan = x_plan(specs)
+        nbytes = planes * h * (w + sum(b.out_n for b in bands)) * 4
+        instr = sum(planes * h * (2 * int(b.count.sum()) + b.out_n) for b in bands)
+    else:
+        widths = widths or (w,) * len(bands)
+        plan = y_plan(specs, widths, planes)
+        nbytes = sum(planes * (h + b.out_n) * cols for b, cols in zip(bands, widths)) * 4
+        instr = sum(planes * cols * (2 * int(b.count.sum()) + b.out_n)
+                    for b, cols in zip(bands, widths))
+    return nbytes + plan.nbytes, instr
 
 
 def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: int = 1,
                 cfg: FlowConfig | None = None, inner: int = 5, cards: int = 1,
-                out_n: int | None = None, sigma: float | None = None, planes: int = 2) -> dict:
+                out_n: int | tuple | None = None, sigma: float | None = None,
+                planes: int = 2, widths: tuple | None = None) -> dict:
     """What one launch of kernel ``name`` on an (h, w) level needs, and its
     bound on this card: the largest of device-memory bytes over the memory
     rate (each input byte read once, each output byte written once),
@@ -337,9 +355,11 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
     ``roofline_micro_<body>`` (one call of
     ``PASSES`` passes on an (h, w) field, one shared-memory load per pass by
     the probe's design), ``probe_matmul`` ((h, H0) @ (H0, w), one FFMA
-    per product) and ``banded_x``/``banded_y`` (one banded pass over
-    ``planes`` (h, w) planes along x or y: the resample's to ``out_n``, or
-    with ``sigma`` the Gaussian's; ``_banded_work``)."""
+    per product) and ``banded_x``/``banded_y`` (one banded launch over
+    ``planes`` (h, w) planes along x or y: the resample's to ``out_n``, a
+    tuple for every level of the frame pyramid (with ``widths``, each
+    level's columns, along y), or with ``sigma`` the Gaussian's;
+    ``_banded_work``)."""
     npix = h * w
     shared = 0
     extra = {}
@@ -366,7 +386,7 @@ def kernel_work(name: str, h: int, w: int, radius: int = 5, *, n_y: int = 1, k: 
         shared = PASSES * npix * BODIES[body][1]["loads"] * 4
         instr, flops = (PASSES * npix * n for n in _instructions_and_flops(_BODY_OPS[body]))
     elif name in ("banded_x", "banded_y"):
-        nbytes, instr = _banded_work(name, h, w, out_n, sigma, planes)
+        nbytes, instr = _banded_work(name, h, w, out_n, sigma, planes, widths)
         flops = instr
     elif name == "probe_matmul":
         from tpuflow_torch.tools.probe_kernel_matmul import H0
@@ -425,29 +445,38 @@ def level_bound_ms(h: int, w: int, cfg: FlowConfig | None = None) -> float:
                for name, n, kw in level_launches(cfg))
 
 
-def banded_launches(w: int, h: int, cfg: FlowConfig | None = None) -> list:
-    """The banded kernel's launches of one (w, h) pair (``solver/level.py``)
-    under ``cfg``, as (``kernel_work`` name, h, w, keyword arguments): the
-    presmooth's two passes over the full-size pair (none at sigma <= 0);
-    then at each level the frames' two passes from the full-size pair (not
-    at level 0) and the flow's from the level before (not at the coarsest,
-    nor where the size stays), X then Y."""
+def banded_launches(w: int, h: int, cfg: FlowConfig | None = None,
+                    levels: range | None = None, smooth: bool = True) -> list:
+    """The banded kernels' launches of one (w, h) pair (``solver/level.py``)
+    under ``cfg``, or of the positions ``levels`` of its schedule, as
+    (``kernel_work`` name, h, w, keyword arguments), in the solve's order:
+    the presmooth's two passes over the full-size pair (none at sigma <= 0
+    or without ``smooth``); the frame pyramid, one X launch (every level's
+    width from the pair's rows) and one Y launch (each level's columns to
+    its height), for each distinct size of the levels but level 0 and the
+    full size (none if there is none); then each level's flow from the level
+    before (not at the coarsest, nor where the size stays), X then Y."""
     from tpuflow_torch.pyramid import level_schedule
 
     cfg = cfg or FlowConfig()
+    specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    levels = range(len(specs)) if levels is None else levels
     out = []
-    if cfg.gaussian_sigma > 0.0:
+    if smooth and cfg.gaussian_sigma > 0.0:
         sigma = float(cfg.gaussian_sigma)
         out += [("banded_x", h, w, {"sigma": sigma}), ("banded_y", h, w, {"sigma": sigma})]
-    prev = None
-    for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor):
-        sources = ([(h, w)] if s.level != 0 else []) + (
-            [(prev.height, prev.width)] if prev is not None
-            and (prev.height, prev.width) != (s.height, s.width) else [])
-        for ih, iw in sources:
-            out += [("banded_x", ih, iw, {"out_n": s.width}),
-                    ("banded_y", ih, s.width, {"out_n": s.height})]
-        prev = s
+    sizes = tuple(dict.fromkeys((specs[p].width, specs[p].height) for p in levels
+                                if specs[p].level != 0
+                                and (specs[p].width, specs[p].height) != (w, h)))
+    if sizes:
+        widths, heights = zip(*sizes)
+        out += [("banded_x", h, w, {"out_n": widths}),
+                ("banded_y", h, w, {"out_n": heights, "widths": widths})]
+    for p in levels:
+        prev, s = (specs[p - 1] if p > 0 else None), specs[p]
+        if prev is not None and (prev.height, prev.width) != (s.height, s.width):
+            out += [("banded_x", prev.height, prev.width, {"out_n": s.width}),
+                    ("banded_y", prev.height, s.width, {"out_n": s.height})]
     return out
 
 
@@ -456,8 +485,9 @@ def pair_bounds(w: int, h: int, cfg: FlowConfig | None = None) -> dict:
     path (``solver/level.py``) under ``cfg`` (default ``FlowConfig()``):
     each level kernel's launches over the level schedule, and the sum over
     the levels of launches x ``kernel_work`` at the level's own size; and
-    the banded kernel's passes along x and y (``banded_launches``: the
-    presmooth and every level's resample), each at its own sizes. The
+    the banded kernels' launches along x and y (``banded_launches``: the
+    presmooth, the frame pyramid and every level's flow), each at its own
+    sizes. The
     pyramid's levels are smaller than level 0, so this is the bound a pair's
     device time by kernel (``profile_pair``) is read against, not launches
     x the level-0 bound."""

@@ -1,10 +1,12 @@
-"""Time two kernels against the design choices they did not take, on the card.
+"""Time three kernels against the design choices they did not take, on the card.
 
-    python -m tpuflow_torch.tools.variants [--out FILE]   # on a CUDA card; raises without one
+    python -m tpuflow_torch.tools.variants [--only NAME ...] [--out FILE]   # on a CUDA card
 
-The kernels are the row-sharded relaxation (csrc/sharded.cu) and the log
-tensor (csrc/level.cu: level_tensor_log_kernel); one variant takes out the
-sharded kernel's count of its grid syncs, to time what counting costs. Each variant is this
+The kernels are the row-sharded relaxation (csrc/sharded.cu), the log
+tensor (csrc/level.cu: level_tensor_log_kernel) and the banded X pass
+(csrc/banded.cu: banded_x_kernel); one variant takes out the sharded
+kernel's count of its grid syncs, to time what counting costs. ``--only``
+runs the variants named (each time with its source's kernels alone). Each variant is this
 package with a few named edits to its CUDA sources (``VARIANTS``): a
 variant that no longer applies to the sources raises instead of timing the
 shipped code. The script copies the package into ``_build/variants/<name>/``
@@ -16,6 +18,8 @@ the run shows. Each prints one JSON line: the card's name and power limit;
 the ms of ``relax_sharded_kernel`` (grey ``FlowConfig()``, k = 1) on the
 level-0 fields of 1920x1080 and 3840x2160 at 1 and 4 shards, by CUDA events
 over 3 calls, twice; the ms of the log tensor at the same sizes by
+CUDA-graph replay, twice; the ms of the banded X launch of a 3840x2160
+``models.full_model()`` pair's frame pyramid and of its presmooth, by
 CUDA-graph replay, twice; and a hash of each output. A variant is another
 schedule of the same arithmetic, so its hashes must be the shipped ones.
 The last line holds every time of each variant beside the shipped ones.
@@ -71,7 +75,13 @@ VARIANTS = {
     # the log tensor's tile as tall as its 32 x 8 block
     "log_tile_8_rows": (("level.cu", "constexpr int LT_TH = 16;", None,
                          "constexpr int LT_TH = 8;"),),
+    # rows too wide for two buffers of 8 (4K's) staged as two buffers of 4
+    # rows, the same bytes, in place of one buffer of 8
+    "x_four_rows_two_buffers": (("banded.cu", "launch_x<true, 8>(dev, card, a, 1,", None,
+                                 "launch_x<true, 4>(dev, card, a, 2,"),),
 }
+# the kernels ``measure`` times for a variant of each source
+PARTS = {"sharded.cu": "sharded", "level.cu": "log", "banded.cu": "banded"}
 
 
 def apply_edits(text: str, edits) -> str:
@@ -105,8 +115,9 @@ def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def measure() -> dict:
-    """The times and output hashes of the package this process imports."""
+def measure(parts) -> dict:
+    """The times and output hashes of the package this process imports, of
+    the kernels named in ``parts`` (``PARTS``' values)."""
     import tpuflow_torch
     from tpuflow_torch.config import FlowConfig
     from tpuflow_torch.ops.level import level_derivs, level_tensor
@@ -119,7 +130,9 @@ def measure() -> dict:
     cfg, dev = FlowConfig(), torch.device("cuda")
     row = {"package": str(Path(tpuflow_torch.__file__).resolve().parent),
            "card": device_info()["nvidia_smi"], "ms": {}, "hash": {}}
-    for w, h in SIZES:
+    if "banded" in parts:
+        _measure_banded(row)
+    for w, h in SIZES if {"log", "sharded"} & set(parts) else ():
         rng = np.random.default_rng(1)
         f0, f1 = (torch.from_numpy(np.clip(f, 0.0, 255.0)).to(dev)
                   for f in textured_pair(w, h, seed=1))
@@ -127,9 +140,10 @@ def measure() -> dict:
         sc = LevelScalars.make(w, h, 1.0, 1.0, cfg.equation_alpha)
         fxyz = level_derivs(f0, f1, sc.div4hx, sc.div4hy)
         log = lambda: level_tensor(f0, f1, fxyz, sc, True)  # noqa: E731
-        row["hash"][f"log_{w}x{h}"] = _digest(log())
-        row["ms"][f"log_{w}x{h}"] = [graph_ms(log, calls=20, replays=5) for _ in range(2)]
-        for n_y in N_Y:
+        if "log" in parts:
+            row["hash"][f"log_{w}x{h}"] = _digest(log())
+            row["ms"][f"log_{w}x{h}"] = [graph_ms(log, calls=20, replays=5) for _ in range(2)]
+        for n_y in N_Y if "sharded" in parts else ():
             fn = lambda m=make_mesh(n_y): relax_sharded_kernel(fxyz, uv, sc, cfg, m)  # noqa: E731
             row["hash"][f"sharded_{w}x{h}_{n_y}"] = _digest(fn())
             row["ms"][f"sharded_{w}x{h}_{n_y}"] = [cuda_ms(fn, 3) for _ in range(2)]
@@ -138,23 +152,55 @@ def measure() -> dict:
     return row
 
 
+def _measure_banded(row: dict) -> None:
+    """The banded X launches of a 3840x2160 ``full_model()`` pair: its frame
+    pyramid's (from the smoothed pair) and its presmooth's, into ``row``."""
+    from tpuflow_torch import models
+    from tpuflow_torch.ops.banded import banded_x
+    from tpuflow_torch.ops.gaussian import gaussian_band, gaussian_smooth
+    from tpuflow_torch.ops.resample import resample_band
+    from tpuflow_torch.pyramid import level_schedule
+    from tpuflow_torch.tools.roofline import graph_ms
+
+    w, h = SIZES[-1]
+    cfg = models.full_model()
+    specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    sizes = dict.fromkeys((s.width, s.height) for s in specs
+                          if s.level != 0 and (s.width, s.height) != (w, h))
+    rng = np.random.default_rng(2)
+    pair = torch.from_numpy((rng.random((2, h, w)) * 255.0).astype(np.float32)).cuda()
+    smoothed = gaussian_smooth(pair, cfg.gaussian_sigma)
+    calls = {"pyramid_x": (smoothed, tuple((resample_band, w, ow) for ow, _ in sizes)),
+             "presmooth_x": (pair, ((gaussian_band, w, cfg.gaussian_sigma),))}
+    for name, (img, xs) in calls.items():
+        fn = lambda img=img, xs=xs: banded_x(img, xs)  # noqa: E731
+        row["hash"][f"banded_{name}_{w}x{h}"] = _digest(fn())
+        row["ms"][f"banded_{name}_{w}x{h}"] = [graph_ms(fn, calls=1, replays=5)
+                                               for _ in range(2)]
+    del pair, smoothed, calls
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the JSON lines to this file")
-    ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--only", nargs="+", choices=sorted(VARIANTS), help="these variants alone")
+    ap.add_argument("--measure", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("tools.variants times a CUDA card, and none is available")
-    if args.measure:
-        print(json.dumps(measure()), flush=True)
+    if args.measure is not None:
+        print(json.dumps(measure(args.measure.split(","))), flush=True)
         return 0
-    roots = {"shipped": _PKG.parent, **{n: make_copy(n, e) for n, e in VARIANTS.items()}}
-    order = ["shipped", *VARIANTS, *reversed(VARIANTS), "shipped"]
+    chosen = {n: VARIANTS[n] for n in args.only or VARIANTS}
+    parts = ",".join(sorted({PARTS[e[0]] for edits in chosen.values() for e in edits}))
+    roots = {"shipped": _PKG.parent, **{n: make_copy(n, e) for n, e in chosen.items()}}
+    order = ["shipped", *chosen, *reversed(chosen), "shipped"]
     lines, runs = [], {name: [] for name in roots}
     for name in order:
         env = {**os.environ, "PYTHONPATH": str(roots[name])}
-        out = subprocess.run([sys.executable, "-m", "tpuflow_torch.tools.variants", "--measure"],
-                             cwd=roots[name], env=env, capture_output=True, text=True)
+        out = subprocess.run([sys.executable, "-m", "tpuflow_torch.tools.variants", "--measure",
+                              parts], cwd=roots[name], env=env, capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"variant {name} failed:\n{out.stdout}\n{out.stderr}")
         row = {"variant": name, **json.loads(out.stdout.strip().splitlines()[-1])}
