@@ -33,6 +33,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               the dense torch.matmul pair of the same weights (TF32 off), its
               X and Y launches alone, its plain ms, its bound, and the dense
               matrices' bytes against the plans'
+ 3c. rows     the whole-field stages over output row ranges (ROW_SIZES, the
+              first and last rows, bands at both edges and inside; warp,
+              level_derivs, the gradient and log tensors, add_median at
+              R = 1, 3, 5, 7, the flow's resample): bitwise the whole
+              launch's rows, the plain version's within phase 3's bounds,
+              no row outside written; then one process's band path at 1920x1080 for grey,
+              full_model() and xray_log, emulated on the card for each shard
+              of 4 under the kernel and explicit routes (every other row of
+              each stage NaN): owned rows bitwise, rows per stage the plan's
   4. e2e      compute_flow(FlowConfig()) (grey) at 584x388 and 1920x1080 on
               a textured pair shifted by (+1.25, -0.75) px: kernel path vs
               plain path, the recovered shift, and at 584x388 the NumPy
@@ -152,6 +161,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               the other processes' arenas through CUDA IPC handles), bitwise
               compute_flow, counts exact, and the level-0 launch's grid syncs
               and row barriers counted on the card against the formulas;
+              with a card a process also the kernel at k = 2; each case
+              prints its path (with a card a process, each process
+              computes only its band plan's rows of the sharded levels'
+              whole-field stages and the finest flow is gathered once,
+              counted in the messages; where the processes share a card,
+              the whole field) and the rows each row stage computed beside
+              the plan's;
               (c) the race case (the last process held back about 0.1 s);
               (d) the same pair on the row with halo="explicit" at k = 1 and
               2 and "auto" (the explicit route in its choice) beside the
@@ -171,8 +187,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 ``python3 chip_smoke.py --procs N [--link]`` runs, on a machine with N
 cards, phase 24 alone over N processes one a card, then (d) over two
-processes, (d) at 3840x2160 and (e) on a (4, 1080, 1920) full_model() stack
-over N, each as a JSON line; with ``--link``, first ``report_scaling
+processes, (d) at 3840x2160, (e) on a (4, 1080, 1920) full_model() stack
+over N and, with four or more, that stack through compute_flow on a (2,
+N / 2) mesh, each as a JSON line; with ``--link``, first ``report_scaling
 --procs N --link``. It ends with the same two last lines.
 
 Each main-path run of phases 4-6, 11-15, 17, 19-21, 23 and 24 (in each worker), and the measurement
@@ -275,6 +292,12 @@ BANDED_WIDE = ((9001, 6),)
 # taps level); 8: a radius over the frame.
 BANDED_SIGMAS = (0.5, 1.5, 8.0)
 BANDED_REPLAYS = 5
+# Phase 3c: the whole-field stages over output row ranges, bitwise the whole
+# launch's rows, at every median radius (1 copies), and the band path of one
+# process emulated for each shard of ROW_SHARDS.
+ROW_SIZES = (SIZES[0], SIZES[1], SIZE_4K)
+ROW_MEDIAN_RADII = (1, 3, 5, 7)
+ROW_SHARDS = 4
 # The kernels redesigned since their first port, and what changed. The
 # earlier kernels are gone from the tree, so their times are in PERF.md, not
 # in the kernels line, which holds only what this run measured.
@@ -818,6 +841,147 @@ def phase_banded(card: str) -> dict:
             "launches_per_pair", "bytes_per_pair", "passes")})
     out["dense_matrix_bytes"], out["table_bytes"] = row["dense_matrix_bytes"], row["table_bytes"]
     return out
+
+
+def row_ranges(h: int) -> tuple:
+    """Output row ranges of an h-row level: the first and last row alone,
+    bands at both edges, a band inside, and the whole level."""
+    third = max(1, h // 3)
+    return ((0, 1), (0, third), (third, min(h, 2 * third + 5)), (h - third, h), (h - 1, h),
+            (0, h))
+
+
+def phase_rows(card: str) -> dict:
+    """Phase 3c: the row ranges of the whole-field stages (warp,
+    level_derivs, level_tensor gradient and log, add_median at every
+    radius, the flow's resample) at ROW_SIZES over ``row_ranges``: each
+    range's rows bitwise those of the whole-field launch and of the plain
+    version's range, the output's other rows untouched (a NaN-filled
+    ``out``). Then the band path of one process at 1920x1080 for each
+    constancy, emulated on this card (``solver.bands.emulate_shard``: the
+    plan's rows alone, every other row of each stage's buffer NaN): each
+    shard of ROW_SHARDS under the kernel and the explicit routes, its owned
+    rows bitwise the whole solve's, its rows per stage the plan's.
+    Launches here are not counted on the main path."""
+    import torch
+
+    from tpuflow_torch import models
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.ops import level as L
+    from tpuflow_torch.ops.resample import resample, resample_plain
+    from tpuflow_torch.ops.warp import warp, warp_plain
+    from tpuflow_torch.parallel.mesh import Mesh
+    from tpuflow_torch.pyramid import level_schedule
+    from tpuflow_torch.solver.bands import band_plan, emulate_shard, stage_rows
+    from tpuflow_torch.solver.sharded import sharded_plan
+
+    t0 = time.perf_counter()
+    checks = {}
+    nan = float("nan")
+
+    def check(name, kern, plain, shape, lo, hi, whole, what):
+        """Rows lo..hi-1 into a NaN-filled whole-size output: bitwise the
+        whole launch's, the plain version's rows within phase 3's bound (0
+        for the median and the resample), and no other row written."""
+        out = torch.full(shape, nan, device="cuda")
+        got = kern(rows=(lo, hi), out=out)
+        want = plain(rows=(lo, hi))[..., lo:hi, :]
+        torch.cuda.synchronize()
+        inside = got[..., lo:hi, :]
+        err = float((inside - want).abs().max())
+        base = name.rsplit("_", 1)[0] if name.startswith("add_median") else name
+        if base in ELEMENTWISE_RELATIVE:
+            checked = float(((inside - want).abs() / want.abs().clamp_min(1e-30)).max())
+        elif base in FIELD_RELATIVE:
+            checked = err / max(float(want.abs().max()), 1e-30)
+        else:
+            checked = err
+        bound = BANDED_BOUND if base == "resample" else BOUNDS[base]
+        entry = checks.setdefault(name, {"checks": 0, "plain_max_abs_err": 0.0, "bound": bound})
+        entry["checks"] += 1
+        entry["plain_max_abs_err"] = max(entry["plain_max_abs_err"], err)
+        if not (got is out and torch.equal(inside, whole[..., lo:hi, :]) and checked <= bound
+                and bool(torch.isnan(got[..., :lo, :]).all()
+                         and torch.isnan(got[..., hi:, :]).all())):
+            raise AssertionError(f"{name} rows {lo}..{hi - 1} {what}: not bitwise the whole "
+                                 f"launch's, {checked} > {bound} against the plain version, or "
+                                 "a row outside written")
+
+    for w, h in ROW_SIZES:
+        x = kernel_inputs(w, h)
+        sc, uvf = x["sc"], x["uvf"]
+        f1w = warp(x["f0"], x["f1"], uvf, sc.inv_hx, sc.inv_hy)
+        fxyz = L.level_derivs(x["f0"], f1w, sc.div4hx, sc.div4hy)
+        calls = {
+            "warp": ((h, w), lambda **kw: warp(x["f0"], x["f1"], uvf, sc.inv_hx, sc.inv_hy, **kw),
+                     lambda **kw: warp_plain(x["f0"], x["f1"], uvf, sc.inv_hx, sc.inv_hy, **kw)),
+            "level_derivs": ((3, h, w),
+                             lambda **kw: L.level_derivs(x["f0"], f1w, sc.div4hx, sc.div4hy, **kw),
+                             lambda **kw: L.level_derivs_plain(x["f0"], f1w, sc.div4hx,
+                                                               sc.div4hy, **kw))}
+        for log in (False, True):
+            calls["level_tensor_" + ("log" if log else "gradient")] = (
+                (5, h, w), lambda log=log, **kw: L.level_tensor(x["f0"], f1w, fxyz, sc, log, **kw),
+                lambda log=log, **kw: L.level_tensor_plain(x["f0"], f1w, fxyz, sc, log, **kw))
+        for r in ROW_MEDIAN_RADII:
+            calls[f"add_median_{r}"] = (
+                (2, h, w), lambda r=r, **kw: L.add_median(x["T"], uvf, r, **kw),
+                lambda r=r, **kw: L.add_median_plain(x["T"], uvf, r, **kw))
+        for name, (shape, kern, plain) in calls.items():
+            whole = kern()
+            for lo, hi in row_ranges(h):
+                check(name, kern, plain, shape, lo, hi, whole, f"at {w}x{h}")
+        cfg = models.full_model()
+        specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+        rng = np.random.default_rng(h)
+        steps = [(a, b) for a, b in zip(specs, specs[1:])
+                 if (a.width, a.height) != (b.width, b.height)]
+        for a, b in steps[:1] + steps[-3:]:     # the coarsest and the finest levels' flow
+            flow = torch.from_numpy((rng.standard_normal((2, a.height, a.width)) * 4.0)
+                                    .astype(np.float32)).cuda()
+            shape = (2, b.height, b.width)
+            whole = resample(flow, b.width, b.height)
+            for lo, hi in row_ranges(b.height):
+                check("resample", lambda **kw: resample(flow, b.width, b.height, **kw),
+                      lambda **kw: resample_plain(flow, b.width, b.height, **kw), shape, lo, hi,
+                      whole, f"{a.width}x{a.height} -> {b.width}x{b.height}")
+        del x
+        torch.cuda.empty_cache()
+    emit({"phase": "rows", "sizes": [[h, w] for w, h in ROW_SIZES], "checks": checks,
+          "median_radii": list(ROW_MEDIAN_RADII), "whole_launch_bound": 0.0, "ok": True})
+
+    from tpuflow_torch.synthetic import textured_pair
+
+    w, h = SIZES[1]
+    f0, f1 = (torch.from_numpy(np.clip(f, 0.0, 255.0)).cuda() for f in textured_pair(w, h))
+    cfgs = {"grey": FlowConfig(), "gradient": models.full_model(),
+            "log": models.xray_log(alpha=LOG_ALPHA)}
+    for name, cfg in cfgs.items():
+        for halo in ("kernel", "explicit"):
+            routes = [(r, k) for _, _, r, k in sharded_plan(w, h, cfg, Mesh(ROW_SHARDS, "cuda"),
+                                                            halo)]
+            for shard in range(ROW_SHARDS):
+                plan = band_plan(w, h, cfg, routes, ROW_SHARDS, shard)
+                L.reset_row_counts()
+                banded, whole = emulate_shard(f0, f1, cfg, plan, fill=nan)
+                rows = L.row_counts()
+                lo, hi = plan.owned[shard]
+                want = stage_rows(w, h, cfg, plan)
+                full = stage_rows(w, h, cfg, None)
+                row = {"phase": "rows_emulated", "config": name, "route": halo,
+                       "shards": ROW_SHARDS, "shard": shard, "banded_levels": len(plan.levels),
+                       "levels": len(routes), "rows": {k: rows[k] - full[k] for k in rows},
+                       "rows_whole_field": full,
+                       "owned_bitwise": bool(torch.equal(banded[:, lo:hi], whole[:, lo:hi])),
+                       "others_unwritten": bool(torch.isnan(banded[:, :lo]).all()
+                                                and torch.isnan(banded[:, hi:]).all())}
+                row["rows_ok"] = row["rows"] == want
+                row["ok"] = row["owned_bitwise"] and row["others_unwritten"] and row["rows_ok"]
+                emit(row)
+                if not row["ok"]:
+                    raise AssertionError(f"the band path of shard {shard}: {row}")
+    emit({"phase": "rows_done", "seconds": time.perf_counter() - t0})
+    return checks
 
 
 def expected_launches(w: int, h: int, cfg, levels: range = None, smooth: bool = True) -> dict:
@@ -2148,16 +2312,22 @@ def phase_mesh_explicit(card: str) -> dict:
 
 
 def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, data: int = 0,
-                            levels: range = None, smooth: bool = True) -> dict:
+                            levels: range = None, smooth: bool = True,
+                            gather: bool = True) -> dict:
     """Launch counts of compute_flow_sharded on ``halo``'s routes over data
     row ``data`` (or of ``levels`` of its schedule, with the presmooth if
     ``smooth``), the explicit route's copies and, over processes, this
-    process's messages."""
+    process's messages: the explicit route's, and where its levels reach
+    the band path's suffix (and ``gather``: a solve with the band plan) the
+    finest flow's gather (two planes to each other process of the row)."""
     from tpuflow_torch.ops.level import KMAX
     from tpuflow_torch.parallel.halo import explicit_copies, explicit_sends
-    from tpuflow_torch.solver.sharded import sharded_plan
+    from tpuflow_torch.solver.sharded import sharded_bands, sharded_plan
 
     plan = sharded_plan(w, h, cfg, mesh, halo, k, data)
+    bands = sharded_bands(w, h, cfg, mesh, halo, k, data)
+    stop = len(plan) if levels is None else levels.stop
+    start = 0 if levels is None else levels.start
     if levels is not None:
         plan = plan[levels.start:levels.stop]
     want = expected_launches(w, h, cfg, levels, smooth)
@@ -2181,7 +2351,26 @@ def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, da
                                               prologue != "outer_prologue", shard)
             if processes:
                 want["messages"] += explicit_sends(cfg, mesh.n_y, kk, shard)
+    if gather and bands is not None and stop == len(bands.levels) + bands.start and stop > max(
+            start, bands.start):
+        want["messages"] += 2 * (mesh.n_y - 1)
     return want
+
+
+def band_rows(w: int, h: int, cfg, mesh, halo: str, k: int = 1, data: int = 0) -> dict:
+    """Which path a pair on ``mesh``'s row takes (the band path where its
+    processes each have a card, else the whole field), and the rows each
+    row stage computed (``ops.level.row_counts``, read after the run) beside
+    its plan's and the whole field's."""
+    from tpuflow_torch.ops.level import row_counts
+    from tpuflow_torch.solver.bands import stage_rows
+    from tpuflow_torch.solver.sharded import sharded_bands
+
+    plan = sharded_bands(w, h, cfg, mesh, halo, k, data)
+    got, want = row_counts(), stage_rows(w, h, cfg, plan)
+    return {"path": "whole field" if plan is None else "band", "rows": got,
+            "rows_expected": want, "rows_whole_field": stage_rows(w, h, cfg, None),
+            "rows_ok": got == want}
 
 
 def sharded_counts() -> dict:
@@ -2554,18 +2743,26 @@ def proc_row(rank: int, world: int, card: str) -> dict:
                          for lh, lw, r, k in sharded_plan(w, h, cfg, row, "auto")]}
     ok = True
     runs = {"compute_flow": lambda: compute_flow(f0, f1, cfg, device=dev)}
-    for halo in ("kernel", "auto"):
-        runs[halo] = lambda hl=halo: compute_flow_sharded(f0, f1, cfg, mesh=row, halo=hl,
-                                                          device=dev)
+    # k = 2 where each process has its card (the band path); processes that
+    # share one take turns by time slices, 6.4 s a pair on this route
+    cases = [("kernel", "kernel", 1), ("auto", "auto", 1)]
+    if row.p2p_ok:
+        cases.insert(1, ("kernel_k2", "kernel", 2))
+    for name, halo, k in cases:
+        runs[name] = lambda hl=halo, kk=k: compute_flow_sharded(f0, f1, cfg, mesh=row, halo=hl,
+                                                                k_outer=kk, device=dev)
         sharded.reset_launch_counts()
-        res = runs[halo]()
+        res = runs[name]()
         counts = sharded_counts()
-        want = expected_sharded_counts(w, h, cfg, row, halo)
+        want = expected_sharded_counts(w, h, cfg, row, halo, k)
         want = {key: want.get(key, 0) for key in counts}
         same = res.u.tobytes() == base.u.tobytes() and res.v.tobytes() == base.v.tobytes()
-        out[f"{halo}_bitwise"], out[f"{halo}_counts"] = same, counts
-        out[f"{halo}_counts_ok"] = counts == want
-        ok &= same and counts == want
+        out[f"{name}_bitwise"], out[f"{name}_counts"] = same, counts
+        out[f"{name}_counts_ok"] = counts == want
+        out[f"{name}_band"] = band_rows(w, h, cfg, row, halo, k)
+        if counts != want:
+            out[f"{name}_expected"] = want
+        ok &= same and counts == want and out[f"{name}_band"]["rows_ok"]
     x = kernel_inputs(w, h)
     args = (x["fxyz"], x["uvf"], x["sc"], cfg)
     unsharded = relax(*args, J=x["J"])
@@ -2588,7 +2785,7 @@ def proc_row(rank: int, world: int, card: str) -> dict:
     raced = relax_sharded_kernel(*args, row, 1, J=x["J"])
     out["race_max_abs_err"] = float((raced - unsharded).abs().max())
     ok &= out["race_max_abs_err"] <= SHARDED_BOUND
-    ms = {name: [] for name in runs}
+    ms = {name: [] for name in ("compute_flow", "kernel", "auto")}
     for _ in range(PROC_ROUNDS):
         for name in ("compute_flow", "kernel", "auto", "auto", "kernel", "compute_flow"):
             ms[name].append(cuda_ms(runs[name], 1, warmup=False))
@@ -2677,9 +2874,10 @@ def proc_explicit(rank: int, world: int, card: str, size=SIZES[1]) -> dict:
         same = res.u.tobytes() == base.u.tobytes() and res.v.tobytes() == base.v.tobytes()
         out[f"{name}_bitwise"], out[f"{name}_counts"] = same, counts
         out[f"{name}_counts_ok"] = counts == want
+        out[f"{name}_band"] = band_rows(w, h, cfg, row, halo, k)
         if counts != want:
             out[f"{name}_expected"] = want
-        ok &= same and counts == want
+        ok &= same and counts == want and out[f"{name}_band"]["rows_ok"]
     in_turns(runs, out)
     out["explicit_ran"], out["ok"] = True, bool(ok)
     return out
@@ -2697,7 +2895,8 @@ def expected_hybrid_counts(w: int, h: int, cfg, mesh, b: int) -> dict:
     g0 = hybrid_split_level(w, h, cfg, mesh)
     me, data = mesh.local_positions()[0], mesh.local_row()
     coarse = scaled(expected_sharded_counts(w, h, cfg, mesh, "auto", data=data,
-                                            levels=range(0, g0)), len(range(me, b, mesh.size)))
+                                            levels=range(0, g0), gather=False),
+                    len(range(me, b, mesh.size)))
     fine = scaled(expected_sharded_counts(w, h, cfg, mesh, "auto", data=data,
                                           levels=range(g0, n), smooth=False),
                   sum(i % mesh.n_data == data for i in range(b)))
@@ -2721,6 +2920,7 @@ def proc_hybrid(rank: int, world: int, card: str, size=SIZES[0],
     from tpuflow_torch import compute_flow, compute_flow_hybrid, make_mesh, models
     from tpuflow_torch.parallel.hybrid import hybrid_moves, hybrid_split_level
     from tpuflow_torch.solver import sharded
+    from tpuflow_torch.solver.sharded import sharded_bands
     from tpuflow_torch.synthetic import textured_frames
 
     dev = proc_device()
@@ -2754,7 +2954,10 @@ def proc_hybrid(rank: int, world: int, card: str, size=SIZES[0],
             and res.v[j].tobytes() == singles[i].v.tobytes() for j, i in enumerate(mine))
         out.update({f"{key}_ran": True, f"{key}_pairs": list(res.pairs),
                     f"{key}_bitwise": same, f"{key}_counts": counts,
-                    f"{key}_counts_ok": counts == want})
+                    f"{key}_counts_ok": counts == want,
+                    f"{key}_path": "band" if sharded_bands(w, h, cfg, mesh, "auto",
+                                                           data=mesh.local_row())
+                    else "whole field"})
         if counts != want:
             out[f"{key}_expected"] = want
         ok &= same and counts == want
@@ -2764,6 +2967,41 @@ def proc_hybrid(rank: int, world: int, card: str, size=SIZES[0],
     in_turns(runs, out)
     out["ok"] = bool(ok)
     return out
+
+
+def proc_stack(rank: int, world: int, card: str) -> dict:
+    """A (4, 1080, 1920) full_model() stack on a (2, world / 2) mesh over the
+    processes: pair i on data row i % 2, sharded over the row's processes
+    by the router, each process computing its band plan's rows of the
+    sharded levels; its row's pairs bitwise its own compute_flow of each,
+    ``pairs``, launches and messages (one gather a pair) exact."""
+    from tpuflow_torch import compute_flow, make_mesh, models
+    from tpuflow_torch.solver import sharded
+    from tpuflow_torch.solver.sharded import sharded_bands
+    from tpuflow_torch.synthetic import textured_frames
+
+    dev = proc_device()
+    w, h = SIZES[1]
+    cfg = models.full_model()
+    frames = np.stack(textured_frames(w, h, [(i * 1.25, i * -0.75) for i in range(DP_FRAMES)]))
+    F0, F1 = frames[:-1], frames[1:]
+    mesh = make_mesh((2, world // 2), dev)
+    data = mesh.local_row()
+    mine = tuple(i for i in range(len(F0)) if i % 2 == data)
+    singles = {i: compute_flow(F0[i], F1[i], cfg, device=dev) for i in mine}
+    sharded.reset_launch_counts()
+    res = compute_flow(F0, F1, cfg, mesh=mesh, device=dev)
+    counts = sharded_counts()
+    want = scaled(expected_sharded_counts(w, h, cfg, mesh, "auto", data=data), len(mine))
+    want = {key: want.get(key, 0) for key in counts}
+    same = res.pairs == mine and all(
+        res.u[j].tobytes() == singles[i].u.tobytes()
+        and res.v[j].tobytes() == singles[i].v.tobytes() for j, i in enumerate(mine))
+    path = "band" if sharded_bands(w, h, cfg, mesh, "auto", data=data) else "whole field"
+    return {"case": "stack", "rank": rank, "device": str(dev), "mesh": [2, world // 2],
+            "shape": [len(F0), h, w], "config": "models.full_model()", "pairs": list(res.pairs),
+            "path": path, "bitwise": same, "counts": counts, "counts_ok": counts == want,
+            "expected": want, "ok": bool(same and counts == want)}
 
 
 def proc_spin(rank: int, world: int) -> None:
@@ -2822,7 +3060,7 @@ def proc_worker(argv) -> int:
     if rest[1:]:
         kw["preset"] = rest[1]
     out = {"dp": proc_dp, "row": proc_row, "explicit": proc_explicit,
-           "hybrid": proc_hybrid}[name](rank, world, card, **kw)
+           "hybrid": proc_hybrid, "stack": proc_stack}[name](rank, world, card, **kw)
     out["backend"] = torch.distributed.get_backend()
     print("PROCRESULT " + json.dumps(out), flush=True)
     torch.distributed.barrier(group=process_group())
@@ -2947,6 +3185,7 @@ def main() -> int:
     ksweep = phase_ksweep(card)
     median = phase_median(card)
     banded = phase_banded(card)
+    phase_rows(card)
     counts, pairs = {}, {}
     for w, h in SIZES:
         pairs[(w, h, "reference_default")] = phase_e2e(w, h, "reference_default", counts,
@@ -3081,7 +3320,7 @@ def main() -> int:
 
 
 PROCS_CASES = ((2, "explicit"), (None, "explicit@3840x2160"),
-               (None, "hybrid@1920x1080@full_model"))
+               (None, "hybrid@1920x1080@full_model"), (4, "stack"))
 
 
 def procs_main(argv) -> int:
@@ -3113,6 +3352,8 @@ def procs_main(argv) -> int:
               "report": json.loads(done.stdout.strip().splitlines()[-1])})
     emit({"phase": "procmesh_kernels_keys", **phase_procmesh(card, world)})
     for n, case in PROCS_CASES:
+        if (n or world) > world:
+            continue
         t0 = time.perf_counter()
         ranks = proc_results(n or world, case)
         row = {"phase": f"procs_{case}", "processes": n or world,

@@ -15,7 +15,12 @@ the hybrid on ``(1, world)`` (each pair's working set sent to the row) and
 and ``relax_sharded``, bitwise; it checks that every process takes the
 same router plan, and what raises over processes: with the backend faked
 as NCCL, the explicit route and a hybrid that moves pairs where two
-processes share a (faked) card. The workers import no JAX: the parent
+processes share a (faked) card. On a row over processes with a card each,
+every process computes only its plan's rows of each whole-field stage of
+the sharded levels (``solver.bands``) and the finest flow is gathered once:
+the workers count the rows of each stage and the messages; where the
+processes share a card under NCCL they take the whole-field path; a stack
+runs on the row, and on (2, 2) over four processes. The workers import no JAX: the parent
 holds their flows within the sharded pipeline's bound of the JAX package
 (tests/test_torch_sharded.py: mean EPE 1e-5, max 1e-4) against
 ``compute_flow_bucketed_batch``.
@@ -58,14 +63,15 @@ from tpuflow_torch import (
     DataConstancy, FlowConfig, compute_flow, compute_flow_hybrid, compute_flow_sharded,
     make_mesh,
 )
-from tpuflow_torch.ops.level import level_derivs, level_tensor
+from tpuflow_torch.ops.level import level_derivs, level_tensor, reset_row_counts, row_counts
 from tpuflow_torch.parallel import Mesh, group, mesh as mesh_mod, model
 from tpuflow_torch.parallel import relax_sharded, relax_sharded_explicit, relax_sharded_kernel
 from tpuflow_torch.parallel.halo import explicit_copies, explicit_sends
 from tpuflow_torch.parallel.multihost import initialize_distributed, process_sequence
 from tpuflow_torch.solver.level import LevelScalars, relax
 from tpuflow_torch.parallel.hybrid import hybrid_moves, hybrid_split_level
-from tpuflow_torch.solver.sharded import sharded_plan
+from tpuflow_torch.solver.bands import stage_rows
+from tpuflow_torch.solver.sharded import sharded_bands, sharded_plan
 
 port, rank, world, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
 KW = json.loads(sys.argv[5])
@@ -75,6 +81,27 @@ data = np.load(os.path.join(out, "inputs.npz"))
 F0, F1 = data["F0"], data["F1"]
 cfgs = {c: FlowConfig(data_constancy=DataConstancy(c), **KW) for c in ("grey", "gradient")}
 res, meta = {}, {}
+GATHER = 2 * (world - 1)   # the finest flow's owned rows: two planes to each other process
+
+
+# run ``run``, a pair on ``mesh``'s row with ``halo`` at ``k``, with the rows
+# and sends counted from 0: its flow, the path its plan takes, the rows each
+# row stage computed beside the plan's, and its sends beside the explicit
+# route's and the one gather of the band path
+def banded(key, run, cfg, mesh, halo, k=1):
+    h, w = F0.shape[1:]
+    plan = sharded_bands(w, h, cfg, mesh, halo, k)
+    reset_row_counts()
+    group.row_exchange.sends = 0
+    got = run()
+    res[f"{key}_u"], res[f"{key}_v"] = got.u, got.v
+    meta[f"{key}_path"] = "whole" if plan is None else "banded"
+    meta[f"{key}_rows"] = [row_counts(), stage_rows(w, h, cfg, plan), stage_rows(w, h, cfg, None)]
+    sends = sum(explicit_sends(cfg, world, kk, rank)
+                for _, _, route, kk in sharded_plan(w, h, cfg, mesh, halo, k)
+                if route == "explicit")
+    meta[f"{key}_sends"] = [group.row_exchange.sends, sends + GATHER * (plan is not None)]
+    return got
 
 
 def layout(m):
@@ -111,11 +138,16 @@ def hybrid_sends(mesh, cfg):
     g0, me, data = hybrid_split_level(w, h, cfg, mesh), mesh.local_positions()[0], mesh.local_row()
     sends = sum(len(to) * (1 + (g0 > 0)) for _, owner, to in hybrid_moves(len(F0), mesh)
                 if owner == me)
+    pairs = sum(i % mesh.n_data == data for i in range(len(F0)))
     for lh, _, route, k in sharded_plan(w, h, cfg, mesh, "auto", data=data)[g0:]:
         if route == "explicit":
             shard = mesh.row(data).index(me)
-            sends += explicit_sends(cfg, mesh.n_y, k, shard) * sum(
-                i % mesh.n_data == data for i in range(len(F0)))
+            sends += explicit_sends(cfg, mesh.n_y, k, shard) * pairs
+    # a pair whose fine levels reach the suffix of sharded levels gathers its flow once
+    plan = sharded_bands(w, h, cfg, mesh, "auto", data=data)
+    n = len(sharded_plan(w, h, cfg, mesh, "auto", data=data))
+    if plan is not None and n > max(g0, plan.start):
+        sends += 2 * (mesh.n_y - 1) * pairs
     return sends
 
 
@@ -128,37 +160,44 @@ for mesh, key in ((row, "hybrid_row"), (dp, "hybrid_dp")):
     meta[f"{key}_split"] = hybrid_split_level(F0.shape[2], F0.shape[1], cfgs["grey"], mesh)
     res[f"{key}_u"], res[f"{key}_v"] = r.u, r.v
 
-# the row: the pair sharded over the processes
+# the row: the pair sharded over the processes, each process computing its
+# own rows of the whole-field stages of the sharded levels
+h, w = F0.shape[1:]
 for name, cfg in cfgs.items():
     one = compute_flow(F0[0], F1[0], cfg, device="cpu")
     res[f"row_{name}_ref_u"], res[f"row_{name}_ref_v"] = one.u, one.v
     for k in (1, 2):
-        got = compute_flow_sharded(F0[0], F1[0], cfg, mesh=row, halo="kernel", k_outer=k,
-                                   device="cpu")
-        res[f"row_{name}_k{k}_u"], res[f"row_{name}_k{k}_v"] = got.u, got.v
-    got = compute_flow(F0[0], F1[0], cfg, mesh=row, device="cpu")
-    res[f"row_{name}_auto_u"], res[f"row_{name}_auto_v"] = got.u, got.v
+        banded(f"row_{name}_k{k}", lambda: compute_flow_sharded(
+            F0[0], F1[0], cfg, mesh=row, halo="kernel", k_outer=k, device="cpu"),
+            cfg, row, "kernel", k)
+    got = banded(f"row_{name}_auto", lambda: compute_flow(F0[0], F1[0], cfg, mesh=row,
+                                                           device="cpu"), cfg, row, "auto")
     meta[f"row_{name}_pairs"] = got.pairs
     for k in (1, 2):
-        relax_sharded_explicit.copies = group.row_exchange.sends = 0
-        got = compute_flow_sharded(F0[0], F1[0], cfg, mesh=row, halo="explicit", k_outer=k,
-                                   device="cpu")
-        res[f"row_{name}_explicit_k{k}_u"], res[f"row_{name}_explicit_k{k}_v"] = got.u, got.v
+        relax_sharded_explicit.copies = 0
+        banded(f"row_{name}_explicit_k{k}", lambda: compute_flow_sharded(
+            F0[0], F1[0], cfg, mesh=row, halo="explicit", k_outer=k, device="cpu"),
+            cfg, row, "explicit", k)
         levels = [(lh, kk) for lh, _, route, kk in sharded_plan(
             F0.shape[2], F0.shape[1], cfg, row, "explicit", k) if route == "explicit"]
         meta[f"row_{name}_explicit_k{k}_copies"] = [
             relax_sharded_explicit.copies,
             sum(explicit_copies(lh, cfg, world, kk, name != "grey", shard=rank)
                 for lh, kk in levels)]
-        meta[f"row_{name}_explicit_k{k}_sends"] = [
-            group.row_exchange.sends,
-            sum(explicit_sends(cfg, world, kk, rank) for _, kk in levels)]
     for mesh, key in ((row, "plan"), (shared, "plan_shared")):
         plan = sharded_plan(F0.shape[2], F0.shape[1], cfg, mesh, "auto")
         plans = [None] * world
         dist.all_gather_object(plans, plan)
         meta[f"{key}_{name}"] = plan
         meta[f"same_{key}_{name}"] = all(p == plan for p in plans)
+
+# a stack on the row: every pair sharded over the processes, each gathered once
+plan = sharded_bands(w, h, cfgs["grey"], row, "auto")
+group.row_exchange.sends = 0
+r = compute_flow(F0, F1, cfgs["grey"], mesh=row, device="cpu")
+meta["stack_row_pairs"], meta["stack_row_sends"] = list(r.pairs), group.row_exchange.sends
+meta["stack_row_sends_expected"] = len(F0) * GATHER * (plan is not None)
+res["stack_row_u"], res["stack_row_v"] = r.u, r.v
 
 # the plain twin on one level, against the one-process twin and relax
 rng = np.random.default_rng(5)
@@ -187,8 +226,8 @@ model.NCCL = model.ICIParams(bandwidth_bytes_s=1e15, hop_latency_s=0.0, dispatch
                              launch_s=0.0)
 model.KERNEL_PX_S = 1.0
 for name, cfg in cfgs.items():
-    got = compute_flow(F0[0], F1[0], cfg, mesh=row, device="cpu")
-    res[f"row_{name}_auto_explicit_u"], res[f"row_{name}_auto_explicit_v"] = got.u, got.v
+    banded(f"row_{name}_auto_explicit", lambda: compute_flow(F0[0], F1[0], cfg, mesh=row,
+                                                              device="cpu"), cfg, row, "auto")
     plan = sharded_plan(F0.shape[2], F0.shape[1], cfg, row, "auto")
     plans = [None] * world
     dist.all_gather_object(plans, plan)
@@ -210,6 +249,12 @@ def raised(fn):
 # routes that would send between them raise before any message
 group.p2p_backend = lambda: "nccl"
 shared_dp = Mesh(1, n_data=world, devices=shared.devices, ranks=shared.ranks, uuids=shared.uuids)
+# processes that share a card take the whole-field path (NCCL would refuse
+# the gather), with the kernel route's plain twin between them over gloo
+for name, cfg in cfgs.items():
+    banded(f"shared_{name}", lambda: compute_flow_sharded(F0[0], F1[0], cfg, mesh=shared,
+                                                          halo="kernel", device="cpu"),
+           cfg, shared, "kernel")
 meta["explicit"] = raised(lambda: compute_flow_sharded(F0[0], F1[0], cfgs["grey"], mesh=shared,
                                                        halo="explicit", device="cpu"))
 meta["explicit_level"] = raised(lambda: relax_sharded_explicit(fxyz, uv, sc, cfgs["grey"],
@@ -233,6 +278,39 @@ print(f"PROCMESH OK rank={rank}", flush=True)
 """
 
 
+WORKER_2X2 = r"""
+import json, os, sys
+import numpy as np
+import torch.distributed as dist
+
+from tpuflow_torch import FlowConfig, compute_flow, make_mesh
+from tpuflow_torch.parallel import group, mesh as mesh_mod
+from tpuflow_torch.parallel.multihost import initialize_distributed
+from tpuflow_torch.solver.sharded import sharded_bands
+
+port, rank, world, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+cfg = FlowConfig(**json.loads(sys.argv[5]))
+initialize_distributed(f"localhost:{port}", num_processes=world, process_id=rank)
+data = np.load(os.path.join(out, "inputs.npz"))
+F0, F1 = data["F0"], data["F1"]
+mesh_mod.device_uuid = lambda device: f"card{dist.get_rank()}"
+mesh = make_mesh((2, 2), "cpu")
+h, w = F0.shape[1:]
+plan = sharded_bands(w, h, cfg, mesh, "auto", data=mesh.local_row())
+group.row_exchange.sends = 0
+r = compute_flow(F0, F1, cfg, mesh=mesh, device="cpu")
+refs = [compute_flow(F0[i], F1[i], cfg, device="cpu") for i in r.pairs]
+meta = {"pairs": list(r.pairs), "banded": plan is not None, "sends": group.row_exchange.sends,
+        "bitwise": all(r.u[j].tobytes() == one.u.tobytes() and r.v[j].tobytes() == one.v.tobytes()
+                       for j, one in enumerate(refs))}
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(meta, f)
+dist.barrier()
+dist.destroy_process_group()
+print(f"PROCMESH OK rank={rank}", flush=True)
+"""
+
+
 def frames():
     """A (B, H, W) stack: seeded noise with a blob, moved by a different
     shift in each pair."""
@@ -247,14 +325,14 @@ def frames():
     return np.stack(F0).astype(np.float32), np.stack(F1).astype(np.float32)
 
 
-def run_workers(world, tmp):
+def run_workers(world, tmp, worker=WORKER):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     F0, F1 = frames()
     np.savez(tmp / "inputs.npz", F0=F0, F1=F1)
     script = tmp / "worker.py"
-    script.write_text(WORKER)
+    script.write_text(worker)
     env = {k: v for k, v in os.environ.items() if not k.startswith("TPUFLOW_")}
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
@@ -272,6 +350,8 @@ def run_workers(world, tmp):
     for r, (p, text) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} failed:\n{text[-4000:]}"
         assert f"PROCMESH OK rank={r}" in text, text[-2000:]
+    if worker is not WORKER:
+        return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
     return [(dict(np.load(tmp / f"rank{r}.npz")), json.loads((tmp / f"rank{r}.json").read_text()))
             for r in range(world)]
 
@@ -334,6 +414,62 @@ def test_row_over_processes_is_bitwise_compute_flow(procs, constancy, route):
     # every process returns the whole flow, the same bits
     for res, _ in ranks[1:]:
         assert same(res[f"row_{constancy}_{route}_u"], ranks[0][0][f"row_{constancy}_{route}_u"])
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("constancy", CONSTANCIES)
+def test_row_over_processes_computes_its_plans_rows(procs, constancy, route):
+    """Each process takes the band path (a faked card each) and computes,
+    per row stage, exactly its plan's rows, fewer than the whole field's;
+    it sends the explicit route's messages and one gather of the finest
+    flow (two planes to each other process), nothing between levels."""
+    _, ranks = procs
+    for _, meta in ranks:
+        key = f"row_{constancy}_{route}"
+        assert meta[f"{key}_path"] == "banded"
+        got, want, whole = meta[f"{key}_rows"]
+        assert got == want
+        assert all(got[s] <= whole[s] for s in got) and sum(got.values()) < sum(whole.values())
+        sends, expected = meta[f"{key}_sends"]
+        assert sends == expected > 0
+
+
+@pytest.mark.parametrize("constancy", CONSTANCIES)
+def test_processes_sharing_a_card_take_the_whole_path(procs, constancy):
+    """Where two processes share a card under NCCL, which would refuse the
+    gather, every level's whole-field stages run over the whole field: the
+    same flow, every row computed, no message."""
+    _, ranks = procs
+    for res, meta in ranks:
+        assert meta[f"shared_{constancy}_path"] == "whole"
+        got, want, whole = meta[f"shared_{constancy}_rows"]
+        assert got == want == whole
+        assert meta[f"shared_{constancy}_sends"] == [0, 0]
+        assert same(res[f"shared_{constancy}_u"], res[f"row_{constancy}_ref_u"])
+        assert same(res[f"shared_{constancy}_v"], res[f"row_{constancy}_ref_v"])
+
+
+def test_stack_on_the_row_is_bitwise_compute_flow(procs):
+    """A stack on (1, world): every pair sharded over the processes, each
+    bitwise its compute_flow on every process, one gather a pair."""
+    _, ranks = procs
+    for res, meta in ranks:
+        assert meta["stack_row_pairs"] == list(range(B))
+        for i in range(B):
+            assert same(res["stack_row_u"][i], res[f"dp_ref_u{i}"])
+            assert same(res["stack_row_v"][i], res[f"dp_ref_v{i}"])
+        assert meta["stack_row_sends"] == meta["stack_row_sends_expected"] > 0
+
+
+def test_stack_on_two_by_two_is_bitwise_compute_flow(tmp_path):
+    """A stack on a (2, 2) mesh over four processes: pair i on data row
+    i % 2, sharded over the row's two processes with their band plans,
+    each flow bitwise that process's compute_flow, one gather a pair."""
+    ranks = run_workers(4, tmp_path, WORKER_2X2)
+    for r, meta in enumerate(ranks):
+        assert meta["pairs"] == [i for i in range(B) if i % 2 == r // 2]
+        assert meta["bitwise"] and meta["banded"]
+        assert meta["sends"] == 2 * len(meta["pairs"])
 
 
 @pytest.mark.parametrize("k", [1, 2])
@@ -430,6 +566,7 @@ def test_explicit_route_counts_its_copies_and_sends(procs, constancy, k):
     for _, meta in ranks:
         got, want = meta[f"row_{constancy}_explicit_k{k}_copies"]
         assert got == want > 0
+        # the explicit route's sends and the finest flow's one gather
         got, want = meta[f"row_{constancy}_explicit_k{k}_sends"]
         assert got == want > 0
 

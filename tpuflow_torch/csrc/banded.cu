@@ -67,6 +67,14 @@
 //   same runs and the same sums, 4 rows a group, each term read from device
 //   memory through L1. No configuration of the port reaches it; it keeps
 //   such rows working, bitwise.
+//   A launch covers rows row0 .. row0 + band - 1 of each plane of
+//   plane_rows rows: logical row g is input and output row
+//   (g / band) plane_rows + row0 + g % band, so the intermediate keeps the
+//   whole input's rows and the Y pass reads it unchanged. The flow's
+//   resample over a process's rows gives a band of them (ops/resample.py);
+//   every other launch gives band = plane_rows = rows and row0 = 0, where
+//   row g is g itself. A block finds a group's rows once (one divide), not
+//   at each store.
 // banded_y_kernel  along the strided axis. Bound: device memory, each
 //   level's columns of the intermediate once and its output once.
 //   Design: work items are block-table entries (level, plane, up to YR
@@ -117,14 +125,18 @@ struct Lane {
 };
 
 // XR rows a group: staged as XR / 4 planes of in_n float4, plane p holding
-// column k of rows 4p .. 4p + 3 at k.
+// column k of rows 4p .. 4p + 3 at k. `rows` logical rows, row g being row
+// (g / band) plane_rows + row0 + g % band of x and of out.
 template <bool STAGED, int XR>
 __global__ void __launch_bounds__(XT)
     banded_x_kernel(const float* __restrict__ x, float* __restrict__ out,
                     const int* __restrict__ plan, int rows, int in_n, long long in_pitch,
                     long long out_pitch, int nbuf, int n_runs, int meta_ints, int whole,
-                    int parts) {
+                    int parts, int band, int plane_rows, int row0) {
   constexpr int NP = XR / 4;
+  auto at = [&](int g) -> long long {
+    return (long long)(g / band) * plane_rows + row0 + g % band;
+  };
   extern __shared__ int4 smem[];
   int* meta = reinterpret_cast<int*>(smem);
   const int* levels = meta;
@@ -148,7 +160,7 @@ __global__ void __launch_bounds__(XT)
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       if (r + 4 * p < rows) {
-        const float* src = x + (r + 4 * p) * in_pitch + (threadIdx.x >> 2);
+        const float* src = x + at(r + 4 * p) * in_pitch + (threadIdx.x >> 2);
         float* dst = reinterpret_cast<float*>(buf + p * in_n) + threadIdx.x;
         for (int k = threadIdx.x >> 2; k < in_n; k += XT / 4, src += XT / 4, dst += XT)
           __pipeline_memcpy_async(dst, src, 4);
@@ -188,10 +200,20 @@ __global__ void __launch_bounds__(XT)
       }
       __syncthreads();
     }
+    // the group's output rows, found once: logical row r0 + r is row orow[r]
+    int orow[XR];
+    {
+      int q = r0 / band, m = r0 % band;
+#pragma unroll
+      for (int r = 0; r < XR; ++r) {
+        orow[r] = q * plane_rows + row0 + m;
+        if (++m == band) m = 0, ++q;
+      }
+    }
     // unstaged: each term's XR values from device memory, rows clamped
     const float* xr[XR];
 #pragma unroll
-    for (int r = 0; r < XR; ++r) xr[r] = x + min(r0 + r, rows - 1) * in_pitch;
+    for (int r = 0; r < XR; ++r) xr[r] = x + at(min(r0 + r, rows - 1)) * in_pitch;
     const int i0 = slice + warp * (step / NW);
     Lane cur;
     if (i0 < n_runs) cur = fetch(i0);
@@ -247,10 +269,10 @@ __global__ void __launch_bounds__(XT)
       }
       const int o = run.y + lane;
       if (o < out_n) {
-        float* dst = out + r0 * out_pitch + out_col + o;
+        float* dst = out + out_col + o;
 #pragma unroll
         for (int r = 0; r < XR; ++r)
-          if (r0 + r < rows) dst[r * out_pitch] = acc[r] * norm;
+          if (r0 + r < rows) dst[orow[r] * out_pitch] = acc[r] * norm;
       }
       cur = nxt;
     }
@@ -384,6 +406,7 @@ struct XArgs {
   int rows, in_n;
   long long in_pitch, out_pitch;
   int n_runs, meta_ints;
+  int band, plane_rows, row0;  // rows row0 .. row0 + band - 1 of each plane
   cudaStream_t s;
 };
 
@@ -417,7 +440,8 @@ cudaError_t launch_x(int dev, const Card& card, const XArgs& a, int nbuf, size_t
   const int grid = min(resident, whole + left * parts);
   banded_x_kernel<STAGED, XR><<<grid, XT, smem, a.s>>>(a.x, a.out, a.plan, a.rows, a.in_n,
                                                        a.in_pitch, a.out_pitch, nbuf, a.n_runs,
-                                                       a.meta_ints, whole, parts);
+                                                       a.meta_ints, whole, parts, a.band,
+                                                       a.plane_rows, a.row0);
   return cudaGetLastError();
 }
 
@@ -429,19 +453,21 @@ extern "C" {
 // floats a row; plan: an X plan on the device, with n_runs runs and a meta
 // region of meta_ints ints. Eight rows a group, in two buffers where they
 // fit in shared memory beside the meta region, else in one; wider rows
-// unstaged.
+// unstaged. The launch covers rows row0 .. row0 + band - 1 of each plane of
+// plane_rows rows of x and of out, `rows` (a multiple of band) in all; band
+// = plane_rows = rows and row0 = 0 is every row.
 int tf_banded_x(const float* x, float* out, const int* plan, int rows, int in_n,
-                long long in_pitch, long long out_pitch, int n_runs, int meta_ints,
-                void* stream) {
+                long long in_pitch, long long out_pitch, int n_runs, int meta_ints, int band,
+                int plane_rows, int row0, void* stream) {
   if (rows <= 0 || in_n <= 0 || in_pitch < in_n || out_pitch <= 0 || n_runs <= 0 ||
-      meta_ints <= 0)
+      meta_ints <= 0 || band <= 0 || rows % band != 0 || row0 < 0 || row0 + band > plane_rows)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   Card card;
   cudaError_t err = card_of(&dev, &card);
   if (err != cudaSuccess) return (int)err;
-  const XArgs a{x, out, plan, rows, in_n, in_pitch, out_pitch, n_runs, meta_ints,
-                (cudaStream_t)stream};
+  const XArgs a{x, out, plan, rows, in_n, in_pitch, out_pitch, n_runs, meta_ints, band,
+                plane_rows, row0, (cudaStream_t)stream};
   const size_t meta = (size_t)(meta_ints + 3) / 4 * sizeof(int4);
   const size_t row4 = (size_t)in_n * sizeof(float4);  // four staged rows
   const size_t room = (size_t)card.optin;

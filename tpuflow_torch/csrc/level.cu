@@ -54,6 +54,17 @@
 // though nothing promises it), and the bounds in the tests have room to
 // spare.
 //
+// Output row ranges. warp, level_derivs, level_tensor and add_median take
+// rows lo .. hi - 1 of the level (0 .. h for the whole level): their grid
+// covers only those output rows, which they write into the whole-size
+// output, and they read their inputs by the level's own coordinates, with
+// the level's height h for refl and clamp_idx. So an output row is the same,
+// bit for bit, whichever range it is computed in (the pattern of
+// tf_outer_prologue's gy0/gh). The row-sharded pipeline over processes
+// computes each process's rows this way (solver/bands.py). The staged
+// kernels (the log tensor, add_median) also stage only the rows that some
+// output of the range reads.
+//
 // Each C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise.
 
@@ -75,6 +86,9 @@ __device__ __forceinline__ int clamp_idx(int i, int n) {
 
 dim3 grid_for(int h, int w) { return dim3((w + BX - 1) / BX, (h + BY - 1) / BY); }
 
+// A launch over output rows lo .. hi - 1 of a level: the grid of hi - lo rows.
+bool bad_rows(int lo, int hi, int h) { return lo < 0 || hi > h || lo >= hi; }
+
 // ---------------------------------------------------------------------------
 // warp: replaces the in-kernel shift-sum (level_fused.py:179-243), the XLA
 // widened tier and the exact gather (bucketed.py:236-361). The TPU needed
@@ -84,10 +98,10 @@ dim3 grid_for(int h, int w) { return dim3((w + BX - 1) / BX, (h + BY - 1) / BY);
 // ---------------------------------------------------------------------------
 __global__ void warp_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
                             const float* __restrict__ uv, float* __restrict__ out,
-                            int h, int w, float inv_hx, float inv_hy) {
+                            int h, int w, int lo, int hi, float inv_hx, float inv_hy) {
   const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= w || y >= h) return;
+  const int y = lo + blockIdx.y * BY + threadIdx.y;
+  if (x >= w || y >= hi) return;
   const size_t n = (size_t)h * w;
   const int i = y * w + x;
   const float x_f = (float)x + uv[i] * inv_hx;
@@ -122,11 +136,11 @@ __global__ void warp_kernel(const float* __restrict__ f0, const float* __restric
 // Bound: 2 input planes read, 3 written.
 // ---------------------------------------------------------------------------
 __global__ void level_derivs_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
-                                    float* __restrict__ fxyz, int h, int w,
+                                    float* __restrict__ fxyz, int h, int w, int lo, int hi,
                                     float div4hx, float div4hy) {
   const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= w || y >= h) return;
+  const int y = lo + blockIdx.y * BY + threadIdx.y;
+  if (x >= w || y >= hi) return;
   const size_t n = (size_t)h * w;
   const int c = y * w + x;
   const int xp = y * w + refl(x + 1, w), xm = y * w + refl(x - 1, w);
@@ -164,10 +178,10 @@ __device__ __forceinline__ void tensor_from(const float* g_xp, const float* g_xm
 // The gradient tensor: g is the grey fxyz, read at the clamped neighbours.
 // Bound: bytes, 3 planes read (10 neighbouring floats, from L1/L2), 5 written.
 __global__ void level_tensor_kernel(const float* __restrict__ fxyz, float* __restrict__ J,
-                                    int h, int w, float hx_1, float hy_1) {
+                                    int h, int w, int lo, int hi, float hx_1, float hy_1) {
   const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= w || y >= h) return;
+  const int y = lo + blockIdx.y * BY + threadIdx.y;
+  if (x >= w || y >= hi) return;
   const size_t n = (size_t)h * w;
   float g[4][3];  // at x+1, x-1, y+1, y-1
   const int at[4] = {y * w + clamp_idx(x + 1, w), y * w + clamp_idx(x - 1, w),
@@ -202,7 +216,10 @@ __global__ void level_tensor_kernel(const float* __restrict__ fxyz, float* __res
 // level; the pyramid makes none (pyramid.py: max_warp_level). Every value
 // is the same log1pf of the same float and the same expression as in the
 // plain version, so the kernel is bitwise equal to it where log1pf rounds
-// as torch.log1p does.
+// as torch.log1p does. Over output rows lo .. hi - 1 the tiles start at row
+// lo, and step 1 stages only rows max(0, lo - 2) .. min(h, hi + 2) - 1:
+// every row that an output of the range reads through the clamp and the
+// reflect (the rest of a tile's staged entries are never read).
 // Bound: bytes, 2 planes read and 5 written.
 constexpr int LT_TH = 16;                         // tile rows, LT_TH / BY a thread
 constexpr int LT_RW = BX + 4, LT_RH = LT_TH + 4;  // the log tile: the tile + 2 rings
@@ -210,19 +227,20 @@ constexpr int LT_GW = BX + 2, LT_GH = LT_TH + 2;  // the g tile: + 1 ring
 
 __global__ void __launch_bounds__(BX * BY)
     level_tensor_log_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
-                            float* __restrict__ J, int h, int w, float div4hx, float div4hy,
-                            float hx_1, float hy_1) {
+                            float* __restrict__ J, int h, int w, int lo, int hi, float div4hx,
+                            float div4hy, float hx_1, float hy_1) {
   // ls[p][r][c] = log1pf of frame p at image (y0 - 2 + r, x0 - 2 + c)
   __shared__ float ls[2][LT_RH][LT_RW];
   // gs[p][r][c] = g_p at image (clamp(y0 - 1 + r), clamp(x0 - 1 + c))
   __shared__ float gs[3][LT_GH][LT_GW];
-  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * LT_TH;
+  const int x0 = blockIdx.x * BX, y0 = lo + blockIdx.y * LT_TH;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BX + tx;
+  const int sy0 = max(0, lo - 2), sy1 = min(h, hi + 2);  // the rows the range reads
 
   for (int i = tid; i < LT_RH * LT_RW; i += BX * BY) {
     const int r = i / LT_RW, c = i % LT_RW;
     const int gy = y0 - 2 + r, gx = x0 - 2 + c;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+    if (gy >= sy0 && gy < sy1 && gx >= 0 && gx < w) {
       const size_t g = (size_t)gy * w + gx;
       tf_body::cp_async4(&ls[0][r][c], f0 + g);
       tf_body::cp_async4(&ls[1][r][c], f1 + g);
@@ -233,7 +251,7 @@ __global__ void __launch_bounds__(BX * BY)
   for (int i = tid; i < LT_RH * LT_RW; i += BX * BY) {
     const int r = i / LT_RW, c = i % LT_RW;
     const int gy = y0 - 2 + r, gx = x0 - 2 + c;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+    if (gy >= sy0 && gy < sy1 && gx >= 0 && gx < w) {
       ls[0][r][c] = log1pf(ls[0][r][c]);
       ls[1][r][c] = log1pf(ls[1][r][c]);
     }
@@ -260,7 +278,7 @@ __global__ void __launch_bounds__(BX * BY)
 #pragma unroll
   for (int j = 0; j < LT_TH / BY; ++j) {
     const int r = ty + BY * j, y = y0 + r;
-    if (y >= h) return;
+    if (y >= hi) return;
     float g[4][3];  // at x+1, x-1, y+1, y-1: g tile entries (r+1, tx+2), (r+1, tx), ...
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
@@ -373,7 +391,9 @@ int launch_sweeps(const float* T, const float* uv, const float* hoist, float* T_
 // transposition sort. Min and max are exact, so any exact selection returns
 // the value of the plain version's sort, bit for bit.
 // Needs min(h, w) > R/2, where one reflection stays in the image; the plain
-// version's reflect padding has the same limit.
+// version's reflect padding has the same limit. Over output rows lo .. hi - 1
+// the blocks start at row lo and stage only the entries whose unreflected
+// row lies in lo - R/2 .. hi - 1 + R/2, the rows the range's windows read.
 // ---------------------------------------------------------------------------
 // (i, j): min to a[i], max to a[j]; the median is then a[4], resp. a[12].
 #define TF_MEDIAN_9(X)                                                                    \
@@ -419,19 +439,19 @@ __device__ __forceinline__ float select_median(float (&a)[R * R]) {
 
 template <int R>
 __global__ void add_median_kernel(const float* __restrict__ T, const float* __restrict__ uv,
-                                  float* __restrict__ out, int h, int w) {
+                                  float* __restrict__ out, int h, int w, int lo, int hi) {
   constexpr int R2 = R / 2, SW = BX + 2 * R2, SH = BY + 2 * R2;
   // st[p][r][c]: plane p of T, then of the sum, at image coordinate
   // (refl(y0 - R2 + r), refl(x0 - R2 + c)); su: the same of u.
   __shared__ float st[2][SH][SW];
   __shared__ float su[2][SH][SW];
-  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * BY;
+  const int x0 = blockIdx.x * BX, y0 = lo + blockIdx.y * BY;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BX + tx;
   const size_t n = (size_t)h * w;
   for (int i = tid; i < SH * SW; i += BX * BY) {
     const int r = i / SW, c = i % SW;
     const int gy = y0 - R2 + r, gx = x0 - R2 + c;
-    if (gy > h - 1 + R2 || gx > w - 1 + R2) continue;  // beyond the last row's or column's ring
+    if (gy >= hi + R2 || gx > w - 1 + R2) continue;  // beyond the range's or the last column's ring
     const size_t g = (size_t)refl(gy, h) * w + refl(gx, w);
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
@@ -451,7 +471,7 @@ __global__ void add_median_kernel(const float* __restrict__ T, const float* __re
   }
   __syncthreads();
   const int x = x0 + tx, y = y0 + ty;
-  if (x >= w || y >= h) return;
+  if (x >= w || y >= hi) return;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     float a[R * R];
@@ -470,33 +490,39 @@ extern "C" {
 
 const char* tf_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// [lo, hi): the output rows of warp, level_derivs, level_tensor and
+// add_median (0, h for the whole level).
 int tf_warp(const float* f0, const float* f1, const float* uv, float* out, int h, int w,
-            float inv_hx, float inv_hy, void* stream) {
-  warp_kernel<<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      f0, f1, uv, out, h, w, inv_hx, inv_hy);
+            int lo, int hi, float inv_hx, float inv_hy, void* stream) {
+  if (bad_rows(lo, hi, h)) return (int)cudaErrorInvalidValue;
+  warp_kernel<<<grid_for(hi - lo, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      f0, f1, uv, out, h, w, lo, hi, inv_hx, inv_hy);
   return (int)cudaGetLastError();
 }
 
-int tf_level_derivs(const float* f0, const float* f1, float* fxyz, int h, int w,
-                    float div4hx, float div4hy, void* stream) {
-  level_derivs_kernel<<<grid_for(h, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      f0, f1, fxyz, h, w, div4hx, div4hy);
+int tf_level_derivs(const float* f0, const float* f1, float* fxyz, int h, int w, int lo,
+                    int hi, float div4hx, float div4hy, void* stream) {
+  if (bad_rows(lo, hi, h)) return (int)cudaErrorInvalidValue;
+  level_derivs_kernel<<<grid_for(hi - lo, w), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      f0, f1, fxyz, h, w, lo, hi, div4hx, div4hy);
   return (int)cudaGetLastError();
 }
 
 // log: 0 for the gradient tensor (reads fxyz), 1 for the log-derivative one
 // (reads f0 and f1; h, w >= 2).
 int tf_level_tensor(const float* f0, const float* f1, const float* fxyz, float* J, int h,
-                    int w, float div4hx, float div4hy, float hx_1, float hy_1, int log,
-                    void* stream) {
-  const dim3 grid = grid_for(h, w), block(BX, BY);
+                    int w, int lo, int hi, float div4hx, float div4hy, float hx_1, float hy_1,
+                    int log, void* stream) {
+  if (bad_rows(lo, hi, h)) return (int)cudaErrorInvalidValue;
+  const dim3 block(BX, BY);
   cudaStream_t s = (cudaStream_t)stream;
   if (log) {
     if (h < 2 || w < 2) return (int)cudaErrorInvalidValue;
-    level_tensor_log_kernel<<<dim3((w + BX - 1) / BX, (h + LT_TH - 1) / LT_TH), block, 0, s>>>(
-        f0, f1, J, h, w, div4hx, div4hy, hx_1, hy_1);
+    level_tensor_log_kernel<<<dim3((w + BX - 1) / BX, (hi - lo + LT_TH - 1) / LT_TH), block, 0,
+                              s>>>(f0, f1, J, h, w, lo, hi, div4hx, div4hy, hx_1, hy_1);
   } else {
-    level_tensor_kernel<<<grid, block, 0, s>>>(fxyz, J, h, w, hx_1, hy_1);
+    level_tensor_kernel<<<grid_for(hi - lo, w), block, 0, s>>>(fxyz, J, h, w, lo, hi, hx_1,
+                                                                hy_1);
   }
   return (int)cudaGetLastError();
 }
@@ -547,15 +573,16 @@ int tf_jacobi_sweeps(const float* T, const float* uv, const float* hoist, float*
 }
 
 // radius: the window side after the reference guards (1, 3, 5 or 7).
-int tf_add_median(const float* T, const float* uv, float* out, int h, int w, int radius,
-                  void* stream) {
-  const dim3 grid = grid_for(h, w), block(BX, BY);
+int tf_add_median(const float* T, const float* uv, float* out, int h, int w, int lo, int hi,
+                  int radius, void* stream) {
+  if (bad_rows(lo, hi, h)) return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_for(hi - lo, w), block(BX, BY);
   cudaStream_t s = (cudaStream_t)stream;
   switch (radius) {
-    case 1: add_median_kernel<1><<<grid, block, 0, s>>>(T, uv, out, h, w); break;
-    case 3: add_median_kernel<3><<<grid, block, 0, s>>>(T, uv, out, h, w); break;
-    case 5: add_median_kernel<5><<<grid, block, 0, s>>>(T, uv, out, h, w); break;
-    case 7: add_median_kernel<7><<<grid, block, 0, s>>>(T, uv, out, h, w); break;
+    case 1: add_median_kernel<1><<<grid, block, 0, s>>>(T, uv, out, h, w, lo, hi); break;
+    case 3: add_median_kernel<3><<<grid, block, 0, s>>>(T, uv, out, h, w, lo, hi); break;
+    case 5: add_median_kernel<5><<<grid, block, 0, s>>>(T, uv, out, h, w, lo, hi); break;
+    case 7: add_median_kernel<7><<<grid, block, 0, s>>>(T, uv, out, h, w, lo, hi); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

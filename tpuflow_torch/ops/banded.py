@@ -24,7 +24,10 @@ one cache hit a launch.
 An output's sum depends only on its own window, so a level's result is the
 same, bit for bit, whatever other levels, rows or columns its launch
 covers: ``banded_plain`` along x, then along y, level by level, is the
-plain version of a launch pair. The wrappers that count launches are
+plain version of a launch pair. A launch pair may cover some output rows
+of each level alone (``rows``): the Y plan then holds only their blocks,
+and the X launch only the input rows their windows read (``band_span``),
+in whole-size buffers. The wrappers that count launches are
 ``ops.resample`` and ``ops.gaussian``.
 """
 
@@ -212,20 +215,36 @@ def y_rows(band: Band) -> int:
     return max(1, min(YR, YCHAIN // max(1, int(band.count.max()))))
 
 
-def y_blocks(band_list: list, widths: tuple, planes: int) -> np.ndarray:
+def band_span(band: Band, lo: int, hi: int) -> tuple:
+    """[first, end) of the input rows that the windows of outputs lo .. hi - 1
+    read (windows never move backwards)."""
+    return int(band.first[lo]), int(band.first[hi - 1] + band.count[hi - 1])
+
+
+def output_rows(band_list: list, rows) -> list:
+    """Each level's output rows (lo, hi): ``rows`` (one a level), or every
+    row where it is None."""
+    return [(0, b.out_n) for b in band_list] if rows is None else list(rows)
+
+
+def y_blocks(band_list: list, widths: tuple, planes: int, rows=None) -> np.ndarray:
     """The Y launch's blocks as int32 (blocks, 4) [level, plane, first output
-    row, first column], every level's (plane, rows, columns) tiles: the
-    levels whose blocks walk the most input rows first."""
+    row, first column], every level's (plane, rows, columns) tiles over its
+    output rows (``rows``: (lo, hi) a level; None is every row): the levels
+    whose blocks walk the most input rows first."""
+    spans = output_rows(band_list, rows)
+
     def span(lvl):
         b, r = band_list[lvl], y_rows(band_list[lvl])
+        lo, hi = spans[lvl]
         ends = b.first + b.count
-        o0 = np.arange(0, b.out_n, r)
-        return int((ends[np.minimum(o0 + r, b.out_n) - 1] - b.first[o0]).max())
+        o0 = np.arange(lo, hi, r)
+        return int((ends[np.minimum(o0 + r, hi) - 1] - b.first[o0]).max())
 
     out = []
     for lvl in sorted(range(len(band_list)), key=lambda lv: -span(lv)):
         b = band_list[lvl]
-        p, o, c = np.meshgrid(np.arange(planes), np.arange(0, b.out_n, y_rows(b)),
+        p, o, c = np.meshgrid(np.arange(planes), np.arange(*spans[lvl], y_rows(b)),
                               np.arange(0, widths[lvl], YC), indexing="ij")
         out.append(np.stack([np.full(p.size, lvl), p.ravel(), o.ravel(), c.ravel()], 1))
     return np.concatenate(out).astype(np.int32)
@@ -246,13 +265,14 @@ def _signed(v: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def y_plan(specs: tuple, widths: tuple, planes: int) -> np.ndarray:
+def y_plan(specs: tuple, widths: tuple, planes: int, rows=None) -> np.ndarray:
     """banded_y_kernel's plan (csrc/banded.cu) for the bands of ``specs``,
     level l over ``widths[l]`` columns of the intermediate at their X
-    column offsets (``x_cols``): [levels, blocks, levels' offset, blocks'
-    offset], a YL-int entry a level [out_n, norm bits, output offset low,
-    high, mode, the taps' offset in the plan (MODE_TAPS; else 0), origin,
-    the taps' length], a YB-int entry a block
+    column offsets (``x_cols``), over its output rows ``rows[l]`` ((lo,
+    hi); None is every row) of a whole-size output: [levels, blocks,
+    levels' offset, blocks' offset], a YL-int entry a level [out_n, norm
+    bits, output offset low, high, mode, the taps' offset in the plan
+    (MODE_TAPS; else 0), origin, the taps' length], a YB-int entry a block
     (``y_blocks``: level, plane, first output row, first column; then its
     width, its column of the intermediate, the input rows its windows span
     [first, end), the plan offset of its first row's table row, the table's
@@ -261,7 +281,8 @@ def y_plan(specs: tuple, widths: tuple, planes: int) -> np.ndarray:
     band_list = bands(specs)
     cols, _ = x_cols(widths)
     offs, _ = y_layout(specs, widths, planes)
-    blocks = y_blocks(band_list, widths, planes)
+    blocks = y_blocks(band_list, widths, planes, rows)
+    spans = output_rows(band_list, rows)
     levels = np.zeros((len(band_list), YL), np.int32)
     at = HEAD + levels.size + YB * len(blocks)
     tables, tab_at, taps = [], [], []
@@ -284,7 +305,7 @@ def y_plan(specs: tuple, widths: tuple, planes: int) -> np.ndarray:
     for lvl, b in enumerate(band_list):
         mine = blocks[:, 0] == lvl
         o0 = blocks[mine, 2].astype(np.int64)
-        nr = np.minimum(y_rows(b), b.out_n - o0)
+        nr = np.minimum(y_rows(b), spans[lvl][1] - o0)
         stride = 2 + b.weights.shape[1]
         entries[mine, 4] = widths[lvl]
         entries[mine, 5] = cols[lvl] + blocks[mine, 3]
@@ -311,38 +332,53 @@ def x_launch(specs: tuple) -> tuple:
 
 
 @functools.lru_cache(maxsize=256)
-def y_launch(specs: tuple, widths: tuple, planes: int) -> tuple:
+def y_launch(specs: tuple, widths: tuple, planes: int, rows=None) -> tuple:
     """(each level's (offset, out_n), total, levels' offset, blocks' offset,
     blocks) of a Y launch: what ``banded_y`` needs beside the plan, found
     once."""
     offs, total = y_layout(specs, widths, planes)
-    plan = y_plan(specs, widths, planes)
+    plan = y_plan(specs, widths, planes, rows)
     levels = tuple((o, b.out_n) for o, b in zip(offs, bands(specs)))
     return levels, total, int(plan[2]), int(plan[3]), int(plan[1])
 
 
 @device_cached(maxsize=1024)
 def plan_table(axis: int, specs: tuple, widths: tuple, planes: int,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, rows=None) -> torch.Tensor:
     """The launch's plan (``x_plan`` or ``y_plan``) on ``device``; the X
-    plan's key has ``widths`` () and ``planes`` 0."""
-    plan = x_plan(specs) if axis == AXIS_X else y_plan(specs, widths, planes)
+    plan's key has ``widths`` () and ``planes`` 0. ``rows`` are a Y plan's
+    output rows (``y_plan``); a call without them keys every row."""
+    plan = x_plan(specs) if axis == AXIS_X else y_plan(specs, widths, planes, rows)
     return torch.from_numpy(plan).to(device)
 
 
-def banded_x(x: torch.Tensor, specs: tuple) -> torch.Tensor:
+def banded_x(x: torch.Tensor, specs: tuple, rows=None) -> torch.Tensor:
     """One launch of banded_x_kernel over a contiguous float32 CUDA tensor x
-    (..., h, w): every band of ``specs`` along x. Returns the intermediate
-    (planes * h, pitch), level l's outputs in the columns from
-    ``x_cols(widths)[0][l]`` on. The caller counts the launch."""
-    w = x.shape[-1]
+    (..., h, w): every band of ``specs`` along x, over input rows ``rows``
+    = (k0, k1) of each (h, w) plane (None: every row). Returns the
+    intermediate (planes * h, pitch), level l's outputs in the columns from
+    ``x_cols(widths)[0][l]`` on; a row outside ``rows`` is not written. The
+    caller counts the launch."""
+    h, w = x.shape[-2:]
     _, pitch, n_runs, meta_ints = x_launch(specs)
-    rows = x.numel() // w
+    rows_all = x.numel() // w
     table = plan_table(AXIS_X, specs, (), 0, x.device)
-    out = torch.empty((rows, pitch), dtype=torch.float32, device=x.device)
-    launch("tf_banded_x", x.data_ptr(), out.data_ptr(), table.data_ptr(), rows, w, w, pitch,
-           n_runs, meta_ints)
+    out = torch.empty((rows_all, pitch), dtype=torch.float32, device=x.device)
+    n, band, plane_rows, row0 = x_rows(rows_all, h, rows)
+    launch("tf_banded_x", x.data_ptr(), out.data_ptr(), table.data_ptr(), n, w, w, pitch,
+           n_runs, meta_ints, band, plane_rows, row0)
     return out
+
+
+def x_rows(rows_all: int, h: int, rows=None) -> tuple:
+    """(logical rows, band, plane_rows, row0) of an X launch over input
+    rows ``rows`` = (k0, k1) of each h-row plane of ``rows_all`` rows (None:
+    every row): the kernel's logical row g is row (g // band) plane_rows +
+    row0 + g % band of the input and the intermediate."""
+    k0, k1 = (0, h) if rows is None else rows
+    if (k0, k1) == (0, h):
+        return rows_all, rows_all, rows_all, 0
+    return rows_all // h * (k1 - k0), k1 - k0, h, k0
 
 
 def x_views(tmp: torch.Tensor, lead: tuple, h: int, widths: tuple) -> list:
@@ -354,30 +390,48 @@ def x_views(tmp: torch.Tensor, lead: tuple, h: int, widths: tuple) -> list:
 
 
 def banded_y(tmp: torch.Tensor, lead: tuple, h: int, specs: tuple,
-             widths: tuple) -> list:
+             widths: tuple, rows=None, out: Optional[torch.Tensor] = None) -> list:
     """One launch of banded_y_kernel over ``banded_x``'s intermediate (the
     planes ``lead`` of h rows, level l at ``widths[l]`` columns): every band
-    of ``specs`` along y. Returns each level's (*lead, h_l, w_l) as
-    contiguous views of one buffer. The caller counts the launch."""
+    of ``specs`` along y, over output rows ``rows[l]`` of level l (None:
+    every row). Returns each level's (*lead, h_l, w_l) as contiguous views
+    of one buffer, ``out`` where given (a contiguous float32 buffer of all
+    of them); a row outside ``rows`` is not written. The caller counts the
+    launch."""
     planes = math.prod(lead)
-    levels, total, levels_off, blocks_off, blocks = y_launch(specs, widths, planes)
-    table = plan_table(AXIS_Y, specs, widths, planes, tmp.device)
-    out = torch.empty(total, dtype=torch.float32, device=tmp.device)
+    levels, total, levels_off, blocks_off, blocks = y_launch(specs, widths, planes, rows)
+    table = plan_table(AXIS_Y, specs, widths, planes, tmp.device,
+                       *(() if rows is None else (rows,)))
+    if out is None:
+        out = torch.empty(total, dtype=torch.float32, device=tmp.device)
+    elif out.numel() != total or not out.is_contiguous() or out.device != tmp.device:
+        raise ValueError(f"out: a contiguous buffer of {total} floats on {tmp.device}, got "
+                         f"{tuple(out.shape)} on {out.device}")
+    out = out.view(-1)
     launch("tf_banded_y", tmp.data_ptr(), out.data_ptr(), table.data_ptr(), levels_off,
            blocks_off, blocks, h, tmp.shape[1])
     return [out[o:o + planes * n * w].view(*lead, n, w) for (o, n), w in zip(levels, widths)]
 
 
-def banded_levels(x: torch.Tensor, xs: tuple, ys: tuple) -> list:
+def banded_levels(x: torch.Tensor, xs: tuple, ys: tuple, rows=None,
+                  out: Optional[torch.Tensor] = None) -> list:
     """Level l of a contiguous float32 CUDA tensor x (..., h, w): band
     ``xs[l]`` along x, then ``ys[l]`` along y, every level in one X launch
     and one Y launch; returns each level's (..., h_l, w_l), contiguous views
-    of one buffer. The intermediate goes back to the allocator once the Y
+    of one buffer (``out`` where given). With ``rows`` (one level): only
+    its output rows (lo, hi), the X launch over the input rows their
+    windows read. The intermediate goes back to the allocator once the Y
     launch is queued. The caller counts the two launches."""
     h = x.shape[-2]
     lead = tuple(x.shape[:-2])
-    tmp = banded_x(x, xs)
-    out = banded_y(tmp, lead, h, ys, x_launch(xs)[0])
+    span = None
+    if rows is not None:
+        if len(ys) != 1:
+            raise ValueError("output rows are given for a launch of one level")
+        span = band_span(bands(ys)[0], *rows)
+        rows = (tuple(rows),)
+    tmp = banded_x(x, xs, span)
+    out = banded_y(tmp, lead, h, ys, x_launch(xs)[0], rows, out)
     del tmp
     return out
 

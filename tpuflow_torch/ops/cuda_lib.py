@@ -40,18 +40,18 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 # Every entry point returns cudaGetLastError() after its launch; the last
 # argument is the stream.
 SIGNATURES = {
-    "tf_warp": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
-    "tf_level_derivs": (_P, _P, _P, _I, _I, _F, _F, _P),
-    "tf_level_tensor": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
+    "tf_warp": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    "tf_level_derivs": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    "tf_level_tensor": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "tf_outer_prologue": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
     "tf_outer_prologue_tensor": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                                  _P),
     "tf_jacobi_sweep": (_P, _P, _P, _P, _I, _I, _P),
     "tf_jacobi_sweeps": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "tf_add_median": (_P, _P, _P, _I, _I, _I, _P),
+    "tf_add_median": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tf_roofline_micro": (_P, _P, _P, _I, _I, _I, _I, _P),
     "tf_probe_matmul": (_P, _P, _P, _I, _I, _I, _P),
-    "tf_banded_x": (_P, _P, _P, _I, _I, _L, _L, _I, _I, _P),
+    "tf_banded_x": (_P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _I, _P),
     "tf_banded_y": (_P, _P, _P, _I, _I, _I, _I, _L, _P),
 }
 # Entry points that take their streams in their arguments (``call``).

@@ -21,6 +21,15 @@ launches the kernel or raises. Each wrapper counts its launches in a plain
 integer attribute, ``<wrapper>.launches``; ``outer_prologue`` with a tensor
 counts under ``outer_prologue_tensor``.
 
+``level_derivs``, ``level_tensor`` and ``add_median`` (and the warp) take
+``rows`` = (lo, hi): they compute output rows lo .. hi - 1 alone into the
+whole-size output (``out``, or a new one; on the card its other rows are
+not written, in the plain version's new output they are NaN), reading
+their inputs by the level's own rows and height, so each row is bitwise
+the whole call's. The default is every row, one launch over the level as
+before. Each counts the rows it computed in ``<wrapper>.rows``
+(``row_counts``), on either device.
+
 Packed layouts (contiguous float32 stacks of (h, w) planes):
   fxyz  (3, h, w)  fx, fy, ft (grey, always: ksi comes from them)
   J     (5, h, w)  J11, J22, J12, J13, J23 of the gradient or log tensor
@@ -38,7 +47,8 @@ from tpuflow_torch.ops.gaussian import gaussian_smooth
 from tpuflow_torch.ops.median import effective_radius, median_plain
 from tpuflow_torch.ops.resample import resample
 from tpuflow_torch.ops.solver_ops import (
-    derivative_tensor, edge_weights, first_derivs, ksi_grey, phi_from_T, shifts,
+    derivative_tensor, edge_weights, first_derivs, ksi_grey, phi_from_T, placed, row_range,
+    shifts,
 )
 from tpuflow_torch.ops.sweep_core import sweep_update_T
 from tpuflow_torch.ops.warp import warp
@@ -62,16 +72,33 @@ def _check_planes(h: int, w: int, **stacks: tuple) -> None:
 level_derivs_plain = first_derivs
 
 
-def level_derivs(f0, f1w, div4hx: float, div4hy: float) -> torch.Tensor:
-    """(3, h, w) grey first derivatives of the level frame and warped frame."""
+def _out(out, shape, like: torch.Tensor) -> torch.Tensor:
+    """A wrapper's whole-size output: ``out`` (checked), else a new one."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=like.device)
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"out: expected {tuple(shape)}, got {tuple(out.shape)}")
+    return out
+
+
+def _given(out) -> tuple:
+    return () if out is None else (out,)
+
+
+def level_derivs(f0, f1w, div4hx: float, div4hy: float, rows=None,
+                 out=None) -> torch.Tensor:
+    """(3, h, w) grey first derivatives of the level frame and warped frame,
+    over ``rows`` (module docstring)."""
     h, w = f0.shape
     if f1w.shape != (h, w):
         raise ValueError(f"shape mismatch: {f0.shape} {f1w.shape}")
-    if not on_cuda(f0, f1w):
-        return level_derivs_plain(f0, f1w, div4hx, div4hy)
-    fxyz = torch.empty((3, h, w), dtype=torch.float32, device=f0.device)
+    lo, hi = row_range(rows, h)
+    level_derivs.rows += hi - lo
+    if not on_cuda(f0, f1w, *_given(out)):
+        return level_derivs_plain(f0, f1w, div4hx, div4hy, rows, out)
+    fxyz = _out(out, (3, h, w), f0)
     launch("tf_level_derivs", f0.data_ptr(), f1w.data_ptr(), fxyz.data_ptr(),
-           h, w, float(div4hx), float(div4hy))
+           h, w, lo, hi, float(div4hx), float(div4hy))
     level_derivs.launches += 1
     return fxyz
 
@@ -85,22 +112,25 @@ def level_derivs(f0, f1w, div4hx: float, div4hy: float) -> torch.Tensor:
 level_tensor_plain = derivative_tensor
 
 
-def level_tensor(f0_l, f1_w, fxyz, sc, log: bool) -> torch.Tensor:
+def level_tensor(f0_l, f1_w, fxyz, sc, log: bool, rows=None, out=None) -> torch.Tensor:
     """(5, h, w) J11, J22, J12, J13, J23 of the gradient (``log=False``,
     from the grey ``fxyz``) or log-derivative (``log=True``, from log1p of
-    the frames) data term. ``sc`` is the level's ``LevelScalars``."""
+    the frames) data term, over ``rows`` (module docstring). ``sc`` is the
+    level's ``LevelScalars``."""
     h, w = f0_l.shape
     if f1_w.shape != (h, w):
         raise ValueError(f"shape mismatch: {f0_l.shape} {f1_w.shape}")
     _check_planes(h, w, fxyz=(fxyz, 3))
-    if not on_cuda(f0_l, f1_w, fxyz):
-        return level_tensor_plain(f0_l, f1_w, fxyz, sc, log)
+    lo, hi = row_range(rows, h)
+    level_tensor.rows += hi - lo
+    if not on_cuda(f0_l, f1_w, fxyz, *_given(out)):
+        return level_tensor_plain(f0_l, f1_w, fxyz, sc, log, rows, out)
     if log and min(h, w) < 2:
         raise ValueError(f"the log tensor's reflect stencil needs a level of at least 2x2, "
                          f"got {h}x{w}")
-    J = torch.empty((N_TENSOR, h, w), dtype=torch.float32, device=f0_l.device)
+    J = _out(out, (N_TENSOR, h, w), f0_l)
     launch("tf_level_tensor", f0_l.data_ptr(), f1_w.data_ptr(), fxyz.data_ptr(),
-           J.data_ptr(), h, w, float(sc.div4hx), float(sc.div4hy), float(sc.hx_1),
+           J.data_ptr(), h, w, lo, hi, float(sc.div4hx), float(sc.div4hy), float(sc.hx_1),
            float(sc.hy_1), int(log))
     level_tensor.launches += 1
     return J
@@ -292,22 +322,34 @@ def jacobi_sweeps(T, uv, hoist, inner: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def add_median_plain(T, uv, radius: int) -> torch.Tensor:
-    return median_plain(uv + (T - uv), radius)
+def add_median_plain(T, uv, radius: int, rows=None, out=None) -> torch.Tensor:
+    """The median of ``uv + (T - uv)`` over ``rows``, the sum taken at the
+    rows their windows read."""
+    _, h, w = T.shape
+    lo, hi = row_range(rows, h)
+    r2 = effective_radius(radius) // 2
+    # rows lo - r2 .. hi - 1 + r2 reflected once (h > r2) fall in this range
+    s_lo, s_hi = max(0, lo - r2), min(h, hi + r2)
+    total = placed(uv[:, s_lo:s_hi] + (T[:, s_lo:s_hi] - uv[:, s_lo:s_hi]), (2, h, w),
+                   s_lo, s_hi)
+    return placed(median_plain(total, radius, lo, hi), (2, h, w), lo, hi, out)
 
 
-def add_median(T, uv, radius: int) -> torch.Tensor:
-    """The level's output flow (2, h, w): the median-filtered ``u + du``."""
+def add_median(T, uv, radius: int, rows=None, out=None) -> torch.Tensor:
+    """The level's output flow (2, h, w): the median-filtered ``u + du``,
+    over ``rows`` (module docstring)."""
     _, h, w = T.shape
     _check_planes(h, w, T=(T, 2), uv=(uv, 2))
     r = effective_radius(radius)
-    if not on_cuda(T, uv):
-        return add_median_plain(T, uv, r)
+    lo, hi = row_range(rows, h)
+    add_median.rows += hi - lo
+    if not on_cuda(T, uv, *_given(out)):
+        return add_median_plain(T, uv, r, rows, out)
     if min(h, w) <= r // 2:
         raise ValueError(f"a {r}x{r} reflected window needs a level larger than {r // 2} "
                          f"on each side, got {h}x{w}")
-    out = torch.empty_like(T)
-    launch("tf_add_median", T.data_ptr(), uv.data_ptr(), out.data_ptr(), h, w, r)
+    out = _out(out, (2, h, w), T)
+    launch("tf_add_median", T.data_ptr(), uv.data_ptr(), out.data_ptr(), h, w, lo, hi, r)
     add_median.launches += 1
     return out
 
@@ -316,6 +358,8 @@ for _fn in (level_derivs, level_tensor, outer_prologue, jacobi_sweep, jacobi_swe
             add_median):
     _fn.launches = 0
 outer_prologue.tensor_launches = 0
+for _fn in (level_derivs, level_tensor, add_median):
+    _fn.rows = 0
 
 # Every kernel of the solve's path by name, as (wrapper, its counter attribute):
 # the banded kernels under their two wrappers, then the level kernels.
@@ -340,3 +384,19 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
+
+
+# The whole-field stages that take output rows, by name: the flow's
+# resample, the warp, the derivatives, the tensor and add + median.
+ROW_STAGES = {name: KERNELS[name][0] for name in
+              ("resample", "warp", "level_derivs", "level_tensor", "add_median")}
+
+
+def reset_row_counts() -> None:
+    for fn in ROW_STAGES.values():
+        fn.rows = 0
+
+
+def row_counts() -> dict:
+    """The output rows each row stage computed since ``reset_row_counts``."""
+    return {name: fn.rows for name, fn in ROW_STAGES.items()}

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tpuflow_torch.ops.solver_ops import refl
+
 
 def effective_radius(radius: int) -> int:
     """The window side the reference actually filters with (1 = copy)."""
@@ -22,18 +24,24 @@ def effective_radius(radius: int) -> int:
     return max(radius, 1)
 
 
-def median_plain(img: torch.Tensor, radius: int) -> torch.Tensor:
-    """Median over the last two dims of ``img`` (any leading dims)."""
+def median_plain(img: torch.Tensor, radius: int, lo: int = 0, hi=None) -> torch.Tensor:
+    """Median over the last two dims of ``img`` (any leading dims), of
+    output rows lo .. hi - 1 (every row by default): (..., hi - lo, w),
+    reading ``img`` at the rows that their windows reflect to."""
     r = effective_radius(radius)
-    if r == 1:
-        return img
-    r2 = r // 2
     h, w = img.shape[-2:]
-    flat = img.reshape(-1, h, w)
-    padded = F.pad(flat, (r2, r2, r2, r2), mode="reflect")
+    hi = h if hi is None else hi
+    if r == 1:
+        return img[..., lo:hi, :]
+    r2 = r // 2
+    n = hi - lo
+    # the window rows of each output row, reflected at the level's edges
+    ys = refl(torch.arange(lo - r2, hi + r2, device=img.device), h)
+    flat = img.index_select(-2, ys).reshape(-1, n + 2 * r2, w)
+    padded = F.pad(flat, (r2, r2), mode="reflect")
     windows = torch.stack(
-        [padded[:, iy: iy + h, ix: ix + w] for iy in range(r) for ix in range(r)],
+        [padded[:, iy: iy + n, ix: ix + w] for iy in range(r) for ix in range(r)],
         dim=-1,
     )
     med = torch.sort(windows, dim=-1).values[..., (r * r) // 2]
-    return med.reshape(img.shape).contiguous()
+    return med.reshape(*img.shape[:-2], n, w).contiguous()

@@ -11,24 +11,34 @@ the TPU's in-kernel shift-sum (tpuflow/ops/pallas/level_fused.py:225-243).
 tensors and runs ``warp_plain`` for CPU tensors. On the TPU this step was
 the shift-sum inside ``level_fused_whole`` plus an XLA widened tier and
 gather for larger motion; one exact gather covers all of them here.
+
+``rows`` = (lo, hi) warps output rows lo .. hi - 1 alone, reading f0 and uv
+at those rows and f1 at any row, into the whole-size output (``out``, or a
+new one); each row is bitwise the whole call's.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from tpuflow_torch.ops.cuda_lib import launch, on_cuda
+from tpuflow_torch.ops.solver_ops import placed, row_range
 
 
 def warp_plain(f0: torch.Tensor, f1: torch.Tensor, uv: torch.Tensor,
-               inv_hx: float, inv_hy: float) -> torch.Tensor:
-    """Plain PyTorch version of the warp: f0, f1 (h, w); uv (2, h, w)."""
+               inv_hx: float, inv_hy: float, rows=None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the warp: f0, f1 (h, w); uv (2, h, w); over
+    ``rows`` (module docstring), a new output NaN outside them."""
     h, w = f0.shape
+    lo, hi = row_range(rows, h)
     dev = f0.device
-    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    x_f = xs + uv[0] * inv_hx
-    y_f = ys + uv[1] * inv_hy
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(hi - lo, w)
+    ys = torch.arange(lo, hi, dtype=torch.float32, device=dev)[:, None].expand(hi - lo, w)
+    x_f = xs + uv[0, lo:hi] * inv_hx
+    y_f = ys + uv[1, lo:hi] * inv_hy
     invalid = (
         (x_f < 0.0) | (x_f > w - 1) | (y_f < 0.0) | (y_f > h - 1)
         | torch.isnan(x_f) | torch.isnan(y_f)
@@ -53,22 +63,30 @@ def warp_plain(f0: torch.Tensor, f1: torch.Tensor, uv: torch.Tensor,
         return flat[yy * w + xx]
 
     value = (w00 * at(y0, x0) + w01 * at(y0, x1)) + (w10 * at(y1, x0) + w11 * at(y1, x1))
-    return torch.where(invalid, f0, value)
+    return placed(torch.where(invalid, f0[lo:hi], value), (h, w), lo, hi, out)
 
 
 def warp(f0: torch.Tensor, f1: torch.Tensor, uv: torch.Tensor,
-         inv_hx: float, inv_hy: float) -> torch.Tensor:
-    """f1 warped back onto f0's grid by the flow ``uv`` (2, h, w)."""
+         inv_hx: float, inv_hy: float, rows=None,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f1 warped back onto f0's grid by the flow ``uv`` (2, h, w), over
+    ``rows`` (module docstring); ``warp.rows`` counts the rows computed."""
     h, w = f0.shape
     if f1.shape != (h, w) or uv.shape != (2, h, w):
         raise ValueError(f"shape mismatch: {f0.shape} {f1.shape} {uv.shape}")
-    if not on_cuda(f0, f1, uv):
-        return warp_plain(f0, f1, uv, inv_hx, inv_hy)
-    out = torch.empty_like(f0)
+    lo, hi = row_range(rows, h)
+    warp.rows += hi - lo
+    if not on_cuda(f0, f1, uv, *(() if out is None else (out,))):
+        return warp_plain(f0, f1, uv, inv_hx, inv_hy, rows, out)
+    if out is None:
+        out = torch.empty_like(f0)
+    elif out.shape != (h, w):
+        raise ValueError(f"out: expected {(h, w)}, got {tuple(out.shape)}")
     launch("tf_warp", f0.data_ptr(), f1.data_ptr(), uv.data_ptr(), out.data_ptr(),
-           h, w, float(inv_hx), float(inv_hy))
+           h, w, lo, hi, float(inv_hx), float(inv_hy))
     warp.launches += 1
     return out
 
 
 warp.launches = 0
+warp.rows = 0

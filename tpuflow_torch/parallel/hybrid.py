@@ -23,7 +23,10 @@ data row b % n_data, point to point on the default group (NCCL between the
 cards), every such transfer issued in pair order before any fine level, so
 that no owner waits on a row busy with another pair; then the processes of
 each row run its pairs' fine levels together, the relaxation on the
-router's routes over the row. Each process returns its row's pairs
+router's routes over the row, and over the levels of the schedule's
+suffix of sharded levels each process only its own rows of the
+whole-field stages (``solver.sharded.sharded_bands``; from the split on,
+where the suffix starts earlier). Each process returns its row's pairs
 (``FlowResult.pairs``), downloaded pinned.
 """
 
@@ -43,7 +46,9 @@ from tpuflow_torch.solver.flow2d import (
     _DOWNLOAD_STREAMS, FlowResult, _frames, _full_float32, _on, _upload,
 )
 from tpuflow_torch.solver.level import smooth_pair, solve
-from tpuflow_torch.solver.sharded import row_device, sharded_plan, sharded_relax_for
+from tpuflow_torch.solver.sharded import (
+    row_device, sharded_plan, sharded_relax_for, sharded_solve,
+)
 from tpuflow_torch.utils.timing import Timer
 
 
@@ -151,7 +156,7 @@ def _hybrid_processes(f0: np.ndarray, f1: np.ndarray, cfg: FlowConfig, mesh: Mes
     if moves:
         mesh.check_p2p("compute_flow_hybrid, moving each pair to its row,")
     specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
-    relax_for = sharded_relax_for(cfg, mesh, "auto", data=data, reserve=(h, w))
+    sharded = sharded_solve(cfg, mesh, (h, w), data=data)
     mine = tuple(i for i in range(b) if i % mesh.n_data == data)
     with _full_float32(), _on(device), mesh.on(me), Timer() as timer:
         work = {}
@@ -173,7 +178,7 @@ def _hybrid_processes(f0: np.ndarray, f1: np.ndarray, cfg: FlowConfig, mesh: Mes
                 continue
             row_send_recv(tensors, mesh.ranks[owner], [mesh.ranks[p] for p in (owner, *to)])
         flows = [solve(work[i][0][0], work[i][0][1], cfg, levels=range(g0, n), uv=work[i][1],
-                       smoothed=True, relax_for=relax_for) for i in mine]
+                       smoothed=True, **sharded) for i in mine]
         if not flows:
             uv = np.empty((2, 0, h, w), dtype=np.float32)
         else:

@@ -203,18 +203,17 @@ def _compute_flow_processes(f0: np.ndarray, f1: np.ndarray, cfg: FlowConfig,
     processes (``halo="auto"``, every process of the row at once), on one
     position otherwise. Downloads once, pinned, on a copy stream."""
     from tpuflow_torch.parallel.multihost import _copy_stream, _download
-    from tpuflow_torch.solver.sharded import row_device, sharded_relax_for
+    from tpuflow_torch.solver.sharded import row_device, sharded_solve
 
     data = mesh.local_row()
     device = row_device(mesh, data)
     mine = tuple(i for i in range(f0.shape[0]) if i % mesh.n_data == data)
-    relax_for = (sharded_relax_for(cfg, mesh, "auto", data=data, reserve=f0.shape[1:])
-                 if mesh.n_y > 1 else None)
+    sharded = sharded_solve(cfg, mesh, f0.shape[1:], data=data) if mesh.n_y > 1 else {}
     with _full_float32(), _on(device), Timer() as timer:
         if not mine:
             uv = np.empty((2, 0, *f0.shape[1:]), dtype=np.float32)
         else:
-            flows = torch.stack([_submit(f0[i], f1[i], cfg, device, relax_for=relax_for)
+            flows = torch.stack([_submit(f0[i], f1[i], cfg, device, **sharded)
                                  for i in mine], dim=1)
             host, copied = _download(flows, _copy_stream(_DOWNLOAD_STREAMS, device))
             if copied is not None:
@@ -225,7 +224,7 @@ def _compute_flow_processes(f0: np.ndarray, f1: np.ndarray, cfg: FlowConfig,
 
 def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
                  collect_trace: bool = False, device="cuda", mesh=None,
-                 _relax_for=None) -> FlowResult:
+                 _sharded: Optional[dict] = None) -> FlowResult:
     """Dense 2D optical flow from frame_0 to frame_1, two (H, W) frames of
     any real dtype, or two (B, H, W) stacks of independent pairs, solved in
     order (each pair's flow bitwise that of a call on the pair alone); the
@@ -255,14 +254,15 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
     there must be full float32, as the JAX package's are, Precision.HIGHEST;
     the presmooth and the resample are the banded kernels', which never
     rounds to TF32) and gives both process-wide flags back as the caller
-    set them, also when the solve raises. ``_relax_for`` is ``solve``'s
-    per-level relaxation, for ``compute_flow_sharded``.
+    set them, also when the solve raises. ``_sharded`` is ``solve``'s
+    keywords of a sharded pair (``solver.sharded.sharded_solve``), for
+    ``compute_flow_sharded``.
     """
     cfg = cfg or FlowConfig()
     device = _device(device)
     f0, f1 = _frames(frame_0, frame_1, stacks=True)
     if mesh is not None:
-        from tpuflow_torch.solver.sharded import row_device, sharded_relax_for
+        from tpuflow_torch.solver.sharded import row_device, sharded_solve
 
         data = mesh.local_row()
         if resolve_device(device) != row_device(mesh, data):
@@ -273,19 +273,19 @@ def compute_flow(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *,
                 return _compute_flow_processes(f0, f1, cfg, mesh)
             return _compute_flow_dp(f0, f1, cfg, mesh)
         if f0.ndim == 2 and plan_parallel(f0.shape, False, cfg, mesh, data) == "sp":
-            _relax_for = sharded_relax_for(cfg, mesh, "auto", data=data, reserve=f0.shape)
+            _sharded = sharded_solve(cfg, mesh, f0.shape, data=data)
         device = row_device(mesh, data)
     if f0.ndim == 3:
         if collect_trace:
             raise ValueError("collect_trace=True traces one pair; a (B, H, W) stack "
                              "takes no trace")
         with _full_float32(), _on(device), Timer() as timer:
-            flows = [_submit(a, b, cfg, device, relax_for=_relax_for) for a, b in zip(f0, f1)]
+            flows = [_submit(a, b, cfg, device, **(_sharded or {})) for a, b in zip(f0, f1)]
             uv = torch.stack(flows, dim=1).cpu().numpy()
         return FlowResult(u=uv[0], v=uv[1], seconds=timer.seconds)
     trace = [] if collect_trace else None
     with _full_float32(), _on(device), Timer() as timer:
-        uv = _submit(f0, f1, cfg, device, trace=trace, relax_for=_relax_for).cpu().numpy()
+        uv = _submit(f0, f1, cfg, device, trace=trace, **(_sharded or {})).cpu().numpy()
     return FlowResult(u=uv[0], v=uv[1], seconds=timer.seconds,
                       levels=[LevelTrace(*t) for t in trace or ()])
 

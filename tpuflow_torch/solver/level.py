@@ -40,6 +40,7 @@ from tpuflow_torch.ops.level import (
 from tpuflow_torch.ops.resample import resample, resample_levels
 from tpuflow_torch.ops.warp import warp, warp_plain
 from tpuflow_torch.pyramid import level_schedule
+from tpuflow_torch.solver.bands import BandPlan, LevelRows, gather_rows
 
 F = np.float32
 
@@ -92,6 +93,7 @@ class Steps(NamedTuple):
     outer_prologue: Callable
     jacobi_sweeps: Callable   # (T, uv, hoist, inner) -> T after the inner sweeps
     add_median: Callable
+    resample: Callable = resample   # the flow's, to the next level's size
 
 
 # The kernel wrappers (their plain versions on CPU tensors): the main path.
@@ -126,29 +128,42 @@ def relax(fxyz: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
 RelaxFn = Callable[..., torch.Tensor]
 
 
+def _stage(rows: Optional[LevelRows], name: str) -> dict:
+    """The keywords of one stage of a banded level: its output rows; none
+    for a whole level."""
+    return {} if rows is None else {"rows": getattr(rows, name)}
+
+
 def level_tail(f0_l: torch.Tensor, f1_w: torch.Tensor, uv: torch.Tensor,
                sc: LevelScalars, cfg: FlowConfig, _steps: Steps = KERNEL_STEPS,
-               relax_fn: Optional[RelaxFn] = None) -> torch.Tensor:
+               relax_fn: Optional[RelaxFn] = None,
+               rows: Optional[LevelRows] = None) -> torch.Tensor:
     """Derivatives + relaxation + add + median on an already warped level
     (what ``level_fused`` computes); returns the level's flow (2, h, w).
-    ``relax_fn`` is the relaxation, by default ``relax`` with ``_steps``."""
-    fxyz = _steps.level_derivs(f0_l, f1_w, sc.div4hx, sc.div4hy)
+    ``relax_fn`` is the relaxation, by default ``relax`` with ``_steps``.
+    ``rows`` (a ``solver.bands.LevelRows``) computes each stage over its
+    rows alone."""
+    fxyz = _steps.level_derivs(f0_l, f1_w, sc.div4hx, sc.div4hy, **_stage(rows, "fxyz"))
     J = None
     if cfg.data_constancy != DataConstancy.GREY:
         J = _steps.level_tensor(f0_l, f1_w, fxyz, sc,
-                                cfg.data_constancy == DataConstancy.LOG_DERIVATIVES)
+                                cfg.data_constancy == DataConstancy.LOG_DERIVATIVES,
+                                **_stage(rows, "J"))
     T = (relax_fn or functools.partial(relax, _steps=_steps))(fxyz, uv, sc, cfg, J=J)
-    return _steps.add_median(T, uv, cfg.median_radius)
+    return _steps.add_median(T, uv, cfg.median_radius, **_stage(rows, "median"))
 
 
 def level_step(frames_l: torch.Tensor, uv: torch.Tensor, sc: LevelScalars,
                cfg: FlowConfig, _steps: Steps = KERNEL_STEPS,
-               relax_fn: Optional[RelaxFn] = None) -> torch.Tensor:
+               relax_fn: Optional[RelaxFn] = None,
+               rows: Optional[LevelRows] = None) -> torch.Tensor:
     """One whole level after the resample (what ``level_fused_whole``
     computes): frames_l (2, h, w) = [f0_l, f1_l], uv (2, h, w) the
-    prolongated flow; returns the level's flow (2, h, w)."""
-    f1_w = _steps.warp(frames_l[0], frames_l[1], uv, sc.inv_hx, sc.inv_hy)
-    return level_tail(frames_l[0], f1_w, uv, sc, cfg, _steps, relax_fn)
+    prolongated flow; returns the level's flow (2, h, w). With ``rows``,
+    each stage over its rows alone (``level_tail``)."""
+    f1_w = _steps.warp(frames_l[0], frames_l[1], uv, sc.inv_hx, sc.inv_hy,
+                       **_stage(rows, "warp"))
+    return level_tail(frames_l[0], f1_w, uv, sc, cfg, _steps, relax_fn, rows)
 
 
 def _clock(device: torch.device):
@@ -204,7 +219,8 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
           _steps: Steps = KERNEL_STEPS, trace: Optional[list] = None,
           relax_for: Optional[Callable[[int, int], RelaxFn]] = None,
           tiers: Optional[list] = None, levels: Optional[range] = None,
-          uv: Optional[torch.Tensor] = None, smoothed: bool = False) -> torch.Tensor:
+          uv: Optional[torch.Tensor] = None, smoothed: bool = False,
+          bands: Optional[BandPlan] = None) -> torch.Tensor:
     """The coarse-to-fine solve on f0's device; returns (u, v) as (2, h, w).
 
     ``levels`` runs only those positions of the coarse-to-fine schedule
@@ -229,8 +245,15 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
     prolongated flow, a tensor on the device (no synchronisation).
     ``relax_for(h, w)`` gives each (h, w) level's relaxation (by default
     ``relax``); the sharded pipeline routes levels with it. ``_steps`` is for comparing
-    the kernels with their plain versions end to end; callers leave it
-    alone.
+    the kernels with their plain versions end to end, and for the band
+    path's emulation (``bands.emulate_shard``); callers leave it alone.
+
+    ``bands`` (a ``solver.bands.BandPlan``, with the ``relax_for`` of the
+    same routes) computes each level of its suffix over its rows alone, the
+    flow's resample included, and the finest flow's owned rows then go to
+    every process of the row (``bands.gather_rows``; with ``ranks`` None
+    the flow holds this shard's owned rows alone). It takes no ``tiers``,
+    and ``levels`` must end at the finest level.
     """
     h0, w0 = f0.shape
     if min(h0, w0) < 4:
@@ -241,6 +264,8 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
     if (uv is None) != (levels.start == 0):
         raise ValueError("a solve from the coarsest level starts from no flow; a later "
                          "level needs the flow of the level before it")
+    if bands is not None and (tiers is not None or levels.stop != len(specs)):
+        raise ValueError("a banded solve takes no warp tiers and ends at the finest level")
     specs = specs[levels.start:levels.stop]
     marks = [_clock(f0.device)] if trace is not None else None
     # Frames always come from the full-resolution smoothed pair (reference:
@@ -249,20 +274,26 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
     sizes = tuple(dict.fromkeys((s.width, s.height) for s in specs
                                 if s.level != 0 and (s.width, s.height) != (w0, h0)))
     pyramid = dict(zip(sizes, resample_levels(frames, sizes)))
-    for spec in specs:
+    for position, spec in enumerate(specs, levels.start):
         cw, ch = spec.width, spec.height
         sc = LevelScalars.make(cw, ch, spec.hx, spec.hy, cfg.equation_alpha)
         frames_l = pyramid.get((cw, ch), frames) if spec.level != 0 else frames
+        rows = bands.at(position) if bands is not None else None
         if uv is None:
             uv = torch.zeros((2, ch, cw), dtype=torch.float32, device=f0.device)
         else:
-            uv = resample(uv, cw, ch)
+            uv = _steps.resample(uv, cw, ch, **_stage(rows, "uv"))
         if tiers is not None:
             tiers.append(warp_tier(uv, sc.inv_hx, sc.inv_hy))
         relax_fn = relax_for(ch, cw) if relax_for is not None else None
-        uv = level_step(frames_l, uv, sc, cfg, _steps, relax_fn)
+        uv = level_step(frames_l, uv, sc, cfg, _steps, relax_fn, rows)
         if marks is not None:
             marks.append(_clock(f0.device))
+    # a solve of no level (the hybrid's fine part after a split past the finest) gathers none
+    if bands is not None and bands.ranks is not None and len(levels):
+        uv = gather_rows(uv, bands)
+        if marks is not None:
+            marks[-1] = _clock(f0.device)   # the finest level's time holds the gather
     if marks is not None:
         if f0.device.type == "cuda":
             marks[-1].synchronize()

@@ -22,19 +22,30 @@ model (``parallel.model.plan_level``). Every route gives the flow of
 ``compute_flow``, bit for bit.
 
 On a mesh over processes (one position a process) a data row whose
-positions belong to several processes runs as follows. Every process of
-the row computes the level's whole-field stages (resample, warp,
-derivatives, tensor, add and median) on its own card: the same kernels on
-the same inputs, so the constants are bitwise the same on every card, and
-no card reads another's. Each level's relaxation is ``"replicated"``, the
-kernel (one launch a process, ``relax_sharded_kernel``) or the explicit
-route (each process its own shard, halos and owned rows as NCCL messages
-between the cards, ``relax_sharded_explicit``). ``"auto"`` prices the two
-with the row's constants (``NCCL`` for the explicit route's messages);
-where processes share a card it replicates, and ``halo="explicit"``
-raises there, since NCCL refuses two ranks on one card. The plan depends
-only on the shape, the config and the constants, so every process takes
-the same one.
+positions belong to several processes runs as follows. Each level's
+relaxation is ``"replicated"``, the kernel (one launch a process,
+``relax_sharded_kernel``) or the explicit route (each process its own
+shard, halos and owned rows as NCCL messages between the cards,
+``relax_sharded_explicit``); every route gives every process the whole T.
+``"auto"`` prices the two with the row's constants (``NCCL`` for the
+explicit route's messages); where processes share a card it replicates,
+and ``halo="explicit"`` raises there, since NCCL refuses two ranks on one
+card. The plan depends only on the shape, the config and the constants, so
+every process takes the same one.
+
+The whole-field stages (the flow's resample, warp, derivatives, tensor,
+add and median) run on each process's own card. Up to the schedule's
+suffix of sharded levels every process computes them over the whole
+field: the same kernels on the same inputs, so the values are bitwise the
+same on every card. Over the suffix each process computes only the rows
+its own later steps read, halos included (``solver.bands``, the plan
+``sharded_bands``), into whole-size buffers, with no message between
+levels; the finest flow's owned rows then go to every process of the row
+in one batch. That needs a card a process (``Mesh.p2p_ok``): where two
+processes share a card NCCL refuses the batch, so there every level runs
+its whole-field stages over the whole field, as a routing rule (as
+``level_route`` replicates there), not a fallback. The frame pyramid is
+whole on every process.
 """
 
 from __future__ import annotations
@@ -46,15 +57,17 @@ import numpy as np
 
 from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.ops.level import launch_counts as level_launch_counts
+from tpuflow_torch.ops.level import reset_row_counts
 from tpuflow_torch.ops.level import reset_launch_counts as reset_level_launch_counts
-from tpuflow_torch.parallel.group import row_exchange
+from tpuflow_torch.parallel.group import process_rank, row_exchange
 from tpuflow_torch.parallel.halo import halo_applicable, relax_sharded_explicit
 from tpuflow_torch.parallel.halo_kernel import kernel_halo_applicable, relax_sharded_kernel
 from tpuflow_torch.parallel.mesh import Mesh, resolve_device
 from tpuflow_torch.parallel.model import plan_level
 from tpuflow_torch.pyramid import level_schedule
+from tpuflow_torch.solver.bands import BandPlan, band_plan
 from tpuflow_torch.solver.flow2d import FlowResult, compute_flow
-from tpuflow_torch.solver.level import relax
+from tpuflow_torch.solver.level import RelaxFn, relax
 
 HALO_MODES = ("kernel", "explicit", "auto")
 # The halo mode of the JAX pipeline that the port does not run.
@@ -103,11 +116,7 @@ def sharded_plan(w: int, h: int, cfg: FlowConfig, mesh: Mesh, halo: str = "auto"
             for s in level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)]
 
 
-def sharded_relax_for(cfg: FlowConfig, mesh: Mesh, halo: str = "auto", k_outer: int = 1,
-                      data: int = 0, reserve: Optional[Tuple[int, int]] = None):
-    """``solve``'s ``relax_for``: each level's relaxation on its route over
-    data row ``data`` of ``mesh``. ``reserve`` is the pair's (h, w), which
-    sizes a row of processes' arenas once."""
+def _check_halo(halo: str, k_outer: int) -> None:
     if halo in NOT_PORTED:
         raise NotImplementedError(f"halo={halo!r} is not ported: {NOT_PORTED[halo]}")
     if halo not in HALO_MODES:
@@ -115,18 +124,71 @@ def sharded_relax_for(cfg: FlowConfig, mesh: Mesh, halo: str = "auto", k_outer: 
     if k_outer < 1:
         raise ValueError(f"k_outer must be at least 1, got {k_outer}")
 
+
+def _route_fn(route: str, k: int, mesh: Mesh, data: int,
+              reserve: Optional[Tuple[int, int]]) -> RelaxFn:
+    """The relaxation of one level on ``route`` with k outer iterations a
+    halo exchange."""
+    if route == "kernel":
+        # a row over processes sizes its arenas for the pair's finest level
+        arenas = {"reserve": reserve} if mesh.row_spans_processes(data) else {}
+        return functools.partial(relax_sharded_kernel, mesh=mesh, k_outer=k, data=data,
+                                 **arenas)
+    if route == "explicit":
+        return functools.partial(relax_sharded_explicit, mesh=mesh, k_outer=k, data=data)
+    return relax
+
+
+def sharded_relax_for(cfg: FlowConfig, mesh: Mesh, halo: str = "auto", k_outer: int = 1,
+                      data: int = 0, reserve: Optional[Tuple[int, int]] = None):
+    """``solve``'s ``relax_for``: each level's relaxation on its route over
+    data row ``data`` of ``mesh``. ``reserve`` is the pair's (h, w), which
+    sizes a row of processes' arenas once."""
+    _check_halo(halo, k_outer)
+
     def relax_for(h: int, w: int):
-        route, k = level_route(h, w, cfg, mesh, halo, k_outer, data)
-        if route == "kernel":
-            # a row over processes sizes its arenas for the pair's finest level
-            arenas = {"reserve": reserve} if mesh.row_spans_processes(data) else {}
-            return functools.partial(relax_sharded_kernel, mesh=mesh, k_outer=k, data=data,
-                                     **arenas)
-        if route == "explicit":
-            return functools.partial(relax_sharded_explicit, mesh=mesh, k_outer=k, data=data)
-        return relax
+        return _route_fn(*level_route(h, w, cfg, mesh, halo, k_outer, data), mesh, data,
+                         reserve)
 
     return relax_for
+
+
+def sharded_bands(w: int, h: int, cfg: FlowConfig, mesh: Mesh, halo: str = "auto",
+                  k_outer: int = 1, data: int = 0,
+                  plan: Optional[List[Tuple[int, int, str, int]]] = None) -> Optional[BandPlan]:
+    """This process's band plan of a w x h pair on data row ``data``, whose
+    levels take ``sharded_plan``'s routes (``plan``, where the caller has
+    it; ``solver.bands.band_plan``): where the row's positions belong to
+    several processes, each with its own card (``Mesh.p2p_ok``, which the
+    finest flow's gather needs). None where the path is not taken: a row
+    of one process, or processes that share a card (NCCL refuses the gather
+    there; every level then runs its whole-field stages over the whole
+    field), or no sharded finest level."""
+    if not (mesh.row_spans_processes(data) and mesh.p2p_ok):
+        return None
+    if plan is None:
+        plan = sharded_plan(w, h, cfg, mesh, halo, k_outer, data)
+    ranks = mesh.row_ranks(data)
+    return band_plan(w, h, cfg, [(route, k) for *_, route, k in plan], mesh.n_y,
+                     ranks.index(process_rank()[0]), ranks)
+
+
+def sharded_solve(cfg: FlowConfig, mesh: Mesh, shape: Tuple[int, int], halo: str = "auto",
+                  k_outer: int = 1, data: int = 0) -> dict:
+    """``solve``'s keywords for an (h, w) pair (``shape``) over data row
+    ``data`` of ``mesh``: ``relax_for`` and ``bands`` (``sharded_bands``),
+    both from one ``sharded_plan``, so the band rows follow the routes that
+    the levels relax on."""
+    _check_halo(halo, k_outer)
+    h, w = shape
+    plan = sharded_plan(w, h, cfg, mesh, halo, k_outer, data)
+    routes = {(lh, lw): (route, k) for lh, lw, route, k in plan}
+
+    def relax_for(lh: int, lw: int):
+        return _route_fn(*routes[(lh, lw)], mesh, data, (h, w))
+
+    return {"relax_for": relax_for,
+            "bands": sharded_bands(w, h, cfg, mesh, halo, k_outer, data, plan)}
 
 
 def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, mesh: Mesh,
@@ -143,10 +205,10 @@ def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, 
     included; ``"cuda"`` raises without CUDA. A (B, H, W) stack goes through
     ``compute_flow(..., mesh=)``. On a mesh over processes every process of
     the row calls it at once, with its own card as ``device``, and each
-    gets the whole flow."""
+    gets the whole flow (module docstring)."""
     data = mesh.local_row()
-    relax_for = sharded_relax_for(cfg or FlowConfig(), mesh, halo, k_outer, data,
-                                  reserve=np.shape(frame_0)[-2:])
+    sharded = sharded_solve(cfg or FlowConfig(), mesh, np.shape(frame_0)[-2:], halo, k_outer,
+                            data)
     if np.ndim(frame_0) == 3:
         raise ValueError("compute_flow_sharded solves one pair; a (B, H, W) stack goes "
                          "through compute_flow(..., mesh=), which deals its pairs over the "
@@ -154,13 +216,15 @@ def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, 
     home = row_device(mesh, data)
     if resolve_device(device) != home:
         raise ValueError(f"device {str(device)!r} is not the mesh's device, {home}")
-    return compute_flow(frame_0, frame_1, cfg, device=home, _relax_for=relax_for)
+    return compute_flow(frame_0, frame_1, cfg, device=home, _sharded=sharded)
 
 
 def reset_launch_counts() -> None:
-    """Set the launch counts of the sharded path's kernels, the explicit
+    """Set the launch counts of the sharded path's kernels, the rows that
+    the row stages computed (``ops.level.row_counts``), the explicit
     route's copies and the rows' messages between processes to 0."""
     reset_level_launch_counts()
+    reset_row_counts()
     relax_sharded_kernel.launches = 0
     relax_sharded_explicit.copies = 0
     row_exchange.sends = 0

@@ -23,7 +23,7 @@ row-sharded, one JSON line (the port of tools/report_scaling.py).
         row barrier adds to a launch, and what a wider peer-store push adds.
 
     python -m tpuflow_torch.tools.report_scaling --procs N [--size WxH]
-            [--preset P] [--profile]
+            [--preset P] [--profile] [--routes NAME,...]
         The same over N processes, one a card (cuda:rank modulo the
         cards), joined by ``initialize_distributed``: dp (a stack of N pairs
         on an (N, 1) mesh over the processes, one pair each), sp (one pair
@@ -40,9 +40,21 @@ row-sharded, one JSON line (the port of tools/report_scaling.py).
         row barrier between two processes, timed in the kernel as --link
         times it between two cards; with --profile, card 0's busy share and
         the host's launches a pair on the kernel route, in one process and
-        over the processes. The preset is a function of tpuflow_torch.models
+        over the processes, and on the explicit route (k = 1) over the
+        processes, with card 0's device ms by kernel, those of the
+        whole-field kernels by name (the warp, the derivatives, the tensor,
+        add + median, the banded X and Y passes: ``WHOLE_FIELD``) and of
+        NCCL's kernels (on the kernel route: the finest flow's gather),
+        the gather's bytes on card 0 and, where the package counts them,
+        the rows each row stage computed on rank 0 against the whole
+        field's. The preset is a function of tpuflow_torch.models
         (default reference_default). Prints rank 0's line with every rank's
-        bitwise checks.
+        bitwise checks. ``--routes`` (for example ``sp_kernel``) checks,
+        profiles and times those routes alone beside ``one``, and leaves
+        out the level-0 launch and the row barrier. The workers run this file and import the package
+        that this process imported, so ``PYTHONPATH=CHECKOUT python
+        PATH/report_scaling.py --procs N ...`` times another checkout's
+        package with the same report (as tools/banded_turns.py does).
 
     python -m tpuflow_torch.tools.report_scaling --procs N --link
         The constants of ``parallel.model.NCCL``, over N processes one a
@@ -71,6 +83,7 @@ The measuring modes need CUDA and raise without it.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from typing import Callable, List
@@ -320,20 +333,35 @@ PROC_ROUNDS = 2
 SP_HALOS = ("kernel", "explicit", "auto")
 
 
+# card 0's device time of the whole-field stages, by the demangled kernel
+# names of csrc/level.cu and csrc/banded.cu, and of NCCL's kernels
+WHOLE_FIELD = {"warp": "warp_kernel(", "level_derivs": "level_derivs_kernel(",
+               "level_tensor": "level_tensor", "add_median": "add_median_kernel<",
+               "banded_x": "banded_x_kernel<", "banded_y": "banded_y_kernel(",
+               "nccl": "nccl"}
+
+
 def measure_procs(n: int, size=SIZE, preset: str = "reference_default",
-                  profile: bool = False, reps: int = 3, k: int = 4) -> dict:
+                  profile: bool = False, reps: int = 3, k: int = 4, routes=None) -> dict:
     """The --procs report (module docstring): N worker processes of this
-    module; any worker's failure raises."""
+    file, which import the package this process imported; any worker's
+    failure raises."""
+    import tpuflow_torch
     from tpuflow_torch.parallel.multihost import process_results
 
     _cuda_devices()
-    command = [sys.executable, "-m", "tpuflow_torch.tools.report_scaling", "--proc-worker",
-               f"{size[0]}x{size[1]}", preset, str(int(profile)), str(reps), str(k)]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(tpuflow_torch.__file__)))
+    os.environ["PYTHONPATH"] = os.pathsep.join([root] + [p for p in os.environ.get(
+        "PYTHONPATH", "").split(os.pathsep) if p])
+    command = [sys.executable, os.path.abspath(__file__), "--proc-worker",
+               f"{size[0]}x{size[1]}", preset, str(int(profile)), str(reps), str(k),
+               ",".join(routes) if routes else "all"]
     reports = process_results(command, n, PROC_TIMEOUT_S)
     out = reports[0]
+    out["package"] = root
     out["bitwise_by_rank"] = [r["bitwise"] for r in reports]
     out["bitwise"] = all(all(r["bitwise"].values()) for r in reports)
-    out["dp_ms_by_rank"] = [r["ms"]["dp"] for r in reports]
+    out["dp_ms_by_rank"] = [r["ms"].get("dp") for r in reports]
     return out
 
 
@@ -362,13 +390,16 @@ def _profiled(fn, device) -> dict:
         launches += "memcpy" not in evt.name.lower() and "memset" not in evt.name.lower()
     busy = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    whole = {key: sum(ms for name, ms in by_name.items() if pattern in name)
+             for key, pattern in WHOLE_FIELD.items()}
     return {"wall_ms": wall * 1e3, "card_busy_ms": busy, "card_busy_share": busy / (wall * 1e3),
             "card_idle_share": 1.0 - busy / (wall * 1e3), "kernels_launched": launches,
-            "card_ms_by_kernel_top8": top}
+            "card_ms_by_kernel_top8": top, "card_ms_whole_field": whole,
+            "card_ms_whole_field_sum": sum(v for key, v in whole.items() if key != "nccl")}
 
 
 def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: int,
-                 k: int) -> dict:
+                 k: int, routes=None) -> dict:
     """One worker's measurements (measure_procs); rank 0 drives the
     one-process routes while the others wait at a barrier."""
     import dataclasses
@@ -416,6 +447,8 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
                 f0, f1, cfg, mesh=one_row, halo=hl, device=dev))
     names = ["one", "dp", "dp_one_process", "hybrid", "hybrid_one_process"] + [
         f"sp_{halo}{mode}" for halo in SP_HALOS for mode in ("", "_one_process")]
+    if routes:
+        names = [name for name in names if name == "one" or name in routes]
     bitwise, ms = {}, {name: [] for name in names}
 
     def each(together: bool, fn):
@@ -424,7 +457,32 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
         row_barrier(everyone)
         return fn() if together or rank == 0 else None
 
-    profiled = {}
+    profiled, rows = {}, {}
+    chosen = set(names)
+
+    def report_rows():
+        """The rows each row stage computed in one kernel-route pair, where
+        the package counts them (with its band plan's and the whole
+        field's), and the finest flow's gather's bytes on this card."""
+        from tpuflow_torch.ops import level as L
+        from tpuflow_torch.parallel.halo import row_split
+
+        owned = row_split(h, world, 0)
+        mine = owned[row.row(0).index(row.local_positions()[0])].rows
+        rows["gather_bytes_sent"] = 2 * mine * w * 4 * (world - 1)
+        rows["gather_bytes_received"] = 2 * (h - mine) * w * 4
+        if not hasattr(L, "row_counts"):
+            rows["rows_per_stage"] = "not counted by this package"
+            return
+        from tpuflow_torch.solver.bands import stage_rows
+        from tpuflow_torch.solver.sharded import sharded_bands
+
+        L.reset_row_counts()
+        each(True, runs["sp_kernel"][1])
+        rows["rows_per_stage"] = L.row_counts()
+        rows["rows_per_stage_plan"] = stage_rows(w, h, cfg, sharded_bands(w, h, cfg, row,
+                                                                          "kernel"))
+        rows["rows_per_stage_whole_field"] = stage_rows(w, h, cfg, None)
 
     def profile_route(name):
         together, call = runs.get(name, (False, None))
@@ -442,8 +500,12 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
             us, vs = (res.u, res.v) if res.u.ndim == 3 else (res.u[None], res.v[None])
             bitwise[name] = all(u.tobytes() == base.u.tobytes() and v.tobytes() ==
                                 base.v.tobytes() for u, v in zip(us, vs))
-        if profile and name == "sp_auto":
-            profile_route("sp_kernel")
+        if profile and name == [nm for nm in names if not nm.endswith("_one_process")][-1]:
+            for route in ("sp_kernel", "sp_explicit"):
+                if route in chosen:
+                    profile_route(route)
+            if "sp_kernel" in chosen:
+                report_rows()
     for r in range(PROC_ROUNDS):
         for name in (names if r % 2 == 0 else names[::-1]):
             together, call = runs.get(name, (False, None))
@@ -460,6 +522,13 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
         for name, t in ms.items():
             report[f"mpix_s_{name}"] = pairs.get(name, 1) * mpix / (t * 1e-3)
             report[f"{name}_speedup"] = pairs.get(name, 1) * ms["one"] / t
+
+    if profile and "sp_kernel_one_process" in chosen:
+        profile_route("sp_kernel_one_process")
+    if profile:
+        report["profile"], report["rows"] = profiled, rows
+    if routes:
+        return report
 
     # level 0's relaxation: one launch over the processes, and over the same
     # cards from this one process, in turns (grey, k = 1)
@@ -511,9 +580,6 @@ def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: 
             "shard's launch of the same 38 padded rows on one card, at 40 and at 20 outers; "
             "the slope per exchange over 2 (the last barrier of the process mode is in both)")
 
-    if profile:
-        profile_route("sp_kernel_one_process")
-        report["profile"] = profiled
     return report
 
 
@@ -695,7 +761,7 @@ def _proc_link(rank: int, world: int, messages: int = LINK_MESSAGES,
 
 
 def _proc_worker(argv) -> int:
-    """``--proc-worker WxH PRESET PROFILE REPS K HOST:PORT RANK WORLD``, or
+    """``--proc-worker WxH PRESET PROFILE REPS K ROUTES HOST:PORT RANK WORLD``, or
     ``--proc-link HOST:PORT RANK WORLD``."""
     import torch
 
@@ -709,9 +775,10 @@ def _proc_worker(argv) -> int:
     else:
         size = tuple(int(x) for x in argv[0].split("x"))
         preset, profile, reps, k = argv[1], bool(int(argv[2])), int(argv[3]), int(argv[4])
-        address, rank, world = argv[5], int(argv[6]), int(argv[7])
+        routes = None if argv[5] == "all" else argv[5].split(",")
+        address, rank, world = argv[6], int(argv[7]), int(argv[8])
         initialize_distributed(address, num_processes=world, process_id=rank)
-        report = _proc_report(rank, world, size, preset, profile, reps, k)
+        report = _proc_report(rank, world, size, preset, profile, reps, k, routes)
     print("PROCRESULT " + json.dumps(report), flush=True)
     torch.distributed.barrier(group=process_group())
     torch.distributed.destroy_process_group()
@@ -770,8 +837,9 @@ def main(argv=None) -> int:
         size = tuple(int(x) for x in argv[argv.index("--size") + 1].split("x"))
     if "--procs" in argv:
         preset = argv[argv.index("--preset") + 1] if "--preset" in argv else "reference_default"
+        routes = argv[argv.index("--routes") + 1].split(",") if "--routes" in argv else None
         print(json.dumps(measure_procs(int(argv[argv.index("--procs") + 1]), size, preset,
-                                       "--profile" in argv)))
+                                       "--profile" in argv, routes=routes)))
         return 0
     pos = [a for i, a in enumerate(argv) if not a.startswith("-")
            and (i == 0 or argv[i - 1] != "--size")]
