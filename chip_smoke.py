@@ -980,8 +980,61 @@ def phase_rows(card: str) -> dict:
                 emit(row)
                 if not row["ok"]:
                     raise AssertionError(f"the band path of shard {shard}: {row}")
+    phase_rows_lanes(card)
     emit({"phase": "rows_done", "seconds": time.perf_counter() - t0})
     return checks
+
+
+def phase_rows_lanes(card: str) -> None:
+    """Phase 3c, the lanes: the level driver of one process over ROW_SHARDS
+    cards (``solve(..., bands=lanes)``), every lane on this card, through
+    the emulation seam (``solver.bands.emulate_lanes``: every banded stage
+    and the hand-over into a buffer of NaN outside the lane's plan, the
+    relaxation the plain ``relax_sharded`` over the owned rows each lane
+    holds) for a full_model() pair at 1920x1080 and 3840x2160 on the kernel
+    route: the gathered flow bitwise ``compute_flow``'s, each lane's rows
+    (``ops.level.row_counts(lane)``) its plan's, the peer copies
+    ``bands.lane_copies``."""
+    import torch
+
+    from tpuflow_torch import compute_flow, models
+    from tpuflow_torch.ops import level as L
+    from tpuflow_torch.parallel.mesh import Mesh, peer_copy
+    from tpuflow_torch.solver.bands import emulate_lanes, lane_copies, stage_rows
+    from tpuflow_torch.solver.sharded import sharded_plan
+    from tpuflow_torch.synthetic import textured_pair
+
+    cfg = models.full_model()
+    for w, h in (SIZES[1], SIZE_4K):
+        t0 = time.perf_counter()
+        f0n, f1n = (np.clip(f, 0.0, 255.0).astype(np.float32) for f in textured_pair(w, h))
+        base = compute_flow(f0n, f1n, cfg, device="cuda")
+        routes = [(r, k) for _, _, r, k in sharded_plan(
+            w, h, cfg, Mesh(ROW_SHARDS, "cuda"), "kernel")]
+        L.reset_row_counts()
+        peer_copy.messages = peer_copy.bytes = 0
+        flow, plans = emulate_lanes(torch.from_numpy(f0n).cuda(), torch.from_numpy(f1n).cuda(),
+                                    cfg, routes, ROW_SHARDS, fill=float("nan"))
+        got = flow.cpu().numpy()
+        rows = [L.row_counts(i) for i in range(len(plans))]
+        want = [stage_rows(w, h, cfg, p, prefix=i == 0) for i, p in enumerate(plans)]
+        row = {"phase": "rows_lanes", "card": card, "shape": [h, w],
+               "config": "models.full_model()", "route": "kernel", "lanes": len(plans),
+               "banded_levels": len(plans[0].levels), "levels": len(routes),
+               "bitwise_compute_flow": got[0].tobytes() == base.u.tobytes()
+               and got[1].tobytes() == base.v.tobytes(),
+               "rows_by_lane": rows, "rows_expected": want,
+               "rows_whole_field": stage_rows(w, h, cfg, None),
+               "peer_copies": {"messages": peer_copy.messages, "bytes": peer_copy.bytes},
+               "peer_copies_expected": lane_copies(w, h, cfg, plans),
+               "seconds": time.perf_counter() - t0}
+        row["ok"] = (row["bitwise_compute_flow"] and rows == want
+                     and row["peer_copies"] == row["peer_copies_expected"])
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"the lanes emulated at {w}x{h}: {row}")
+        del flow
+        torch.cuda.empty_cache()
 
 
 def expected_launches(w: int, h: int, cfg, levels: range = None, smooth: bool = True) -> dict:
@@ -1714,7 +1767,9 @@ def phase_crosscard_kernel(card: str) -> dict:
     """Phase 12 across cards: relax_sharded_kernel with the shards spread
     over the cards (card_layouts) bitwise against its plain version and
     relax in every SHARDED_CHECKS case, each card's grid syncs and row
-    barriers counted on the card equal to the formulas; the race case; the
+    barriers counted on the card equal to the formulas, and the same given
+    one field set a card (the lanes' form: each card's T bitwise, its
+    counts those of ``processes=True``); the race case; the
     spin-limit case in a child process; the 4K and 1080p level-0 launches
     over 4 cards timed in turns with the one-card launch, beside the
     cards=4 bound. On a machine with one card it prints that it did not
@@ -1778,6 +1833,35 @@ def phase_crosscard_kernel(card: str) -> dict:
                 [row_barriers(cfg, n_y, n, k)] * n)
             if launched != n:
                 raise AssertionError(f"{launched} launches over {n} cards: {row}")
+            max_err = max(max_err, row["max_abs_err"], row["max_abs_vs_unsharded_kernels"])
+            cases += 1
+            if race:
+                continue
+            # one field set a card (the lanes' form): every card's T
+            cards_of = [dev for dev, _ in mesh.row_groups()]
+
+            def per_card(t):
+                return None if t is None else tuple(t.to(dev) for dev in cards_of)
+
+            syncs.zero_()
+            barriers.zero_()
+            sync_all()
+            before = relax_sharded_kernel.launches
+            Ts = relax_sharded_kernel(per_card(x["fxyz"]), per_card(x["uvf"]), x["sc"], cfg,
+                                      mesh, k, J=per_card(J), syncs=syncs, barriers=barriers)
+            sync_all()
+            launched = relax_sharded_kernel.launches - before
+            row = crosscard_check(
+                {"phase": "crosscard_kernel_card_fields", "shape": [h, w], "n_y": n_y, "k": k,
+                 "constancy": constancy, "inner": inner, "devices": devices, "cards": n,
+                 "launches": launched, "T_devices": [str(T.device) for T in Ts],
+                 "bound": SHARDED_BOUND},
+                torch.stack([T.to(plain.device) for T in Ts]), plain, unsharded, syncs,
+                barriers, [grid_syncs(cfg, n_y, k, n, processes=True)] * n,
+                [row_barriers(cfg, n_y, n, k, processes=True)] * n)
+            if launched != n or [T.device for T in Ts] != cards_of:
+                raise AssertionError(f"{launched} launches over {n} cards, T on "
+                                     f"{row['T_devices']}: {row}")
             max_err = max(max_err, row["max_abs_err"], row["max_abs_vs_unsharded_kernels"])
             cases += 1
     inputs.clear()
@@ -2322,10 +2406,12 @@ def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, da
     finest flow's gather (two planes to each other process of the row)."""
     from tpuflow_torch.ops.level import KMAX
     from tpuflow_torch.parallel.halo import explicit_copies, explicit_sends
-    from tpuflow_torch.solver.sharded import sharded_bands, sharded_plan
+    from tpuflow_torch.solver.bands import lane_copies
+    from tpuflow_torch.solver.sharded import sharded_bands, sharded_lanes, sharded_plan
 
     plan = sharded_plan(w, h, cfg, mesh, halo, k, data)
     bands = sharded_bands(w, h, cfg, mesh, halo, k, data)
+    lanes = sharded_lanes(w, h, cfg, mesh, halo, k, data) if levels is None else None
     stop = len(plan) if levels is None else levels.stop
     start = 0 if levels is None else levels.start
     if levels is not None:
@@ -2334,7 +2420,16 @@ def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, da
     prologue = "outer_prologue" if want["outer_prologue"] else "outer_prologue_tensor"
     outer, passes = cfg.outer_iterations_count, -(-cfg.inner_iterations_count // KMAX)
     want.update({prologue: 0, "jacobi_sweeps": 0, "relax_sharded": 0, "copies": 0,
-                 "messages": 0})
+                 "messages": 0, "peer_copies": 0, "peer_bytes": 0})
+    if lanes:
+        # each other card: its presmooth, frame pyramid and stages over the suffix
+        for _ in lanes[1:]:
+            lane = expected_launches(w, h, cfg, range(lanes[0].plan.start, len(plan)), smooth)
+            for key in ("gaussian_smooth", "resample", "warp", "level_derivs", "level_tensor",
+                        "add_median"):
+                want[key] += lane[key]
+        peers = lane_copies(w, h, cfg, [lane.plan for lane in lanes])
+        want.update(peer_copies=peers["messages"], peer_bytes=peers["bytes"])
     processes = mesh.row_spans_processes(data)
     shard = mesh.row(data).index(mesh.local_positions()[0]) if processes else None
     for lh, _, route, kk in plan:
@@ -2359,35 +2454,47 @@ def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, da
 
 def band_rows(w: int, h: int, cfg, mesh, halo: str, k: int = 1, data: int = 0) -> dict:
     """Which path a pair on ``mesh``'s row takes (the band path where its
-    processes each have a card, else the whole field), and the rows each
-    row stage computed (``ops.level.row_counts``, read after the run) beside
-    its plan's and the whole field's."""
+    processes each have a card, lanes where one process drives several
+    cards, else the whole field), and the rows each row stage computed
+    (``ops.level.row_counts``, read after the run; by lane, one a card,
+    for lanes) beside its plan's and the whole field's."""
     from tpuflow_torch.ops.level import row_counts
     from tpuflow_torch.solver.bands import stage_rows
-    from tpuflow_torch.solver.sharded import sharded_bands
+    from tpuflow_torch.solver.sharded import sharded_bands, sharded_lanes
 
+    whole = stage_rows(w, h, cfg, None)
+    lanes = sharded_lanes(w, h, cfg, mesh, halo, k, data)
+    if lanes:
+        got = [row_counts(i) for i in range(len(lanes))]
+        want = [stage_rows(w, h, cfg, lane.plan, prefix=i == 0) for i, lane in enumerate(lanes)]
+        return {"path": "lanes", "cards": [str(lane.device) for lane in lanes],
+                "banded_levels": len(lanes[0].plan.levels), "rows_by_card": got,
+                "rows_expected": want, "rows_whole_field": whole, "rows_ok": got == want}
     plan = sharded_bands(w, h, cfg, mesh, halo, k, data)
     got, want = row_counts(), stage_rows(w, h, cfg, plan)
     return {"path": "whole field" if plan is None else "band", "rows": got,
-            "rows_expected": want, "rows_whole_field": stage_rows(w, h, cfg, None),
-            "rows_ok": got == want}
+            "rows_expected": want, "rows_whole_field": whole, "rows_ok": got == want}
 
 
 def sharded_counts() -> dict:
     from tpuflow_torch.parallel.group import row_exchange
     from tpuflow_torch.parallel.halo import relax_sharded_explicit
+    from tpuflow_torch.parallel.mesh import peer_copy
     from tpuflow_torch.solver import sharded
 
     return {**sharded.launch_counts(), "copies": relax_sharded_explicit.copies,
-            "messages": row_exchange.sends}
+            "messages": row_exchange.sends, "peer_copies": peer_copy.messages,
+            "peer_bytes": peer_copy.bytes}
 
 
 def phase_mesh_e2e(card: str, counts_total: dict) -> dict:
     """Phase 19: a 1920x1080 full_model() pair through compute_flow(...,
     mesh=) and compute_flow_sharded with halo explicit, kernel and auto on
     MESH_N positions of cuda:0, and of the cards where there are several:
-    bitwise compute_flow, exact counts, the auto plan; the routes timed in
-    turns with compute_flow. Returns the last mesh's row."""
+    bitwise compute_flow, exact counts, the auto plan, each route's path
+    (over several cards the kernel levels by lanes) with the rows each card
+    computed against its plan's (``band_rows``) and the peer copies; the
+    routes timed in turns with compute_flow. Returns the last mesh's row."""
     from tpuflow_torch import compute_flow, make_mesh, models
     from tpuflow_torch.synthetic import textured_pair
 
@@ -2405,6 +2512,7 @@ def mesh_e2e_run(card: str, counts_total: dict, mesh, f0, f1, base,
     """Phase 19 on one mesh (and phase 23 at 3840x2160 over the cards)."""
     from tpuflow_torch import compute_flow, compute_flow_sharded, models, plan_parallel
     from tpuflow_torch.solver import sharded
+    from tpuflow_torch.solver.bands import stage_rows
     from tpuflow_torch.solver.sharded import sharded_plan
     from tpuflow_torch.tools.roofline import cuda_ms
 
@@ -2417,6 +2525,7 @@ def mesh_e2e_run(card: str, counts_total: dict, mesh, f0, f1, base,
                                                            device="cuda")
     row = {"phase": "mesh_e2e", "shape": [h, w], "config": "models.full_model()", "card": card,
            "devices": [str(d) for d in mesh.devices], "plan_parallel": route,
+           "rows_whole_field": stage_rows(w, h, cfg, None),
            "auto_plan": [f"{lh}x{lw}:{r}" + (f"@k={k}" if r != "replicated" else "")
                          for lh, lw, r, k in sharded_plan(w, h, cfg, mesh, "auto")]}
     ok = True
@@ -2433,6 +2542,17 @@ def mesh_e2e_run(card: str, counts_total: dict, mesh, f0, f1, base,
         ok &= same and counts == want
         if counts != want:
             row[f"{name}_expected"] = want
+        if halo:
+            # the path each route took and the rows each card computed
+            rows = band_rows(w, h, cfg, mesh, halo)
+            row[f"{name}_path"], row[f"{name}_rows_ok"] = rows["path"], rows["rows_ok"]
+            if rows["path"] == "lanes":
+                row[f"{name}_rows_by_card"] = rows["rows_by_card"]
+                row[f"{name}_card0_rows"] = rows["rows_by_card"][0]
+                row[f"{name}_peer_copies"] = [counts["peer_copies"], counts["peer_bytes"]]
+            ok &= rows["rows_ok"]
+            if not rows["rows_ok"]:
+                row[f"{name}_rows"] = rows
         for key in MAIN_PATH:
             counts_total[key] = counts_total.get(key, 0) + counts[key]
     ms = {"compute_flow": [], **{name: [] for name in paths}}
@@ -2454,8 +2574,9 @@ def phase_crosscard_e2e(card: str, counts_total: dict) -> dict:
     """Phase 23: a 3840x2160 full_model() pair through compute_flow(...,
     mesh=) and compute_flow_sharded with halo explicit, kernel and auto on
     MESH_N positions dealt over the cards (phase 19 does 1920x1080): bitwise
-    compute_flow, exact counts, the routes timed in turns with
-    compute_flow. On one card it prints that it did not run."""
+    compute_flow, exact counts, each route's path and each card's rows, the
+    routes timed in turns with compute_flow. On one card it prints that it
+    did not run."""
     import torch
 
     from tpuflow_torch import compute_flow, make_mesh, models
@@ -2645,7 +2766,8 @@ def phase_report_scaling(card: str) -> dict:
     emit({"phase": "report_scaling_project", "rows": summary})
     line = report_scaling.measure(MESH_N, SIZES[0], reps=3, k=4)
     row = {"phase": "report_scaling", **line, "auto_explicit_levels_one_card": explicit}
-    row["ok"] = not explicit and line["distinct_cards"] >= 1
+    row["ok"] = (not explicit and line["distinct_cards"] >= 1
+                 and all(v for key, v in line.items() if key.endswith("_bitwise")))
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"report_scaling: {row}")

@@ -15,6 +15,15 @@ sharded levels, which it is in every cell of the port's configurations.
 Against the JAX package: the flow stitched from every shard's owned rows
 stays within the sharded pipeline's bound of ``compute_flow_bucketed_batch``
 (mean EPE 1e-5, max 1e-4, as tests/test_torch_procmesh.py states).
+
+One process over several cards (``emulate_lanes``): a lane a "card" of 2
+and 4, each with its own whole-size buffers poisoned with NaN outside its
+plan's rows, stepped level by level through ``solve``, the relaxation the
+plain ``relax_sharded`` over the owned rows of each lane's fields, the
+owned rows joined on the first lane at the end: bitwise the whole solve for
+the three constancies on the kernel route and on ``auto``, each lane's rows
+its plan's, and within the cross-program class (mean EPE 1e-3) of the JAX
+package's ``compute_flow``.
 """
 
 import math
@@ -37,7 +46,7 @@ from tpuflow_torch.ops.solver_ops import clamp, refl
 from tpuflow_torch.ops.warp import warp, warp_plain
 from tpuflow_torch.parallel.mesh import Mesh
 from tpuflow_torch.solver.bands import (
-    band_plan, emulate_shard, level_rows, reach, stage_rows,
+    band_plan, emulate_shard, hull, level_rows, reach, stage_rows,
 )
 from tpuflow_torch.solver.level import LevelScalars, solve
 from tpuflow_torch.solver.sharded import sharded_bands, sharded_plan
@@ -401,3 +410,251 @@ def test_restricted_y_plans_write_their_rows_once(size):
             out, writes = out.reshape(2, b.height, b.width), writes.reshape(2, b.height, b.width)
             assert (writes[:, lo:hi] == 1).all() and writes.sum() == 2 * (hi - lo) * b.width
             assert out[:, lo:hi].tobytes() == whole[:, lo:hi].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# One process over several cards: the lanes, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+LANES = [2, 4]
+
+
+def lane_routes(cfg: FlowConfig, n: int, halo: str, w: int = W, h: int = H):
+    """The routes of a one-process row of ``n`` shards on ``n`` cards (the
+    cost model's cards are counted by UUID)."""
+    mesh = Mesh(n, devices=["cpu"] * n, uuids=[f"card{i}" for i in range(n)])
+    return [(r, k) for _, _, r, k in sharded_plan(w, h, cfg, mesh, halo)]
+
+
+def peer_counts(plans, w: int, h: int, start: int) -> tuple:
+    """The peer copies of a lane solve from the coarsest level: the pair to
+    each other lane, the flow's entry rows at the suffix's first level (a
+    plane a copy), and the finest flow's owned rows of each other lane's
+    shards (a plane a copy); (messages, bytes)."""
+    messages = nbytes = 0
+    for plan in plans[1:]:
+        messages, nbytes = messages + 1, nbytes + 2 * h * w * 4
+        if start:
+            from tpuflow_torch.pyramid import level_schedule
+
+            spec = level_schedule(w, h, KW["warp_levels_count"], KW["warp_scale_factor"])[
+                start - 1]
+            lo, hi = plan.prior
+            messages, nbytes = messages + 2, nbytes + 2 * (hi - lo) * spec.width * 4
+        for s in plan.shards:
+            lo, hi = plan.owned[s]
+            messages, nbytes = messages + 2, nbytes + 2 * (hi - lo) * w * 4
+    return messages, nbytes
+
+
+def run_lanes(cfg, rts, n, groups=None, fill=NAN):
+    """emulate_lanes with the row and peer-copy counts read around it."""
+    from tpuflow_torch.parallel.mesh import peer_copy
+    from tpuflow_torch.solver.bands import emulate_lanes
+
+    f0, f1 = (torch.from_numpy(f) for f in pair())
+    L.reset_row_counts()
+    peer_copy.messages = peer_copy.bytes = 0
+    flow, plans = emulate_lanes(f0, f1, cfg, rts, n, groups, fill)
+    rows = [L.row_counts(i) for i in range(len(plans))]
+    return flow, plans, rows, (peer_copy.messages, peer_copy.bytes), solve(f0, f1, cfg)
+
+
+@pytest.mark.parametrize("route", ["kernel", "auto"])
+@pytest.mark.parametrize("n", LANES)
+@pytest.mark.parametrize("constancy", CONSTANCIES)
+def test_lane_emulation_is_bitwise_the_whole_solve(constancy, n, route):
+    """A one-process row of n cards, a lane a card stepped level by level
+    (``bands.emulate_lanes``): every banded stage into a buffer of NaN
+    outside the lane's plan, the relaxation the plain ``relax_sharded``
+    over the owned rows each card's fields hold; the flow gathered on the
+    first lane is bitwise the whole solve's, each lane computed its plan's
+    rows (the first lane also every row of the levels before the suffix),
+    and the peer copies are the pair, the entry rows and the owned rows."""
+    cfg = cfg_of(constancy, **({"equation_alpha": 1e-3} if constancy == "log" else {}))
+    rts = lane_routes(cfg, n, route)
+    flow, plans, rows, peers, whole = run_lanes(cfg, rts, n)
+    assert same(flow, whole)
+    assert len(plans) == n and all(p.start == plans[0].start for p in plans)
+    for i, plan in enumerate(plans):
+        assert rows[i] == stage_rows(W, H, cfg, plan, prefix=i == 0)
+    assert rows[1]["warp"] < stage_rows(W, H, cfg, None)["warp"]
+    assert peers == peer_counts(plans, W, H, plans[0].start)
+
+
+@pytest.mark.parametrize("groups", [((0, 1), (2, 3)), ((0, 2), (1, 3)), ((0,), (1, 2, 3))])
+def test_lanes_of_cards_holding_several_shards(groups):
+    """A card holding several shards of the row takes the hull of their
+    rows (contiguous or dealt); the flow stays bitwise, the rows the
+    plans', and each other card sends its own shards' owned rows alone."""
+    cfg = cfg_of("gradient")
+    rts = routes(cfg, 4, "kernel", 1)
+    flow, plans, rows, peers, whole = run_lanes(cfg, rts, 4, groups)
+    assert same(flow, whole)
+    for i, (plan, ys) in enumerate(zip(plans, groups)):
+        assert plan.shards == ys
+        assert plan.levels[-1].median == hull(*(plan.owned[y] for y in ys))
+        assert rows[i] == stage_rows(W, H, cfg, plan, prefix=i == 0)
+    assert peers == peer_counts(plans, W, H, plans[0].start)
+
+
+def test_lane_suffix_is_the_kernel_levels_alone():
+    """Over processes the kernel and the explicit route are banded; in one
+    process the kernel alone: its suffix starts after the last level of
+    any other route, and there is none where the finest level is explicit.
+    A row on one card, or over processes, takes no lanes."""
+    from tpuflow_torch.solver.bands import LANE_ROUTES, SHARDED_ROUTES, lane_plans
+    from tpuflow_torch.solver.sharded import sharded_lanes
+
+    cfg = FlowConfig(**{**KW, "warp_levels_count": 4})
+    mixed = [("kernel", 1), ("explicit", 1), ("kernel", 2), ("kernel", 1)]
+    assert band_plan(W, H, cfg, mixed, 2, 0).start == 0
+    assert band_plan(W, H, cfg, mixed, 2, 0, banded=LANE_ROUTES).start == 2
+    assert band_plan(W, H, cfg, mixed, 2, 0, banded=SHARDED_ROUTES).start == 0
+    plans = lane_plans(W, H, cfg, mixed, 2, [(0,), (1,)])
+    assert [p.start for p in plans] == [2, 2] and [p.shards for p in plans] == [(0,), (1,)]
+    assert plans[0].prior == plans[0].entry(2) and plans[0].entry(3) == plans[0].levels[0].median
+    assert lane_plans(W, H, cfg, mixed[:3] + [("explicit", 1)], 2, [(0,), (1,)]) is None
+    assert lane_plans(W, H, cfg, [("kernel", 1)] * 4, 2, [(0,), (1,)])[1].prior is None
+    assert sharded_lanes(1920, 1080, models.full_model(), Mesh(4, "cpu"), "kernel") is None
+    procs = Mesh(2, devices=["cpu"] * 2, ranks=[0, 1], uuids=["a", "b"])
+    assert sharded_lanes(1920, 1080, models.full_model(), procs, "kernel") is None
+
+
+def test_an_explicit_level_keeps_the_whole_field_on_the_first_card():
+    """An explicit level in the one-process suffix of sharded levels: it and
+    every level before it run over the whole field on the first lane
+    alone, the kernel levels after it by lanes; bitwise the whole solve."""
+    cfg = FlowConfig(**{**KW, "warp_levels_count": 4, "data_constancy": DataConstancy.GRADIENT})
+    mixed = [("kernel", 1), ("kernel", 1), ("explicit", 1), ("kernel", 1)]
+    flow, plans, rows, _, whole = run_lanes(cfg, mixed, 2)
+    assert same(flow, whole) and plans[0].start == 3
+    from tpuflow_torch.pyramid import level_schedule
+
+    specs = level_schedule(W, H, cfg.warp_levels_count, cfg.warp_scale_factor)
+    assert rows[0]["warp"] == sum(s.height for s in specs[:3]) + plans[0].levels[0].warp[1] - \
+        plans[0].levels[0].warp[0]
+    assert rows[1]["warp"] == plans[1].levels[0].warp[1] - plans[1].levels[0].warp[0]
+
+
+def test_a_lane_needs_every_entry_row(monkeypatch):
+    """The poison has teeth at the hand-over: a lane that receives one row
+    less of the flow before the suffix than its plan reads gets a flow that
+    is not the whole solve's."""
+    import dataclasses
+
+    from tpuflow_torch.solver import bands
+
+    cfg = cfg_of("grey")
+    rts = lane_routes(cfg, 4, "kernel")
+    real = bands.lane_plans
+
+    def short(*args):
+        plans = real(*args)
+        lo, hi = plans[1].prior
+        return (plans[0], dataclasses.replace(plans[1], prior=(lo, hi - 1))) + plans[2:]
+
+    monkeypatch.setattr(bands, "lane_plans", short)
+    flow, plans, _, _, whole = run_lanes(cfg, rts, 4)
+    assert plans[1].start > 0
+    lo, hi = plans[1].owned[1]
+    assert not same(flow[:, lo:hi].contiguous(), whole[:, lo:hi].contiguous())
+
+
+@pytest.mark.parametrize("constancy", CONSTANCIES)
+def test_lane_flow_within_the_cross_program_class_of_the_jax_package(constancy):
+    """Four lanes' gathered flow against the JAX package's ``compute_flow``
+    on the same seeded pair: mean EPE within the cross-program class
+    (1e-3 px)."""
+    from tpuflow import compute_flow as jax_compute_flow
+
+    extra = {"equation_alpha": 1e-3} if constancy == "log" else {}
+    cfg = cfg_of(constancy, **extra)
+    flow, *_ = run_lanes(cfg, lane_routes(cfg, 4, "kernel"), 4)
+    f0n, f1n = pair()
+    res = jax_compute_flow(f0n, f1n, JFlowConfig(data_constancy=JDataConstancy(constancy),
+                                                 **{**KW, **extra}))
+    epe = np.hypot(flow[0].numpy() - np.asarray(res.u), flow[1].numpy() - np.asarray(res.v))
+    assert float(epe.mean()) <= 1e-3, float(epe.mean())
+
+
+def test_per_card_fields_relax_the_owned_rows_each_card_holds():
+    """``relax_sharded_kernel`` given one field set a card: on CPU tensors
+    the plain version relaxes the owned rows each card holds (NaN in every
+    other row of a card's copy changes nothing) and returns one T a card;
+    a count of fields that is not the row's cards raises."""
+    from tpuflow_torch.parallel.halo_kernel import owned_rows, relax_sharded_kernel
+    from tpuflow_torch.parallel.halo import halo_rows, relax_sharded, row_split
+
+    cfg = cfg_of("gradient")
+    h, w = 64, 40
+    f0, f1, uv, T, sc = level_fields(h, w, 5)
+    fxyz = L.level_derivs_plain(f0, f1, sc.div4hx, sc.div4hy)
+    J = L.level_tensor_plain(f0, f1, fxyz, sc, False)
+    split = row_split(h, 4, halo_rows(cfg, 1))
+    groups = [("cpu", (0, 2)), ("cpu", (1, 3))]
+
+    def copies(x):
+        out = []
+        for _, ys in groups:
+            c = torch.full_like(x, NAN)
+            for y in ys:
+                c[:, split[y].row0:split[y].row0 + split[y].rows] = x[:, split[y].row0:
+                                                                      split[y].row0 + split[y].rows]
+            out.append(c)
+        return tuple(out)
+
+    for x in (uv, fxyz, J):
+        assert same(owned_rows(copies(x), groups, split), x)
+    mesh = Mesh(4, "cpu")
+    want = relax_sharded(fxyz, uv, sc, cfg, mesh, 1, J)
+    got = relax_sharded_kernel((fxyz,), (uv,), sc, cfg, mesh, J=(J,))
+    assert isinstance(got, tuple) and len(got) == 1 and same(got[0], want)
+    with pytest.raises(ValueError, match="one tensor a card"):
+        relax_sharded_kernel((fxyz, fxyz), (uv, uv), sc, cfg, mesh, J=(J, J))
+
+
+class CpuCards(Mesh):
+    """A one-process row whose CPU positions count as one card each: the
+    routing of ``compute_flow_sharded`` over several cards, on the CPU."""
+
+    def row_cards(self, data: int = 0) -> int:
+        return len(self.row(data))
+
+    def row_groups(self, data: int = 0):
+        return [(self.devices[p], (y,)) for y, p in enumerate(self.row(data))]
+
+
+@pytest.mark.parametrize("halo", ["kernel", "auto", "explicit"])
+def test_compute_flow_sharded_runs_lanes_over_several_cards(halo):
+    """``compute_flow_sharded`` on a one-process row of 4 "cards": the kernel
+    route and auto by lanes (``sharded_lanes``; each lane's rows its plan's,
+    the peer copies ``lane_copies``), the explicit route over the whole
+    field on the first card (no lanes, no peer copy); every flow bitwise
+    ``compute_flow``'s."""
+    import dataclasses
+
+    from tpuflow_torch import compute_flow, compute_flow_sharded
+    from tpuflow_torch.parallel.mesh import peer_copy
+    from tpuflow_torch.solver import sharded
+    from tpuflow_torch.solver.bands import lane_copies
+    from tpuflow_torch.synthetic import textured_pair
+
+    w, h = 160, 128
+    cfg = dataclasses.replace(models.full_model(), warp_levels_count=6, outer_iterations_count=6)
+    f0, f1 = textured_pair(w, h)
+    base = compute_flow(f0, f1, cfg, device="cpu")
+    mesh = CpuCards(4, "cpu")
+    sharded.reset_launch_counts()
+    res = compute_flow_sharded(f0, f1, cfg, mesh=mesh, halo=halo, device="cpu")
+    assert res.u.tobytes() == base.u.tobytes() and res.v.tobytes() == base.v.tobytes()
+    lanes = sharded.sharded_lanes(w, h, cfg, mesh, halo)
+    if halo == "explicit":
+        assert lanes is None and peer_copy.messages == 0
+        assert L.row_counts(0) == stage_rows(w, h, cfg, None)
+        return
+    assert [lane.plan.shards for lane in lanes] == [(0,), (1,), (2,), (3,)]
+    for i, lane in enumerate(lanes):
+        assert L.row_counts(i) == stage_rows(w, h, cfg, lane.plan, prefix=i == 0)
+    assert lane_copies(w, h, cfg, [lane.plan for lane in lanes]) == {
+        "messages": peer_copy.messages, "bytes": peer_copy.bytes}

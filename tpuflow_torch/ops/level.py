@@ -27,8 +27,8 @@ whole-size output (``out``, or a new one; on the card its other rows are
 not written, in the plain version's new output they are NaN), reading
 their inputs by the level's own rows and height, so each row is bitwise
 the whole call's. The default is every row, one launch over the level as
-before. Each counts the rows it computed in ``<wrapper>.rows``
-(``row_counts``), on either device.
+before. Each counts the rows it computed in ``<wrapper>.rows`` and, by
+lane, in ``<wrapper>.lane_rows`` (``row_counts``), on either device.
 
 Packed layouts (contiguous float32 stacks of (h, w) planes):
   fxyz  (3, h, w)  fx, fy, ft (grey, always: ksi comes from them)
@@ -40,6 +40,8 @@ Packed layouts (contiguous float32 stacks of (h, w) planes):
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from tpuflow_torch.ops.cuda_lib import launch, on_cuda
@@ -47,8 +49,8 @@ from tpuflow_torch.ops.gaussian import gaussian_smooth
 from tpuflow_torch.ops.median import effective_radius, median_plain
 from tpuflow_torch.ops.resample import resample
 from tpuflow_torch.ops.solver_ops import (
-    derivative_tensor, edge_weights, first_derivs, ksi_grey, phi_from_T, placed, row_range,
-    shifts,
+    count_rows, derivative_tensor, edge_weights, first_derivs, ksi_grey, phi_from_T, placed,
+    row_range, shifts,
 )
 from tpuflow_torch.ops.sweep_core import sweep_update_T
 from tpuflow_torch.ops.warp import warp
@@ -93,7 +95,7 @@ def level_derivs(f0, f1w, div4hx: float, div4hy: float, rows=None,
     if f1w.shape != (h, w):
         raise ValueError(f"shape mismatch: {f0.shape} {f1w.shape}")
     lo, hi = row_range(rows, h)
-    level_derivs.rows += hi - lo
+    count_rows(level_derivs, hi - lo)
     if not on_cuda(f0, f1w, *_given(out)):
         return level_derivs_plain(f0, f1w, div4hx, div4hy, rows, out)
     fxyz = _out(out, (3, h, w), f0)
@@ -122,7 +124,7 @@ def level_tensor(f0_l, f1_w, fxyz, sc, log: bool, rows=None, out=None) -> torch.
         raise ValueError(f"shape mismatch: {f0_l.shape} {f1_w.shape}")
     _check_planes(h, w, fxyz=(fxyz, 3))
     lo, hi = row_range(rows, h)
-    level_tensor.rows += hi - lo
+    count_rows(level_tensor, hi - lo)
     if not on_cuda(f0_l, f1_w, fxyz, *_given(out)):
         return level_tensor_plain(f0_l, f1_w, fxyz, sc, log, rows, out)
     if log and min(h, w) < 2:
@@ -342,7 +344,7 @@ def add_median(T, uv, radius: int, rows=None, out=None) -> torch.Tensor:
     _check_planes(h, w, T=(T, 2), uv=(uv, 2))
     r = effective_radius(radius)
     lo, hi = row_range(rows, h)
-    add_median.rows += hi - lo
+    count_rows(add_median, hi - lo)
     if not on_cuda(T, uv, *_given(out)):
         return add_median_plain(T, uv, r, rows, out)
     if min(h, w) <= r // 2:
@@ -359,7 +361,7 @@ for _fn in (level_derivs, level_tensor, outer_prologue, jacobi_sweep, jacobi_swe
     _fn.launches = 0
 outer_prologue.tensor_launches = 0
 for _fn in (level_derivs, level_tensor, add_median):
-    _fn.rows = 0
+    _fn.rows, _fn.lane_rows = 0, {}
 
 # Every kernel of the solve's path by name, as (wrapper, its counter attribute):
 # the banded kernels under their two wrappers, then the level kernels.
@@ -394,9 +396,13 @@ ROW_STAGES = {name: KERNELS[name][0] for name in
 
 def reset_row_counts() -> None:
     for fn in ROW_STAGES.values():
-        fn.rows = 0
+        fn.rows, fn.lane_rows = 0, {}
 
 
-def row_counts() -> dict:
-    """The output rows each row stage computed since ``reset_row_counts``."""
-    return {name: fn.rows for name, fn in ROW_STAGES.items()}
+def row_counts(lane: Optional[int] = None) -> dict:
+    """The output rows each row stage computed since ``reset_row_counts``:
+    in all, or those of one lane (a card of a one-process row over several
+    cards, in ``Mesh.row_groups`` order; ``solver_ops.row_lane``)."""
+    if lane is None:
+        return {name: fn.rows for name, fn in ROW_STAGES.items()}
+    return {name: fn.lane_rows.get(lane, 0) for name, fn in ROW_STAGES.items()}

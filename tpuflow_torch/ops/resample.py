@@ -35,7 +35,7 @@ from tpuflow_torch.ops.banded import (
     AXIS_X, AXIS_Y, Band, band_span, banded_levels, banded_plain,
 )
 from tpuflow_torch.ops.cuda_lib import on_cuda
-from tpuflow_torch.ops.solver_ops import placed, row_range
+from tpuflow_torch.ops.solver_ops import count_rows, placed, row_range
 
 F = np.float32
 
@@ -148,9 +148,10 @@ def resample(img: torch.Tensor, out_w: int, out_h: int, rows=None,
     if (in_h, in_w) == (out_h, out_w):
         return img
     lo, hi = row_range(rows, out_h)
-    resample.rows += hi - lo
+    count_rows(resample, hi - lo)
     return resample_levels(img, ((out_w, out_h),), rows, out)[0]
 
 
 resample.launches = 0
 resample.rows = 0
+resample.lane_rows = {}

@@ -13,17 +13,42 @@ those two rules as the kernels write them.
 The derivatives and tensors take ``rows`` = (lo, hi): they compute output
 rows lo .. hi - 1 alone, reading their inputs by the level's own rows and
 height, so each row is bitwise the whole call's; the other rows of the
-whole-size result are NaN, or ``out``'s (``placed``).
+whole-size result are NaN, or ``out``'s (``placed``). Every row stage
+counts the rows it computed (``count_rows``), in all and by lane.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 
 from tpuflow_torch.config import DataConstancy
+
+
+# The lane whose rows the row stages count: the level driver sets it around
+# each card's stages on a one-process row over several cards
+# (solver/level.py::solve); lane 0 everywhere else.
+_LANE = [0]
+
+
+@contextlib.contextmanager
+def row_lane(lane: int):
+    """Count the row stages' rows under ``lane`` inside the block."""
+    before, _LANE[0] = _LANE[0], int(lane)
+    try:
+        yield
+    finally:
+        _LANE[0] = before
+
+
+def count_rows(stage, n: int) -> None:
+    """Add n output rows to a row stage's counts: ``stage.rows``, and the
+    current lane's entry of ``stage.lane_rows``."""
+    stage.rows += n
+    stage.lane_rows[_LANE[0]] = stage.lane_rows.get(_LANE[0], 0) + n
 
 
 def refl(i, n: int):

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from tpuflow_torch.ops.cuda_lib import launch, on_cuda
-from tpuflow_torch.ops.solver_ops import placed, row_range
+from tpuflow_torch.ops.solver_ops import count_rows, placed, row_range
 
 
 def warp_plain(f0: torch.Tensor, f1: torch.Tensor, uv: torch.Tensor,
@@ -75,7 +75,7 @@ def warp(f0: torch.Tensor, f1: torch.Tensor, uv: torch.Tensor,
     if f1.shape != (h, w) or uv.shape != (2, h, w):
         raise ValueError(f"shape mismatch: {f0.shape} {f1.shape} {uv.shape}")
     lo, hi = row_range(rows, h)
-    warp.rows += hi - lo
+    count_rows(warp, hi - lo)
     if not on_cuda(f0, f1, uv, *(() if out is None else (out,))):
         return warp_plain(f0, f1, uv, inv_hx, inv_hy, rows, out)
     if out is None:
@@ -90,3 +90,4 @@ def warp(f0: torch.Tensor, f1: torch.Tensor, uv: torch.Tensor,
 
 warp.launches = 0
 warp.rows = 0
+warp.lane_rows = {}

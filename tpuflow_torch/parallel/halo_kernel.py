@@ -24,6 +24,16 @@ reads T. Each card's flags (one a card of the row, in its own memory) are
 kept per row of cards, with the epoch they hold, across launches
 (``RowFlags``).
 
+Given one field set a card (``uv``, ``fxyz`` and ``J`` as tuples in
+``Mesh.row_groups`` order, each on its card: the level driver's lanes,
+solver/level.py), the launch takes the form the process row below has:
+each card's copy-in reads its own card's fields, the copy-out stores every
+shard's owned rows into every card's T, and a last row barrier over all
+the cards ends the launch, so each card's T is whole when its own launch
+ends. Every card's launch waits for every card's current stream (each
+card's fields and T are in, and no card stores into a T still in use),
+and each card's current stream waits for its own card's launch alone.
+
 On a row whose positions belong to several processes (one a card, or
 several on one card), each process launches its own card alone, on its
 ``card_stream``, after an event of its caller's stream: the shard buffer,
@@ -48,6 +58,7 @@ level. Two risks, checked on the card (chip_smoke.py):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import threading
@@ -89,8 +100,9 @@ def row_barriers(cfg: FlowConfig, n_y: int, cards: int = 1, k_outer: int = 1,
                  processes: bool = False) -> int:
     """The row barriers of one launch on each card (csrc/sharded.cu): two
     an exchange (before and after the push, every ``k_outer`` outers) where
-    the row spans several cards; none on one card. Over processes (each
-    card its own process's launch) one more ends the launch."""
+    the row spans several cards; none on one card. With ``processes`` (each
+    card its own fields and T: a row over processes, or one process giving
+    each card its fields) one more ends the launch."""
     if cards < 2 or n_y < 2:
         return 0
     return 2 * -(-cfg.outer_iterations_count // k_outer) + int(processes)
@@ -103,7 +115,8 @@ def grid_syncs(cfg: FlowConfig, n_y: int, k_outer: int = 1, cards: int = 1,
     k-sweep passes, one after each halo push (every ``k_outer`` outers, with
     more than one shard), and one before the copy-out; over several cards a
     row barrier in a sync's place is two syncs around its flag step, so
-    each adds one, and over processes the last row barrier adds two."""
+    each adds one, and with ``processes`` (``row_barriers``) the last row
+    barrier adds two."""
     outer, passes = cfg.outer_iterations_count, -(-cfg.inner_iterations_count // KMAX)
     pushes = -(-outer // k_outer) if n_y > 1 else 0
     last = int(processes and cards > 1 and n_y > 1)
@@ -181,9 +194,20 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
     Over a row of processes the fields and T lie on this process's card,
     ``syncs`` and ``barriers`` (one element a process of the row) get this
     card's counts, and ``reserve`` (h, w) sizes the row's arenas for the
-    finest level to come (the pair's), so that they grow once."""
+    finest level to come (the pair's), so that they grow once.
+
+    ``fxyz``, ``uv`` and ``J`` as tuples, one entry a card of a one-process
+    row over several cards (``mesh.row_groups(data)``'s order, each on its
+    card, each holding at least its card's shards' owned rows) return a
+    tuple of T, one whole T a card, each on its card's current stream
+    (module docstring). On CPU tensors the plain version relaxes the
+    owned rows that each card's launch would copy in."""
     if cfg.inner_iterations_count < 1:
         raise ValueError("relax_sharded_kernel needs at least one inner sweep per outer")
+    if isinstance(uv, (tuple, list)):
+        return _relax_card_fields(tuple(fxyz), tuple(uv), sc, cfg, mesh, k_outer,
+                                  None if J is None else tuple(J), syncs, barriers, data,
+                                  _skip_card)
     halo = check_sharded_args(fxyz, uv, cfg, mesh, k_outer, J)
     if not on_cuda(fxyz, uv, *(() if J is None else (J,))):
         if syncs is not None or barriers is not None:
@@ -215,16 +239,8 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
     if several:
         ready = torch.cuda.Event()
         ready.record(caller)   # the level's fields are in
-    bufs, shard_card = [None] * mesh.n_y, [0] * mesh.n_y
-    for c, ((dev, ys), stream) in enumerate(zip(groups, streams)):
-        # a card's buffers on the stream of its launch, which alone uses them
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            if several:
-                stream.wait_event(ready)
-            for y in ys:
-                bufs[y] = torch.empty((planes, shards[y].padded, w), dtype=torch.float32,
-                                      device=dev)
-                shard_card[y] = c
+    bufs, shard_card = _shard_buffers(groups, streams, shards, planes, w,
+                                      [ready] if several else [])
     T = torch.empty_like(uv)
     n, n_y = len(cards), mesh.n_y
     flags = row_flags(cards) if several else None
@@ -247,6 +263,102 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
 
 
 relax_sharded_kernel.launches = 0
+
+
+def _shard_buffers(groups, streams, shards, planes: int, w: int, after) -> tuple:
+    """Each shard's buffer on its card, and the card of each shard: a
+    card's buffers on the stream of its launch, which alone uses them and
+    first waits for the events ``after``."""
+    bufs, shard_card = [None] * len(shards), [0] * len(shards)
+    for c, ((dev, ys), stream) in enumerate(zip(groups, streams)):
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            for event in after:
+                stream.wait_event(event)
+            for y in ys:
+                bufs[y] = torch.empty((planes, shards[y].padded, w), dtype=torch.float32,
+                                      device=dev)
+                shard_card[y] = c
+    return bufs, shard_card
+
+
+def owned_rows(fields: Tuple[torch.Tensor, ...], groups, shards) -> torch.Tensor:
+    """One whole field from each card's copy of it: every shard's owned
+    rows from its card's (``groups``: (device, shard indices) a card)."""
+    whole = torch.empty_like(fields[0])
+    for field, (_, ys) in zip(fields, groups):
+        for y in ys:
+            rows = slice(shards[y].row0, shards[y].row0 + shards[y].rows)
+            whole[:, rows] = field[:, rows].to(whole.device)
+    return whole
+
+
+def _relax_card_fields(fxyz, uv, sc, cfg: FlowConfig, mesh: Mesh, k_outer: int, J, syncs,
+                       barriers, data: int, skip: Optional[int]) -> Tuple[torch.Tensor, ...]:
+    """``relax_sharded_kernel`` with one field set a card of a one-process
+    row: one launch a card, each card's copy-in from its own fields, every
+    card's T filled (module docstring)."""
+    groups = mesh.row_groups(data)
+    cards = tuple(dev for dev, _ in groups)
+    n = len(cards)
+    sets = [("uv", uv), ("fxyz", fxyz)] + ([] if J is None else [("J", J)])
+    for name, fields in sets:
+        if len(fields) != n or any(f.device != dev for f, dev in zip(fields, cards)):
+            raise ValueError(f"{name}: one tensor a card of the row, on "
+                             f"{[str(d) for d in cards]}, got "
+                             f"{[str(f.device) for f in fields]}")
+    halo = check_sharded_args(fxyz[0], uv[0], cfg, mesh, k_outer, None if J is None else J[0])
+    _, h, w = uv[0].shape
+    shards = row_split(h, mesh.n_y, halo)
+    cuda = []
+    for c, dev in enumerate(cards):   # each card's fields, with its card current
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            cuda.append(on_cuda(uv[c], fxyz[c], *(() if J is None else (J[c],))))
+    if any(cuda) != all(cuda):
+        raise ValueError("one field set a card: all on cards or all on the CPU")
+    if not cuda[0]:
+        if syncs is not None or barriers is not None:
+            raise ValueError("syncs and barriers count the kernel's grid syncs and row "
+                             "barriers; the plain version has none")
+        T = relax_sharded(owned_rows(fxyz, groups, shards), owned_rows(uv, groups, shards), sc,
+                          cfg, mesh, k_outer,
+                          None if J is None else owned_rows(J, groups, shards), data)
+        return tuple(T.to(dev, copy=True) for dev in cards)
+    if n < 2:
+        raise ValueError("one field set a card needs a row over at least two cards")
+    if mesh.row_spans_processes(data):
+        raise ValueError("a row over processes gives each process its own fields alone")
+    _check_counter("syncs", syncs, n, cards[0])
+    _check_counter("barriers", barriers, n, cards[0])
+    if w < 2:
+        raise ValueError(f"the mirror boundary needs a level at least 2 wide, got {w}")
+    enable_peer_access(cards)
+    planes = N_PLANES if J is None else N_PLANES_TENSOR
+    callers = [torch.cuda.current_stream(dev) for dev in cards]
+    Ts = []
+    for dev, field in zip(cards, uv):
+        with torch.cuda.device(dev):   # on the card's current stream
+            Ts.append(torch.empty_like(field))
+    ready = []
+    for caller in callers:   # each card's fields and T are in
+        ready.append(torch.cuda.Event())
+        ready[-1].record(caller)
+    streams = [card_stream(dev) for dev in cards]
+    bufs, shard_card = _shard_buffers(groups, streams, shards, planes, w, ready)
+    flags = row_flags(cards)
+    launch = (1 << n) - 1 if skip is None else ((1 << n) - 1) & ~(1 << skip)
+    with _LAUNCH_LOCK:
+        epoch = flags.advance(row_barriers(cfg, mesh.n_y, n, k_outer, processes=True))
+        _launch(n, [dev.index for dev in cards], [st.cuda_stream for st in streams],
+                [b.data_ptr() for b in bufs], shard_card, shards, h,
+                [f.data_ptr() for f in flags.flags], epoch, [t.data_ptr() for t in uv],
+                [t.data_ptr() for t in fxyz], None if J is None else [t.data_ptr() for t in J],
+                [T.data_ptr() for T in Ts], launch, syncs, barriers, w, halo, cfg, k_outer, sc)
+    for stream, caller in zip(streams, callers):
+        done = torch.cuda.Event()
+        done.record(stream)
+        caller.wait_event(done)   # this card's T is whole, its fields read
+    relax_sharded_kernel.launches += n - (skip is not None)
+    return tuple(Ts)
 
 
 def _pointers(values) -> ctypes.Array:

@@ -12,7 +12,8 @@ The sharded kernel over several cards (parallel/halo_kernel.py) needs two
 more things, kept per process: peer access between every two cards of a
 row (``enable_peer_access``), and one stream a card (``card_stream``) on
 which every such launch goes, so that the launches reach each card in the
-order the host issued them.
+order the host issued them. ``peer_copy`` moves a tensor between two
+streams' cards and counts it.
 
 Inside an initialised group of several processes (one process a card),
 ``make_mesh`` lays the positions over every process's device in rank
@@ -253,6 +254,27 @@ def enable_peer_access(devices: Sequence[torch.device]) -> None:
                                  "the sharded kernel cannot run a row over both")
             call("tf_enable_peer_access", a.index, b.index)
             _PEERS.add((a, b))
+
+
+def peer_copy(dst: torch.Tensor, src: torch.Tensor, dst_stream=None, src_stream=None) -> None:
+    """dst <- src, with each stream (None: the device's current one) the
+    current one of its card. torch runs a copy between two cards on the
+    source's current stream, fenced both ways with the destination's: it
+    starts after the work queued so far on both streams, and work queued
+    on either after it starts after it, so neither side frees or reuses the
+    memory too early. Counted in ``peer_copy.messages`` and
+    ``peer_copy.bytes``, on either device."""
+    with contextlib.ExitStack() as stack:
+        for stream in (src_stream, dst_stream):
+            if stream is not None:
+                stack.enter_context(torch.cuda.stream(stream))
+        dst.copy_(src)
+    peer_copy.messages += 1
+    peer_copy.bytes += src.numel() * src.element_size()
+
+
+peer_copy.messages = 0
+peer_copy.bytes = 0
 
 
 def default_shape(n: int) -> Tuple[int, int]:

@@ -1,4 +1,4 @@
-"""The rows each process computes of a sharded level's whole-field stages.
+"""The rows each card computes of a sharded level's whole-field stages.
 
 On a data row of a mesh over processes (one position a process, each with
 its own card) the relaxation of a sharded level runs on the row's routes,
@@ -13,6 +13,15 @@ buffers of the whole level's size, and needs no message between levels;
 the finest level's owned rows of the flow go to every process of the row
 once, at the end (``gather_rows``: one ``row_exchange`` batch, two planes
 each way with every other rank).
+
+One process driving a row over several cards does the same with a *lane*
+a card (``Lane``: the card's plan, device and stream), each card's plan
+the hull of its shards' rows (``lane_plans``). Only the kernel route gives
+each card its own T there (its copy-out into every card's T, each card's
+copy-in from its own fields), so the suffix is that of kernel levels
+(``LANE_ROUTES``); the level driver steps the lanes level by level
+(solver/level.py::solve), and the finest flow's owned rows reach the first
+card as peer copies (``gather_lanes``).
 
 ``band_plan`` finds those rows backward from the finest level, whose median
 rows are the process's owned rows:
@@ -34,15 +43,18 @@ rows are the process's owned rows:
 
 Each reach is taken with the kernels' own ``refl`` and ``clamp`` at the
 level's height, so rows at the image edges are right; a stage whose rows
-fall into two ranges takes their hull. The plan is host arithmetic, the
-same on every process for its own shard.
+fall into two ranges takes their hull, and so does a card that holds
+several shards. The plan is host arithmetic, the same on every process for
+its own shard. ``prior`` is the median rows of the level before the
+suffix: the rows of its flow that the suffix's first level reads, which a
+lane receives from the first card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,11 +65,15 @@ from tpuflow_torch.ops.median import effective_radius
 from tpuflow_torch.ops.resample import resample_band
 from tpuflow_torch.ops.solver_ops import clamp, refl
 from tpuflow_torch.parallel.group import row_exchange
-from tpuflow_torch.parallel.halo import halo_rows, row_split
+from tpuflow_torch.parallel.halo import halo_rows, relax_sharded, row_split
+from tpuflow_torch.parallel.mesh import Mesh, peer_copy
 from tpuflow_torch.pyramid import level_schedule
 
 Rows = Tuple[int, int]
+# The routes whose levels are banded over processes, and in one process
+# (where only the kernel gives each card its own T).
 SHARDED_ROUTES = ("kernel", "explicit")
+LANE_ROUTES = ("kernel",)
 # each row stage (``ops.level.row_counts``' names) and its field of ``LevelRows``
 STAGE_ROWS = {"resample": "uv", "warp": "warp", "level_derivs": "fxyz", "level_tensor": "J",
               "add_median": "median"}
@@ -78,35 +94,64 @@ class LevelRows:
 
 @dataclasses.dataclass(frozen=True)
 class BandPlan:
-    """One process's rows of every banded level of a pair: the levels from
-    schedule position ``start`` to the finest, ``levels[i]`` at position
-    ``start + i``. ``owned`` holds every shard's owned rows of the finest
-    level; ``shard`` is this process's. ``ranks`` are the row's ranks,
-    between which ``gather_rows`` moves the finest flow (None: no gather,
-    one process's share alone)."""
+    """One process's or card's rows of every banded level of a pair: the
+    levels from schedule position ``start`` to the finest, ``levels[i]`` at
+    position ``start + i``. ``owned`` holds every shard's owned rows of the
+    finest level; ``shard`` is this process's, or the card's shard or
+    shards (a tuple: the plan is the hull of theirs). ``prior`` is the rows
+    of the flow of the level before ``start`` that the plan reads (None
+    where ``start`` is 0). ``ranks`` are the row's ranks, between which
+    ``gather_rows`` moves the finest flow (None: no gather between
+    processes)."""
 
     start: int
     levels: Tuple[LevelRows, ...]
     owned: Tuple[Rows, ...]
-    shard: int
+    shard: Union[int, Tuple[int, ...]]
     ranks: Optional[Tuple[int, ...]] = None
+    prior: Optional[Rows] = None
+
+    @property
+    def shards(self) -> Tuple[int, ...]:
+        return (self.shard,) if isinstance(self.shard, int) else self.shard
 
     def at(self, position: int) -> Optional[LevelRows]:
         """The rows of the level at schedule ``position``; None before the
         suffix."""
         return self.levels[position - self.start] if position >= self.start else None
 
+    def entry(self, position: int) -> Rows:
+        """The rows of the flow of the level before banded ``position`` that
+        the level at ``position`` reads."""
+        return self.prior if position == self.start else self.at(position - 1).median
 
-def stage_rows(w: int, h: int, cfg: FlowConfig, plan: Optional[BandPlan]) -> dict:
+
+@dataclasses.dataclass(frozen=True)
+class Lane:
+    """One card of a one-process row over several cards: its plan, its
+    device, and the stream its stages go on (None: the caller's current
+    one, the first card's)."""
+
+    plan: BandPlan
+    device: torch.device
+    stream: Optional[torch.cuda.Stream] = None
+
+
+def stage_rows(w: int, h: int, cfg: FlowConfig, plan: Optional[BandPlan],
+               prefix: bool = True) -> dict:
     """The output rows that a w x h pair's solve computes of each row stage
     (``ops.level.row_counts``' names), summed over its levels: the plan's
     at its banded levels, every row at the others (all of them without a
-    plan). ``solve`` resamples no flow at the coarsest level nor where the
-    size stays, and takes no tensor for grey."""
+    plan); without ``prefix`` none before the plan's suffix (a lane after
+    the first card's, ``ops.level.row_counts(lane)``). ``solve`` resamples
+    no flow at the coarsest level nor where the size stays, and takes no
+    tensor for grey."""
     specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
     out = dict.fromkeys(STAGE_ROWS, 0)
     for p, spec in enumerate(specs):
         lv = plan.at(p) if plan is not None else None
+        if lv is None and not prefix:
+            continue
         for stage, field in STAGE_ROWS.items():
             if stage == "resample" and (not p or (specs[p - 1].width, specs[p - 1].height)
                                         == (spec.width, spec.height)):
@@ -147,35 +192,41 @@ def level_rows(h: int, median: Rows, copy_in: Rows, cfg: FlowConfig) -> LevelRow
 
 
 def band_plan(w: int, h: int, cfg: FlowConfig, routes: Sequence[Tuple[str, int]], n_y: int,
-              shard: int, ranks: Optional[Sequence[int]] = None) -> Optional[BandPlan]:
-    """Shard ``shard``'s plan (``BandPlan``) of a w x h pair over a row of
-    ``n_y`` shards whose levels, coarse to fine, take ``routes`` ((route,
-    k) a level, ``solver.sharded.sharded_plan``'s); None where the finest
-    level is not sharded. The banded levels are the suffix after the last
-    level of any other route. Found once for each set of arguments."""
-    return _band_plan(w, h, cfg, tuple((r, k) for r, k in routes), n_y, shard,
-                      None if ranks is None else tuple(ranks))
+              shard: Union[int, Sequence[int]], ranks: Optional[Sequence[int]] = None,
+              banded: Sequence[str] = SHARDED_ROUTES) -> Optional[BandPlan]:
+    """Shard ``shard``'s plan (``BandPlan``; shards in a sequence: the hull
+    of their rows, a card's) of a w x h pair over a row of ``n_y`` shards
+    whose levels, coarse to fine, take ``routes`` ((route, k) a level,
+    ``solver.sharded.sharded_plan``'s); None where the finest level's route
+    is not in ``banded``. The banded levels are the suffix after the last
+    level of any route not in ``banded``. Found once for each set of
+    arguments."""
+    return _band_plan(w, h, cfg, tuple((r, k) for r, k in routes), n_y,
+                      shard if isinstance(shard, int) else tuple(shard),
+                      None if ranks is None else tuple(ranks), tuple(banded))
 
 
 @functools.lru_cache(maxsize=64)
 def _band_plan(w: int, h: int, cfg: FlowConfig, routes: Tuple[Tuple[str, int], ...], n_y: int,
-               shard: int, ranks: Optional[Tuple[int, ...]]) -> Optional[BandPlan]:
+               shard: Union[int, Tuple[int, ...]], ranks: Optional[Tuple[int, ...]],
+               banded: Tuple[str, ...]) -> Optional[BandPlan]:
     specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
     if len(routes) != len(specs):
         raise ValueError(f"{len(routes)} routes for the {len(specs)} levels of a {w}x{h} pair")
     start = len(specs)
-    while start and routes[start - 1][0] in SHARDED_ROUTES:
+    while start and routes[start - 1][0] in banded:
         start -= 1
     if start == len(specs):
         return None
+    shards = (shard,) if isinstance(shard, int) else shard
     owned = tuple((sh.row0, sh.row0 + sh.rows) for sh in row_split(h, n_y, 0))
-    median = owned[shard]
+    median = hull(*(owned[s] for s in shards))
     levels: List[LevelRows] = []
     for p in range(len(specs) - 1, start - 1, -1):
         spec, (route, k) = specs[p], routes[p]
-        sh = row_split(spec.height, n_y, halo_rows(cfg, k))[shard]
-        copy_in = ((sh.first, sh.first + sh.padded) if route == "explicit"
-                   else (sh.row0, sh.row0 + sh.rows))
+        split = row_split(spec.height, n_y, halo_rows(cfg, k))
+        copy_in = hull(*((sh.first, sh.first + sh.padded) if route == "explicit"
+                         else (sh.row0, sh.row0 + sh.rows) for sh in (split[s] for s in shards)))
         lv = level_rows(spec.height, median, copy_in, cfg)
         levels.append(lv)
         if p:
@@ -184,13 +235,25 @@ def _band_plan(w: int, h: int, cfg: FlowConfig, routes: Tuple[Tuple[str, int], .
             if (prev.width, prev.height) != (spec.width, spec.height):
                 median = band_span(resample_band(prev.height, spec.height), *lv.uv)
     return BandPlan(start=start, levels=tuple(reversed(levels)), owned=owned, shard=shard,
-                    ranks=ranks)
+                    ranks=ranks, prior=median if start else None)
+
+
+def lane_plans(w: int, h: int, cfg: FlowConfig, routes: Sequence[Tuple[str, int]], n_y: int,
+               groups: Sequence[Sequence[int]]) -> Optional[Tuple[BandPlan, ...]]:
+    """The plan of each card of a one-process row (``groups``: each card's
+    shards, in ``Mesh.row_groups`` order) over the suffix of kernel levels
+    (``LANE_ROUTES``); None where the finest level is not on the kernel
+    route."""
+    plans = tuple(band_plan(w, h, cfg, routes, n_y, ys[0] if len(ys) == 1 else tuple(ys),
+                            banded=LANE_ROUTES) for ys in groups)
+    return None if plans[0] is None else plans
 
 
 def gather_rows(uv: torch.Tensor, plan: BandPlan) -> torch.Tensor:
-    """The finest flow (2, h, w) with every process's owned rows, in place:
-    this process's to every other process of the row, theirs into ``uv``,
-    one ``row_exchange`` batch (a plane a message)."""
+    """The finest flow (2, h, w) with every process's owned rows, in place,
+    on a row over processes: this process's to every other process of the
+    row, theirs into ``uv``, one ``row_exchange`` batch (a plane a
+    message). One process over several cards gathers by ``gather_lanes``."""
     lo, hi = plan.owned[plan.shard]
     me = plan.ranks[plan.shard]
     sends, recvs = [], []
@@ -202,6 +265,65 @@ def gather_rows(uv: torch.Tensor, plan: BandPlan) -> torch.Tensor:
             recvs.append((r, uv[c, o_lo:o_hi]))
     row_exchange(sends, recvs)
     return uv
+
+
+def gather_lanes(uv: torch.Tensor, lanes: Sequence[Lane],
+                 flows: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The finest flow (2, h, w) on the first lane's card with every
+    card's owned rows, in place, on one process's row over several cards:
+    each other lane's ``flows`` entry gives its shards' owned rows, a plane
+    a ``peer_copy`` (on the sender's stream, fenced both ways with the
+    first card's). A row over processes gathers by ``gather_rows``."""
+    for lane, flow in zip(lanes[1:], flows[1:]):
+        for s in lane.plan.shards:
+            lo, hi = lane.plan.owned[s]
+            for c in range(2):
+                peer_copy(uv[c, lo:hi], flow[c, lo:hi], lanes[0].stream, lane.stream)
+    return uv
+
+
+def poisoned(steps, fill: float):
+    """``steps`` (``solver.level.Steps``) whose banded stages write their
+    rows into a new whole-size buffer of ``fill``, as does the buffer of
+    the flow a lane receives: a stage that reads a row the plan left out
+    changes the flow."""
+
+    def filled(fn, shape_of):
+        def call(*args, rows=None, **kw):
+            if rows is not None:
+                kw["out"] = torch.full(shape_of(*args), fill, dtype=torch.float32,
+                                       device=args[0].device)
+            return fn(*args, rows=rows, **kw)
+        return call
+
+    return steps._replace(
+        resample=filled(steps.resample, lambda uv, w, h: (uv.shape[0], h, w)),
+        warp=filled(steps.warp, lambda f0, *_: f0.shape),
+        level_derivs=filled(steps.level_derivs, lambda f0, *_: (3, *f0.shape)),
+        level_tensor=filled(steps.level_tensor, lambda f0, *_: (5, *f0.shape)),
+        add_median=filled(steps.add_median, lambda T, *_: T.shape),
+        buffer=lambda shape, device: torch.full(shape, fill, dtype=torch.float32,
+                                                device=device))
+
+
+def lane_copies(w: int, h: int, cfg: FlowConfig, plans: Sequence[BandPlan]) -> dict:
+    """The peer copies (``mesh.peer_copy``) of a w x h pair's lane solve
+    from the coarsest level with ``plans`` (one a lane): to each other lane
+    the pair, then the entry rows of the flow before the suffix (a plane a
+    copy; none where the suffix starts at level 0), and from it at the end
+    its shards' owned rows of the finest flow (a plane a copy)."""
+    specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    messages = nbytes = 0
+    for plan in plans[1:]:
+        messages, nbytes = messages + 1, nbytes + 2 * h * w * 4
+        if plan.start:
+            lo, hi = plan.prior
+            messages += 2
+            nbytes += 2 * (hi - lo) * specs[plan.start - 1].width * 4
+        for s in plan.shards:
+            lo, hi = plan.owned[s]
+            messages, nbytes = messages + 2, nbytes + 2 * (hi - lo) * w * 4
+    return {"messages": messages, "bytes": nbytes}
 
 
 def emulate_shard(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig, plan: BandPlan,
@@ -245,23 +367,57 @@ def emulate_shard(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig, plan: Ban
             return T.clone()
         return fn
 
-    def filled(fn, shape_of):
-        """``fn`` writing a banded stage's rows into a new buffer of ``fill``."""
-        def call(*args, rows=None, **kw):
-            if rows is not None:
-                kw["out"] = torch.full(shape_of(*args), fill, dtype=torch.float32,
-                                       device=args[0].device)
-            return fn(*args, rows=rows, **kw)
-        return call
-
     if fill is not None:
-        steps = steps._replace(
-            resample=filled(steps.resample, lambda uv, w, h: (uv.shape[0], h, w)),
-            warp=filled(steps.warp, lambda f0, *_: f0.shape),
-            level_derivs=filled(steps.level_derivs, lambda f0, *_: (3, *f0.shape)),
-            level_tensor=filled(steps.level_tensor, lambda f0, *_: (5, *f0.shape)),
-            add_median=filled(steps.add_median, lambda T, *_: T.shape))
+        steps = poisoned(steps, fill)
     banded = solve(f0, f1, cfg, steps, relax_for=relax_for, bands=plan)
     if next(levels, None) is not None:
         raise AssertionError("the banded solve did not relax every level")
     return banded, whole
+
+
+def emulate_lanes(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
+                  routes: Sequence[Tuple[str, int]], n_y: int,
+                  groups: Optional[Sequence[Sequence[int]]] = None, fill: Optional[float] = None,
+                  _steps=None) -> Tuple[torch.Tensor, Tuple[BandPlan, ...]]:
+    """A one-process row over several cards, every lane on f0's device:
+    the level driver's lanes (``solve(..., bands=lanes)``), one a group of
+    shards (``groups``, by default one shard a lane) over a row of ``n_y``
+    shards whose levels take ``routes``, with their plans
+    (``lane_plans``). Each suffix level's relaxation is the plain
+    ``relax_sharded`` over the owned rows each lane's card would copy in
+    (``halo_kernel.owned_rows``), and every lane gets its own copy of T;
+    the levels before the suffix relax by ``relax``. Where ``fill`` is set
+    every banded stage writes its rows into a whole-size buffer of
+    ``fill`` (``poisoned``). Returns (the first lane's finest flow after
+    the gather, the plans); each lane's rows count under its index
+    (``ops.level.row_counts(lane)``)."""
+    from tpuflow_torch.parallel.halo_kernel import owned_rows
+    from tpuflow_torch.solver.level import KERNEL_STEPS, relax, solve
+
+    steps = KERNEL_STEPS if _steps is None else _steps
+    h, w = f0.shape
+    groups = (tuple((y,) for y in range(n_y)) if groups is None
+              else tuple(tuple(ys) for ys in groups))
+    plans = lane_plans(w, h, cfg, routes, n_y, groups)
+    if plans is None:
+        raise ValueError("the finest level is not on the kernel route: no lanes")
+    specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    ks = {(s.height, s.width): k for s, (_, k) in zip(specs, routes)}
+    cards = [(f0.device, ys) for ys in groups]
+    mesh = Mesh(n_y, f0.device)
+
+    def relax_for(lh, lw):
+        def fn(fxyz, uv, sc, cfg, J=None):
+            if not isinstance(uv, tuple):
+                return relax(fxyz, uv, sc, cfg, _steps=steps, J=J)
+            k = ks[(lh, lw)]
+            split = row_split(lh, n_y, halo_rows(cfg, k))
+            T = relax_sharded(owned_rows(fxyz, cards, split), owned_rows(uv, cards, split), sc,
+                              cfg, mesh, k, None if J is None else owned_rows(J, cards, split))
+            return tuple(T.clone() for _ in uv)
+        return fn
+
+    if fill is not None:
+        steps = poisoned(steps, fill)
+    lanes = [Lane(plan, f0.device) for plan in plans]
+    return solve(f0, f1, cfg, steps, relax_for=relax_for, bands=lanes), plans

@@ -18,14 +18,26 @@ prologue's hoists read: grey takes the products of the grey derivatives,
 gradient and log the second-order tensor of ``level_tensor``. Level 0 uses
 the smoothed frames directly (oracle.py:591-595); the flow stays in
 original-pixel units.
+
+A banded solve (``solve(..., bands=)``, solver/bands.py) computes each
+whole-field stage of its suffix of sharded levels over one card's rows.
+Over processes that is this process's card. In one process over several
+cards it is every card of the row, each a lane (``bands.Lane``) with its
+own frames, pyramid, flow and stream; the levels before the suffix run on
+the first card, and from the suffix's first level on the lanes are stepped
+together, level by level: every lane's resample, warp, derivatives and
+tensor over its rows, one relaxation call for the row (the kernel, which
+reads each card's fields and fills each card's T), every lane's add +
+median. A lane's stages are the calls a process makes over its rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -38,9 +50,11 @@ from tpuflow_torch.ops.level import (
     outer_prologue, outer_prologue_plain,
 )
 from tpuflow_torch.ops.resample import resample, resample_levels
+from tpuflow_torch.ops.solver_ops import row_lane
 from tpuflow_torch.ops.warp import warp, warp_plain
+from tpuflow_torch.parallel.mesh import peer_copy
 from tpuflow_torch.pyramid import level_schedule
-from tpuflow_torch.solver.bands import BandPlan, LevelRows, gather_rows
+from tpuflow_torch.solver.bands import BandPlan, Lane, LevelRows, gather_lanes, gather_rows
 
 F = np.float32
 
@@ -94,6 +108,10 @@ class Steps(NamedTuple):
     jacobi_sweeps: Callable   # (T, uv, hoist, inner) -> T after the inner sweeps
     add_median: Callable
     resample: Callable = resample   # the flow's, to the next level's size
+    # (shape, device) -> a float32 buffer of which a lane fills only some
+    # rows: the flow it receives from the first card
+    buffer: Callable = lambda shape, device: torch.empty(shape, dtype=torch.float32,
+                                                          device=device)
 
 
 # The kernel wrappers (their plain versions on CPU tensors): the main path.
@@ -134,6 +152,20 @@ def _stage(rows: Optional[LevelRows], name: str) -> dict:
     return {} if rows is None else {"rows": getattr(rows, name)}
 
 
+def relax_fields(f0_l: torch.Tensor, f1_w: torch.Tensor, sc: LevelScalars, cfg: FlowConfig,
+                 _steps: Steps = KERNEL_STEPS, rows: Optional[LevelRows] = None):
+    """The fields of a warped level that its relaxation reads, (fxyz, J):
+    the derivatives and the gradient/log tensor (None for grey), each over
+    its ``rows`` where given."""
+    fxyz = _steps.level_derivs(f0_l, f1_w, sc.div4hx, sc.div4hy, **_stage(rows, "fxyz"))
+    J = None
+    if cfg.data_constancy != DataConstancy.GREY:
+        J = _steps.level_tensor(f0_l, f1_w, fxyz, sc,
+                                cfg.data_constancy == DataConstancy.LOG_DERIVATIVES,
+                                **_stage(rows, "J"))
+    return fxyz, J
+
+
 def level_tail(f0_l: torch.Tensor, f1_w: torch.Tensor, uv: torch.Tensor,
                sc: LevelScalars, cfg: FlowConfig, _steps: Steps = KERNEL_STEPS,
                relax_fn: Optional[RelaxFn] = None,
@@ -143,12 +175,7 @@ def level_tail(f0_l: torch.Tensor, f1_w: torch.Tensor, uv: torch.Tensor,
     ``relax_fn`` is the relaxation, by default ``relax`` with ``_steps``.
     ``rows`` (a ``solver.bands.LevelRows``) computes each stage over its
     rows alone."""
-    fxyz = _steps.level_derivs(f0_l, f1_w, sc.div4hx, sc.div4hy, **_stage(rows, "fxyz"))
-    J = None
-    if cfg.data_constancy != DataConstancy.GREY:
-        J = _steps.level_tensor(f0_l, f1_w, fxyz, sc,
-                                cfg.data_constancy == DataConstancy.LOG_DERIVATIVES,
-                                **_stage(rows, "J"))
+    fxyz, J = relax_fields(f0_l, f1_w, sc, cfg, _steps, rows)
     T = (relax_fn or functools.partial(relax, _steps=_steps))(fxyz, uv, sc, cfg, J=J)
     return _steps.add_median(T, uv, cfg.median_radius, **_stage(rows, "median"))
 
@@ -215,12 +242,122 @@ def smooth_pair(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig) -> torch.Te
     return gaussian_smooth(torch.stack([f0, f1]), cfg.gaussian_sigma)
 
 
+@dataclasses.dataclass
+class _LaneRun:
+    """A lane during one solve: its card's smoothed pair, frame pyramid and
+    flow, and its index (the lane its stages' rows count under)."""
+
+    lane: Lane
+    index: int
+    frames: torch.Tensor
+    pyramid: dict
+    uv: Optional[torch.Tensor] = None
+
+    def on(self) -> contextlib.ExitStack:
+        """The lane's device and stream as the current ones, its rows
+        counted under its index."""
+        stack = contextlib.ExitStack()
+        if self.lane.device.type == "cuda":
+            stack.enter_context(torch.cuda.device(self.lane.device))
+            if self.lane.stream is not None:
+                stack.enter_context(torch.cuda.stream(self.lane.stream))
+        stack.enter_context(row_lane(self.index))
+        return stack
+
+    def frames_at(self, spec) -> torch.Tensor:
+        """The frames of level ``spec``."""
+        if spec.level == 0:
+            return self.frames
+        return self.pyramid.get((spec.width, spec.height), self.frames)
+
+
+def _pyramid_sizes(specs, size) -> tuple:
+    """Each distinct size of ``specs`` but level 0's and the pair's own."""
+    return tuple(dict.fromkeys((s.width, s.height) for s in specs
+                               if s.level != 0 and (s.width, s.height) != size))
+
+
+def _as_lanes(bands: Union[BandPlan, Sequence[Lane]], device: torch.device) -> List[Lane]:
+    """``solve``'s ``bands`` as lanes, the first on ``device`` with the
+    caller's current stream."""
+    lanes = [Lane(bands, device)] if isinstance(bands, BandPlan) else list(bands)
+    if lanes[0].device != device:
+        raise ValueError(f"the first lane is on {lanes[0].device}, the frames on {device}")
+    if device.type == "cuda":
+        lanes[0] = dataclasses.replace(lanes[0], stream=torch.cuda.current_stream(device))
+    return lanes
+
+
+def _lane_runs(lanes: List[Lane], run0: _LaneRun, pair: torch.Tensor, smoothed: bool,
+               cfg: FlowConfig, specs, size) -> List[_LaneRun]:
+    """Every lane after the first, with the pair peer-copied from the first
+    card, its own presmooth and its own frame pyramid of ``specs``."""
+    sizes = _pyramid_sizes(specs, size)
+    runs = [run0]
+    for i, lane in enumerate(lanes[1:], 1):
+        run = _LaneRun(lane, i, None, {})
+        with run.on():
+            raw = torch.empty(pair.shape, dtype=torch.float32, device=lane.device)
+        peer_copy(raw, pair, lane.stream, lanes[0].stream)
+        with run.on():
+            run.frames = raw if smoothed else gaussian_smooth(raw, cfg.gaussian_sigma)
+            run.pyramid = dict(zip(sizes, resample_levels(run.frames, sizes)))
+        runs.append(run)
+    return runs
+
+
+def _hand_over(runs: List[_LaneRun], position: int, _steps: Steps) -> None:
+    """Each other lane receives the rows of the first card's flow (the
+    level before ``position``'s) that its plan reads there, a plane a
+    ``peer_copy``, into a whole-size buffer."""
+    uv = runs[0].uv
+    for run in runs[1:]:
+        lo, hi = run.lane.plan.entry(position)
+        with run.on():
+            run.uv = _steps.buffer(tuple(uv.shape), run.lane.device)
+        for c in range(2):
+            peer_copy(run.uv[c, lo:hi], uv[c, lo:hi], run.lane.stream, runs[0].lane.stream)
+
+
+def _lanes_level(runs: List[_LaneRun], position: int, spec, sc: LevelScalars,
+                 cfg: FlowConfig, _steps: Steps, relax_fn: Optional[RelaxFn]) -> None:
+    """One banded level on every lane: each lane's stages up to the
+    relaxation over its rows, one relaxation call for the row with every
+    lane's fields (one tuple each, every lane's stream current), then each
+    lane's add + median over its rows."""
+    if relax_fn is None:
+        raise ValueError("lanes relax by the row's kernel: give relax_for")
+    cw, ch = spec.width, spec.height
+    fields = []
+    for run in runs:
+        rows = run.lane.plan.at(position)
+        with run.on():
+            frames_l = run.frames_at(spec)
+            if run.uv is None:
+                run.uv = torch.zeros((2, ch, cw), dtype=torch.float32, device=run.lane.device)
+            else:
+                run.uv = _steps.resample(run.uv, cw, ch, **_stage(rows, "uv"))
+            f1_w = _steps.warp(frames_l[0], frames_l[1], run.uv, sc.inv_hx, sc.inv_hy,
+                               **_stage(rows, "warp"))
+            fields.append(relax_fields(frames_l[0], f1_w, sc, cfg, _steps, rows))
+    fxyz, J = zip(*fields)
+    with contextlib.ExitStack() as every:
+        for run in runs:
+            every.enter_context(run.on())
+        T = relax_fn(fxyz, tuple(run.uv for run in runs), sc, cfg,
+                     J=None if J[0] is None else J)
+    for run, T_lane in zip(runs, T):
+        with run.on():
+            run.uv = _steps.add_median(T_lane, run.uv, cfg.median_radius,
+                                       **_stage(run.lane.plan.at(position), "median"))
+
+
 def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
           _steps: Steps = KERNEL_STEPS, trace: Optional[list] = None,
           relax_for: Optional[Callable[[int, int], RelaxFn]] = None,
           tiers: Optional[list] = None, levels: Optional[range] = None,
           uv: Optional[torch.Tensor] = None, smoothed: bool = False,
-          bands: Optional[BandPlan] = None) -> torch.Tensor:
+          bands: Union[BandPlan, Sequence[Lane], None] = None) -> torch.Tensor:
     """The coarse-to-fine solve on f0's device; returns (u, v) as (2, h, w).
 
     ``levels`` runs only those positions of the coarse-to-fine schedule
@@ -246,19 +383,29 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
     ``relax_for(h, w)`` gives each (h, w) level's relaxation (by default
     ``relax``); the sharded pipeline routes levels with it. ``_steps`` is for comparing
     the kernels with their plain versions end to end, and for the band
-    path's emulation (``bands.emulate_shard``); callers leave it alone.
+    path's emulations (``bands.emulate_shard``, ``bands.emulate_lanes``);
+    callers leave it alone.
 
     ``bands`` (a ``solver.bands.BandPlan``, with the ``relax_for`` of the
     same routes) computes each level of its suffix over its rows alone, the
     flow's resample included, and the finest flow's owned rows then go to
     every process of the row (``bands.gather_rows``; with ``ranks`` None
-    the flow holds this shard's owned rows alone). It takes no ``tiers``,
-    and ``levels`` must end at the finest level.
+    the flow holds this shard's owned rows alone). A sequence of
+    ``bands.Lane`` (one a card of a one-process row, the first on f0's
+    device) steps every lane through the suffix together (module
+    docstring): each other card first gets the pair (a peer copy), smooths
+    it and takes its own frame pyramid, then at the suffix's first level
+    the rows of the first card's flow that its plan reads; ``relax_for``
+    gives each suffix level's relaxation, which takes one field tuple a
+    lane and returns one T a lane; the finest flow's owned rows then reach
+    the first card (``bands.gather_lanes``). A banded solve takes no
+    ``tiers``, and ``levels`` must end at the finest level.
     """
     h0, w0 = f0.shape
     if min(h0, w0) < 4:
         raise ValueError(f"frames must be at least 4x4, got {h0}x{w0}")
-    frames = torch.stack([f0, f1]) if smoothed else smooth_pair(f0, f1, cfg)
+    pair = torch.stack([f0, f1])
+    frames = pair if smoothed else gaussian_smooth(pair, cfg.gaussian_sigma)
     specs = level_schedule(w0, h0, cfg.warp_levels_count, cfg.warp_scale_factor)
     levels = range(len(specs)) if levels is None else levels
     if (uv is None) != (levels.start == 0):
@@ -266,32 +413,47 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
                          "level needs the flow of the level before it")
     if bands is not None and (tiers is not None or levels.stop != len(specs)):
         raise ValueError("a banded solve takes no warp tiers and ends at the finest level")
+    lanes = [] if bands is None else _as_lanes(bands, f0.device)
+    plan = lanes[0].plan if lanes else None
     specs = specs[levels.start:levels.stop]
     marks = [_clock(f0.device)] if trace is not None else None
     # Frames always come from the full-resolution smoothed pair (reference:
     # optical_flow_2d.cpp:283-304): every level's at once, each distinct size
     # once; level 0, and a level of the full size, use it as is.
-    sizes = tuple(dict.fromkeys((s.width, s.height) for s in specs
-                                if s.level != 0 and (s.width, s.height) != (w0, h0)))
+    sizes = _pyramid_sizes(specs, (w0, h0))
     pyramid = dict(zip(sizes, resample_levels(frames, sizes)))
+    runs = None
+    if len(lanes) > 1:
+        # every card but the first runs the suffix alone
+        first = max(levels.start, plan.start)
+        runs = _lane_runs(lanes, _LaneRun(lanes[0], 0, frames, pyramid), pair, smoothed, cfg,
+                          specs[first - levels.start:], (w0, h0))
     for position, spec in enumerate(specs, levels.start):
         cw, ch = spec.width, spec.height
         sc = LevelScalars.make(cw, ch, spec.hx, spec.hy, cfg.equation_alpha)
-        frames_l = pyramid.get((cw, ch), frames) if spec.level != 0 else frames
-        rows = bands.at(position) if bands is not None else None
-        if uv is None:
-            uv = torch.zeros((2, ch, cw), dtype=torch.float32, device=f0.device)
-        else:
-            uv = _steps.resample(uv, cw, ch, **_stage(rows, "uv"))
-        if tiers is not None:
-            tiers.append(warp_tier(uv, sc.inv_hx, sc.inv_hy))
         relax_fn = relax_for(ch, cw) if relax_for is not None else None
-        uv = level_step(frames_l, uv, sc, cfg, _steps, relax_fn, rows)
+        if runs is not None and position >= plan.start:
+            if position == first and uv is not None:
+                runs[0].uv = uv
+                _hand_over(runs, position, _steps)
+            _lanes_level(runs, position, spec, sc, cfg, _steps, relax_fn)
+            uv = runs[0].uv
+        else:
+            frames_l = pyramid.get((cw, ch), frames) if spec.level != 0 else frames
+            rows = plan.at(position) if plan is not None else None
+            if uv is None:
+                uv = torch.zeros((2, ch, cw), dtype=torch.float32, device=f0.device)
+            else:
+                uv = _steps.resample(uv, cw, ch, **_stage(rows, "uv"))
+            if tiers is not None:
+                tiers.append(warp_tier(uv, sc.inv_hx, sc.inv_hy))
+            uv = level_step(frames_l, uv, sc, cfg, _steps, relax_fn, rows)
         if marks is not None:
             marks.append(_clock(f0.device))
     # a solve of no level (the hybrid's fine part after a split past the finest) gathers none
-    if bands is not None and bands.ranks is not None and len(levels):
-        uv = gather_rows(uv, bands)
+    if plan is not None and len(levels) and (runs is not None or plan.ranks is not None):
+        uv = (gather_lanes(uv, lanes, [run.uv for run in runs]) if runs is not None
+              else gather_rows(uv, plan))
         if marks is not None:
             marks[-1] = _clock(f0.device)   # the finest level's time holds the gather
     if marks is not None:

@@ -1,10 +1,11 @@
 """The row-sharded pipeline: ``compute_flow_sharded`` (the port of
 ``compute_flow_bucketed_sharded``, tpuflow/solver/bucketed.py:1470-1633).
 
-Only the relaxation is sharded, over the ``y`` positions of one data row of
-the mesh; the resample, warp, derivatives, tensor and median run on the
-whole field with the level kernels, on the row's first device. Each level
-takes one of three relaxations:
+The relaxation is sharded over the ``y`` positions of one data row of the
+mesh; the resample, warp, derivatives, tensor and median run with the
+level kernels, on the whole field on the row's first device, or, over a
+suffix of sharded levels, by rows on each card (below). Each level takes
+one of three relaxations:
 
   * ``"kernel"``: ``relax_sharded_kernel`` (csrc/sharded.cu), one launch on
     each card of the row, where its gate admits the level (over several
@@ -46,6 +47,19 @@ processes share a card NCCL refuses the batch, so there every level runs
 its whole-field stages over the whole field, as a routing rule (as
 ``level_route`` replicates there), not a fallback. The frame pyramid is
 whole on every process.
+
+One process driving a row over several cards (``mesh.row_cards(data) >=
+2``, peer access between them) does the same by lanes, one a card
+(``sharded_lanes``, ``solver.bands.lane_plans``; solver/level.py steps
+them), over the suffix of kernel levels alone: the kernel is the route
+that reads each card's own fields and fills each card's T. Each card
+smooths the pair and takes its frame pyramid itself; the finest flow's
+owned rows reach the first card as peer copies. The whole field stays on
+the first card, by routing rules decided from the plan before any launch:
+at the levels before that suffix (the replicated ones, the explicit
+route's, and any kernel level before one of them), on a row on one card,
+and in the one-process hybrid's fine part (parallel/hybrid.py, which
+relaxes by ``sharded_relax_for`` alone).
 """
 
 from __future__ import annotations
@@ -62,10 +76,10 @@ from tpuflow_torch.ops.level import reset_launch_counts as reset_level_launch_co
 from tpuflow_torch.parallel.group import process_rank, row_exchange
 from tpuflow_torch.parallel.halo import halo_applicable, relax_sharded_explicit
 from tpuflow_torch.parallel.halo_kernel import kernel_halo_applicable, relax_sharded_kernel
-from tpuflow_torch.parallel.mesh import Mesh, resolve_device
+from tpuflow_torch.parallel.mesh import Mesh, enable_peer_access, peer_copy, resolve_device
 from tpuflow_torch.parallel.model import plan_level
 from tpuflow_torch.pyramid import level_schedule
-from tpuflow_torch.solver.bands import BandPlan, band_plan
+from tpuflow_torch.solver.bands import BandPlan, Lane, band_plan, lane_plans
 from tpuflow_torch.solver.flow2d import FlowResult, compute_flow
 from tpuflow_torch.solver.level import RelaxFn, relax
 
@@ -173,10 +187,41 @@ def sharded_bands(w: int, h: int, cfg: FlowConfig, mesh: Mesh, halo: str = "auto
                      ranks.index(process_rank()[0]), ranks)
 
 
+def sharded_lanes(w: int, h: int, cfg: FlowConfig, mesh: Mesh, halo: str = "auto",
+                  k_outer: int = 1, data: int = 0,
+                  plan: Optional[List[Tuple[int, int, str, int]]] = None
+                  ) -> Optional[Tuple[Lane, ...]]:
+    """The lanes of a w x h pair on data row ``data`` of a one-process mesh
+    whose row spans at least two cards: one a card (``Mesh.row_groups``
+    order), its plan the hull of its shards' (``bands.lane_plans``, the
+    suffix of kernel levels of ``sharded_plan``'s routes, ``plan`` where
+    the caller has it), the first lane's stream the caller's, each other's
+    that of the card's first position. Peer access between the cards is
+    enabled here, and raises where a pair lacks it. None where the path is
+    not taken: a row over processes (``sharded_bands``), a row on one card,
+    or a finest level off the kernel route."""
+    if mesh.row_spans_processes(data) or mesh.row_cards(data) < 2:
+        return None
+    if plan is None:
+        plan = sharded_plan(w, h, cfg, mesh, halo, k_outer, data)
+    groups = mesh.row_groups(data)
+    plans = lane_plans(w, h, cfg, [(route, k) for *_, route, k in plan], mesh.n_y,
+                       [ys for _, ys in groups])
+    if plans is None:
+        return None
+    cards = [dev for dev, _ in groups]
+    if all(dev.type == "cuda" for dev in cards):
+        enable_peer_access(cards)
+    row = mesh.row(data)
+    return tuple(Lane(p, dev, None if i == 0 else mesh.stream(row[ys[0]]))
+                 for i, (p, (dev, ys)) in enumerate(zip(plans, groups)))
+
+
 def sharded_solve(cfg: FlowConfig, mesh: Mesh, shape: Tuple[int, int], halo: str = "auto",
                   k_outer: int = 1, data: int = 0) -> dict:
     """``solve``'s keywords for an (h, w) pair (``shape``) over data row
-    ``data`` of ``mesh``: ``relax_for`` and ``bands`` (``sharded_bands``),
+    ``data`` of ``mesh``: ``relax_for`` and ``bands`` (``sharded_bands``
+    over processes, ``sharded_lanes`` in one process over several cards),
     both from one ``sharded_plan``, so the band rows follow the routes that
     the levels relax on."""
     _check_halo(halo, k_outer)
@@ -187,8 +232,10 @@ def sharded_solve(cfg: FlowConfig, mesh: Mesh, shape: Tuple[int, int], halo: str
     def relax_for(lh: int, lw: int):
         return _route_fn(*routes[(lh, lw)], mesh, data, (h, w))
 
-    return {"relax_for": relax_for,
-            "bands": sharded_bands(w, h, cfg, mesh, halo, k_outer, data, plan)}
+    bands = (sharded_bands(w, h, cfg, mesh, halo, k_outer, data, plan)
+             if mesh.row_spans_processes(data)
+             else sharded_lanes(w, h, cfg, mesh, halo, k_outer, data, plan))
+    return {"relax_for": relax_for, "bands": bands}
 
 
 def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, mesh: Mesh,
@@ -222,12 +269,14 @@ def compute_flow_sharded(frame_0, frame_1, cfg: Optional[FlowConfig] = None, *, 
 def reset_launch_counts() -> None:
     """Set the launch counts of the sharded path's kernels, the rows that
     the row stages computed (``ops.level.row_counts``), the explicit
-    route's copies and the rows' messages between processes to 0."""
+    route's copies, the rows' messages between processes and the lanes'
+    peer copies (``mesh.peer_copy``) to 0."""
     reset_level_launch_counts()
     reset_row_counts()
     relax_sharded_kernel.launches = 0
     relax_sharded_explicit.copies = 0
     row_exchange.sends = 0
+    peer_copy.messages = peer_copy.bytes = 0
 
 
 def launch_counts() -> dict:

@@ -1,16 +1,33 @@
 """Scaling report: Mpix/s at one position against N, data-parallel and
 row-sharded, one JSON line (the port of tools/report_scaling.py).
 
-    python -m tpuflow_torch.tools.report_scaling [N] [--size WxH]
-        N positions (default 4) dealt over every visible card, on a seeded
-        textured pair (``synthetic.textured_pair``) at WxH (default
-        584x388) with FlowConfig():
+    python -m tpuflow_torch.tools.report_scaling [N] [--size WxH] [--preset P]
+            [--routes NAME,...] [--profile] [--turns PARENT]
+        N positions (default 4) dealt over every visible card, one process,
+        on a seeded textured pair (``synthetic.textured_pair``) at WxH
+        (default 584x388) with the preset (a function of
+        tpuflow_torch.models; default FlowConfig()):
           dp  a stack of N pairs through compute_flow(..., mesh=) against
               N single pairs, by the k-slope;
           sp  one pair through compute_flow_sharded with halo="explicit",
-              "kernel" and "auto", and the hybrid on N pairs.
+              "kernel" and "auto" (each flow checked bitwise against
+              compute_flow), and the hybrid on N pairs.
         With one card the N positions are N streams of it: the line says
-        "streams on one card", which is not scaling.
+        "streams on one card", which is not scaling. ``--routes`` (for
+        example ``sp_kernel``) times those alone beside one position.
+        ``--profile``: for each sp route, one pair under torch.profiler:
+        card 0's busy share and device ms by kernel, those of the
+        whole-field kernels by name (``WHOLE_FIELD``), the peer copies'
+        device ms on each card, the kernels the one host thread launched,
+        and, where the package counts them, the peer copies (messages and
+        bytes, ``mesh.peer_copy``) and each card's rows of each row stage
+        against its lane's plan (``ops.level.row_counts(lane)``,
+        ``bands.stage_rows``); beside it the host's ms to queue one pair
+        (every card idle before it) and the host's µs a launch.
+        ``--turns PARENT`` runs the same report in
+        four processes of this file, in turns on PARENT's package (a
+        checkout's root) and on the package this process imports: parent,
+        this, this, parent; one line with the four reports.
 
     python -m tpuflow_torch.tools.report_scaling --link
         The constants of the cost model (parallel/model.py), measured on
@@ -279,13 +296,14 @@ def _kernel_link(dev, peer, reps: int = 5) -> dict:
             "kernel_push_bytes_s": push_bytes / push_s if push_s > 0 else None}
 
 
-def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4) -> dict:
+def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4,
+            preset: str = None, profile: bool = False, routes=None) -> dict:
     """Mpix/s at one position and at ``n``, dp and sp (module docstring)."""
     import numpy as np
 
     from tpuflow_torch import (
         FlowConfig, compute_flow, compute_flow_async, compute_flow_hybrid,
-        compute_flow_sharded, make_mesh,
+        compute_flow_sharded, make_mesh, models,
     )
     from tpuflow_torch.synthetic import textured_pair
     from tpuflow_torch.tools.roofline import device_info
@@ -295,7 +313,7 @@ def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4) -> dict:
     distinct = len(set(devices))
     w, h = size
     mpix = w * h / 1e6
-    cfg = FlowConfig()
+    cfg = FlowConfig() if preset is None else getattr(models, preset)()
     f0, f1 = textured_pair(w, h)
     home = devices[0]
 
@@ -305,7 +323,7 @@ def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4) -> dict:
     one()
     t1 = time_best(one, reps, k)
     report = {"card": device_info()["nvidia_smi"], "size": [w, h], "positions": n,
-              "distinct_cards": distinct,
+              "distinct_cards": distinct, "preset": preset or "FlowConfig()",
               "kind": "streams on one card" if distinct == 1 else f"scaling over {distinct} cards",
               "mpix_s_1": mpix / t1, "ms_1": t1 * 1e3}
     if n < 2:
@@ -318,8 +336,18 @@ def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4) -> dict:
         runs[f"sp_{halo}"] = (lambda hl=halo: compute_flow_sharded(
             f0, f1, cfg, mesh=sp, halo=hl, device=home))
     runs["hybrid"] = lambda: compute_flow_hybrid(F0, F1, cfg, mesh=sp, device=home)
+    if routes:
+        runs = {name: fn for name, fn in runs.items() if name in routes}
+    base = compute_flow(f0, f1, cfg, device=home)
     for name, fn in runs.items():
-        fn()
+        res = fn()
+        if name.startswith("sp_"):
+            report[f"{name}_bitwise"] = (res.u.tobytes() == base.u.tobytes()
+                                         and res.v.tobytes() == base.v.tobytes())
+        if profile and name.startswith("sp_"):
+            report[f"{name}_profile"] = _profiled_lanes(fn, home, sp, cfg, w, h, name[3:])
+            report[f"{name}_host"] = _issue(f0, f1, cfg, sp, name[3:], home,
+                                            report[f"{name}_profile"]["kernels_launched"])
         t = time_best(fn, reps, k)
         pairs = n if name in ("dp", "hybrid") else 1
         report[f"mpix_s_{name}"] = pairs * mpix / t
@@ -368,7 +396,8 @@ def measure_procs(n: int, size=SIZE, preset: str = "reference_default",
 def _profiled(fn, device) -> dict:
     """One call of ``fn`` under torch.profiler: the wall, this card's busy
     ms (every kernel, copy and set on it) and idle share, and the kernels
-    this process launched on every card."""
+    this process launched on every card (the layers' ranges, which the
+    profiler also puts on the device's timeline, left out)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -379,14 +408,19 @@ def _profiled(fn, device) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from tpuflow_torch.profile_pair import PROFILER_OVERHEAD, _device_us
+    from tpuflow_torch.profile_pair import LAYERS, PROFILER_OVERHEAD, _device_us
 
-    by_name, launches = {}, 0
+    by_name, launches, peer = {}, 0, {}
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA or evt.name in PROFILER_OVERHEAD:
+        # the layers' record_function ranges show on the device's timeline too:
+        # neither a launch nor busy time of their own
+        if (evt.device_type != DeviceType.CUDA or evt.name in PROFILER_OVERHEAD
+                or evt.name in LAYERS):
             continue
         if evt.device_index == device.index:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + _device_us(evt, True) / 1e3
+        if "PtoP" in evt.name:   # a copy between two cards, on the sender's stream
+            peer[evt.device_index] = peer.get(evt.device_index, 0.0) + _device_us(evt, True) / 1e3
         launches += "memcpy" not in evt.name.lower() and "memset" not in evt.name.lower()
     busy = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
@@ -395,7 +429,91 @@ def _profiled(fn, device) -> dict:
     return {"wall_ms": wall * 1e3, "card_busy_ms": busy, "card_busy_share": busy / (wall * 1e3),
             "card_idle_share": 1.0 - busy / (wall * 1e3), "kernels_launched": launches,
             "card_ms_by_kernel_top8": top, "card_ms_whole_field": whole,
-            "card_ms_whole_field_sum": sum(v for key, v in whole.items() if key != "nccl")}
+            "card_ms_whole_field_sum": sum(v for key, v in whole.items() if key != "nccl"),
+            "peer_copy_ms_by_card": {f"cuda:{i}": ms for i, ms in sorted(peer.items())}}
+
+
+def _profiled_lanes(fn, device, mesh, cfg, w: int, h: int, halo: str) -> dict:
+    """``_profiled`` of one pair on a one-process mesh, with the peer
+    copies and each card's rows where the package counts them (module
+    docstring)."""
+    import inspect
+
+    from tpuflow_torch.ops import level as L
+    from tpuflow_torch.parallel import mesh as M
+    from tpuflow_torch.solver import sharded
+
+    sharded.reset_launch_counts()
+    if hasattr(M, "peer_copy"):
+        M.peer_copy.messages = M.peer_copy.bytes = 0
+    out = _profiled(fn, device)
+    out["launch_counts"] = sharded.launch_counts()
+    if not hasattr(M, "peer_copy") or "lane" not in inspect.signature(L.row_counts).parameters:
+        out["lanes"] = "not counted by this package"
+        return out
+    from tpuflow_torch.solver.bands import lane_copies, stage_rows
+
+    lanes = sharded.sharded_lanes(w, h, cfg, mesh, halo)
+    out["peer_copies"] = {"messages": M.peer_copy.messages, "bytes": M.peer_copy.bytes}
+    if lanes:
+        out["peer_copies_expected"] = lane_copies(w, h, cfg, [lane.plan for lane in lanes])
+        out["banded_levels"] = len(lanes[0].plan.levels)
+        out["rows_by_card"] = [L.row_counts(i) for i in range(len(lanes))]
+        out["rows_by_card_plan"] = [stage_rows(w, h, cfg, lane.plan, prefix=i == 0)
+                                    for i, lane in enumerate(lanes)]
+        out["rows_whole_field"] = stage_rows(w, h, cfg, None)
+    return out
+
+
+def _issue(f0, f1, cfg, mesh, halo: str, device, launches: int, reps: int = 5) -> dict:
+    """The host's ms to queue one pair's sharded solve (the pair already on
+    the card, every card idle before it), the wall to its end, and the
+    host's µs a launch (over the profiled pair's ``launches``): best of
+    ``reps``."""
+    import numpy as np
+    import torch
+
+    from tpuflow_torch.solver.level import solve
+    from tpuflow_torch.solver.sharded import sharded_solve
+
+    frames = torch.from_numpy(np.stack([f0, f1]).astype(np.float32)).to(device)
+    kw = sharded_solve(cfg, mesh, f0.shape, halo)
+    issue, wall = [], []
+    with torch.cuda.device(device):
+        for _ in range(reps):
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            solve(frames[0], frames[1], cfg, **kw)
+            t1 = time.perf_counter()
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+            issue.append((t1 - t0) * 1e3)
+            wall.append((time.perf_counter() - t0) * 1e3)
+    return {"issue_ms": min(issue), "issue_ms_all": issue, "wall_ms": min(wall),
+            "host_us_a_launch": min(issue) * 1e3 / launches}
+
+
+def measure_turns(parent: str, argv: List[str], timeout_s: int = 1500) -> dict:
+    """``--turns PARENT`` (module docstring): this report, less --turns,
+    from PARENT's package and this process's, in turns."""
+    import subprocess
+
+    import tpuflow_torch
+
+    this = os.path.dirname(os.path.dirname(os.path.abspath(tpuflow_torch.__file__)))
+    trees = {"parent": os.path.abspath(parent), "this": this}
+    runs = []
+    for tree in ("parent", "this", "this", "parent"):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([trees[tree]] + [
+            p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        done = subprocess.run([sys.executable, os.path.abspath(__file__)] + argv, env=env,
+                              capture_output=True, text=True, timeout=timeout_s)
+        if done.returncode:
+            raise RuntimeError(f"the report on {tree} ({trees[tree]}): {done.stderr[-4000:]}")
+        runs.append({"tree": tree, "package": trees[tree],
+                     **json.loads(done.stdout.strip().splitlines()[-1])})
+    return {"turns": [r["tree"] for r in runs], "runs": runs}
 
 
 def _proc_report(rank: int, world: int, size, preset: str, profile: bool, reps: int,
@@ -841,9 +959,17 @@ def main(argv=None) -> int:
         print(json.dumps(measure_procs(int(argv[argv.index("--procs") + 1]), size, preset,
                                        "--profile" in argv, routes=routes)))
         return 0
+    if "--turns" in argv:
+        i = argv.index("--turns")
+        print(json.dumps(measure_turns(argv[i + 1], argv[:i] + argv[i + 2:])))
+        return 0
+    valued = ("--size", "--preset", "--routes")
     pos = [a for i, a in enumerate(argv) if not a.startswith("-")
-           and (i == 0 or argv[i - 1] != "--size")]
-    print(json.dumps(measure(int(pos[0]) if pos else POSITIONS, size)))
+           and (i == 0 or argv[i - 1] not in valued)]
+    preset = argv[argv.index("--preset") + 1] if "--preset" in argv else None
+    routes = argv[argv.index("--routes") + 1].split(",") if "--routes" in argv else None
+    print(json.dumps(measure(int(pos[0]) if pos else POSITIONS, size, preset=preset,
+                             profile="--profile" in argv, routes=routes)))
     return 0
 
 
