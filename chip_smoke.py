@@ -41,7 +41,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               no row outside written; then one process's band path at 1920x1080 for grey,
               full_model() and xray_log, emulated on the card for each shard
               of 4 under the kernel and explicit routes (every other row of
-              each stage NaN): owned rows bitwise, rows per stage the plan's
+              each stage NaN): owned rows bitwise, rows per stage the plan's;
+              then the lanes of one process over 4 cards, emulated on this
+              card at 1920x1080 and 3840x2160 full_model() (every other row
+              of each lane's stages, and of an explicit level's T, NaN) on
+              the kernel route, the explicit route at k = 1 and 2, a plan
+              alternating the two, and the hybrid's fine part from its
+              split: bitwise compute_flow, each lane's rows its plan's, the
+              peer copies exact
   4. e2e      compute_flow(FlowConfig()) (grey) at 584x388 and 1920x1080 on
               a textured pair shifted by (+1.25, -0.75) px: kernel path vs
               plain path, the recovered shift, and at 584x388 the NumPy
@@ -127,8 +134,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               exact; a race case with a device sleep queued on one shard's
               stream before each of its sweeps; where the positions span
               several cards the kernel on the same mesh, bitwise, counts
-              exact; the prologue kernel on row blocks (row0, height)
-              bitwise against its plain version
+              exact, and relax_sharded_explicit given one field set a card
+              (the lanes' form: each card's copy NaN outside its shards'
+              padded blocks, one T a card) bitwise relax_sharded over each
+              card's rows, copies and peer copies exact, with a race case
+              (a device sleep queued on one card's stream before its fields
+              are written; on one card the form runs with one field set on
+              it and prints that no peer copy across cards ran); the
+              prologue kernel on row blocks (row0, height) bitwise against
+              its plain version
  19. mesh_e2e a 1920x1080 full_model() pair through compute_flow(...,
               mesh=make_mesh(4, ["cuda:0"] * 4)) and compute_flow_sharded
               with halo explicit, kernel and auto: bitwise compute_flow,
@@ -138,7 +152,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
  20. mesh_dp  a (4, 388, 584) grey stack through compute_flow(..., mesh=)
               on 4 data positions and compute_flow_hybrid on 4 y positions,
               and a ragged B of 3: bitwise per-pair compute_flow, counts
-              exact; timed against the stack without a mesh
+              exact; timed against the stack without a mesh; where the
+              positions are dealt over several cards the hybrid's fine part
+              by lanes, each card's rows and the peer copies exact (on one
+              card it prints that this did not run)
  21. mesh_sequence  process_sequence(mesh=) on phase 13's six pairs, byte
               for byte the files of chain=1; a resume
  22. report_scaling  the cost model's constants measured on the card
@@ -148,9 +165,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
  23. crosscard_e2e  where the machine has several cards: a 3840x2160
               full_model() pair through compute_flow(..., mesh=) and
               compute_flow_sharded with halo explicit, kernel and auto over
-              4 positions dealt over the cards, bitwise compute_flow, counts
-              exact (one relax_sharded launch a card a level), timed in
-              turns; on one card it prints that it did not run
+              4 positions dealt over the cards, every route by lanes,
+              bitwise compute_flow, counts exact (one relax_sharded launch a
+              card a level; the explicit route's copies), each card's rows
+              and the peer copies exact, timed in turns; on one card it
+              prints that it did not run
  24. procmesh PROC_N processes joined by initialize_distributed (this
               script run with --proc-worker; on one card all on cuda:0, else
               one a card), a mesh over them: (a) a (4, 388, 584) grey stack
@@ -985,56 +1004,94 @@ def phase_rows(card: str) -> dict:
     return checks
 
 
+def lane_cases(w: int, h: int, cfg) -> list:
+    """Phase 3c's lane cases of a w x h pair over ROW_SHARDS lanes: (name,
+    routes, the schedule positions solved); the kernel route, the explicit
+    route at k = 1 and 2, a plan that alternates the two over the sharded
+    levels, and the hybrid's fine part on the explicit route from a split
+    two levels into the suffix (its hand-over there)."""
+    from tpuflow_torch.parallel.mesh import Mesh
+    from tpuflow_torch.solver.sharded import sharded_plan
+
+    def plan(halo, k=1):
+        return [(r, kk) for _, _, r, kk in sharded_plan(w, h, cfg, Mesh(ROW_SHARDS, "cuda"),
+                                                        halo, k)]
+
+    n = len(plan("kernel"))
+    explicit = plan("explicit")
+    start = next(i for i, (r, _) in enumerate(explicit) if r != "replicated")
+    mixed = [("kernel", k) if r != "replicated" and (i - start) % 2 else (r, k)
+             for i, (r, k) in enumerate(explicit)]
+    return [("kernel", plan("kernel"), range(n)), ("explicit_k1", explicit, range(n)),
+            ("explicit_k2", plan("explicit", 2), range(n)), ("mixed", mixed, range(n)),
+            ("hybrid_fine", explicit, range(start + 2, n))]
+
+
 def phase_rows_lanes(card: str) -> None:
     """Phase 3c, the lanes: the level driver of one process over ROW_SHARDS
     cards (``solve(..., bands=lanes)``), every lane on this card, through
     the emulation seam (``solver.bands.emulate_lanes``: every banded stage
-    and the hand-over into a buffer of NaN outside the lane's plan, the
-    relaxation the plain ``relax_sharded`` over the owned rows each lane
-    holds) for a full_model() pair at 1920x1080 and 3840x2160 on the kernel
-    route: the gathered flow bitwise ``compute_flow``'s, each lane's rows
-    (``ops.level.row_counts(lane)``) its plan's, the peer copies
-    ``bands.lane_copies``."""
+    and the hand-over into a buffer of NaN outside the lane's plan; a
+    kernel level relaxed by the plain ``relax_sharded`` over the owned rows
+    each lane holds, an explicit level over each lane's padded blocks by
+    the prologue and k-sweep kernels, each lane's T NaN outside the rows
+    the explicit route gives it) for a full_model() pair at 1920x1080 and
+    3840x2160 in each of ``lane_cases``: the gathered flow bitwise
+    ``compute_flow``'s, each lane's rows (``ops.level.row_counts(lane)``)
+    its plan's, the peer copies ``bands.lane_copies``. The hybrid's case
+    solves its levels from the flow of a solve of the levels before them,
+    on the smoothed pair, as the hybrid's phase B does."""
     import torch
 
     from tpuflow_torch import compute_flow, models
     from tpuflow_torch.ops import level as L
-    from tpuflow_torch.parallel.mesh import Mesh, peer_copy
+    from tpuflow_torch.parallel.mesh import peer_copy
     from tpuflow_torch.solver.bands import emulate_lanes, lane_copies, stage_rows
-    from tpuflow_torch.solver.sharded import sharded_plan
+    from tpuflow_torch.solver.level import smooth_pair, solve
     from tpuflow_torch.synthetic import textured_pair
 
     cfg = models.full_model()
     for w, h in (SIZES[1], SIZE_4K):
-        t0 = time.perf_counter()
         f0n, f1n = (np.clip(f, 0.0, 255.0).astype(np.float32) for f in textured_pair(w, h))
         base = compute_flow(f0n, f1n, cfg, device="cuda")
-        routes = [(r, k) for _, _, r, k in sharded_plan(
-            w, h, cfg, Mesh(ROW_SHARDS, "cuda"), "kernel")]
-        L.reset_row_counts()
-        peer_copy.messages = peer_copy.bytes = 0
-        flow, plans = emulate_lanes(torch.from_numpy(f0n).cuda(), torch.from_numpy(f1n).cuda(),
-                                    cfg, routes, ROW_SHARDS, fill=float("nan"))
-        got = flow.cpu().numpy()
-        rows = [L.row_counts(i) for i in range(len(plans))]
-        want = [stage_rows(w, h, cfg, p, prefix=i == 0) for i, p in enumerate(plans)]
-        row = {"phase": "rows_lanes", "card": card, "shape": [h, w],
-               "config": "models.full_model()", "route": "kernel", "lanes": len(plans),
-               "banded_levels": len(plans[0].levels), "levels": len(routes),
-               "bitwise_compute_flow": got[0].tobytes() == base.u.tobytes()
-               and got[1].tobytes() == base.v.tobytes(),
-               "rows_by_lane": rows, "rows_expected": want,
-               "rows_whole_field": stage_rows(w, h, cfg, None),
-               "peer_copies": {"messages": peer_copy.messages, "bytes": peer_copy.bytes},
-               "peer_copies_expected": lane_copies(w, h, cfg, plans),
-               "seconds": time.perf_counter() - t0}
-        row["ok"] = (row["bitwise_compute_flow"] and rows == want
-                     and row["peer_copies"] == row["peer_copies_expected"])
-        emit(row)
-        if not row["ok"]:
-            raise AssertionError(f"the lanes emulated at {w}x{h}: {row}")
-        del flow
-        torch.cuda.empty_cache()
+        f0, f1 = torch.from_numpy(f0n).cuda(), torch.from_numpy(f1n).cuda()
+        for name, routes, levels in lane_cases(w, h, cfg):
+            t0 = time.perf_counter()
+            kw = {}
+            if levels.start:
+                smoothed = smooth_pair(f0, f1, cfg)
+                kw = {"levels": levels, "smoothed": True,
+                      "uv": solve(smoothed[0], smoothed[1], cfg, levels=range(levels.start),
+                                  smoothed=True)}
+                pair = (smoothed[0], smoothed[1])
+            else:
+                pair = (f0, f1)
+            L.reset_row_counts()
+            peer_copy.messages = peer_copy.bytes = 0
+            flow, plans = emulate_lanes(*pair, cfg, routes, ROW_SHARDS, fill=float("nan"), **kw)
+            got = flow.cpu().numpy()
+            rows = [L.row_counts(i) for i in range(len(plans))]
+            want = [stage_rows(w, h, cfg, p, prefix=i == 0, levels=levels)
+                    for i, p in enumerate(plans)]
+            row = {"phase": "rows_lanes", "card": card, "shape": [h, w],
+                   "config": "models.full_model()", "case": name, "lanes": len(plans),
+                   "levels_solved": [levels.start, levels.stop],
+                   "banded_levels": len(plans[0].levels), "levels": len(routes),
+                   "routes_banded": sorted({r for r, _ in plans[0].routes}),
+                   "bitwise_compute_flow": got[0].tobytes() == base.u.tobytes()
+                   and got[1].tobytes() == base.v.tobytes(),
+                   "rows_by_lane": rows, "rows_expected": want,
+                   "rows_whole_field": stage_rows(w, h, cfg, None),
+                   "peer_copies": {"messages": peer_copy.messages, "bytes": peer_copy.bytes},
+                   "peer_copies_expected": lane_copies(w, h, cfg, plans, levels.start),
+                   "seconds": time.perf_counter() - t0}
+            row["ok"] = (row["bitwise_compute_flow"] and rows == want
+                         and row["peer_copies"] == row["peer_copies_expected"])
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"the lanes emulated at {w}x{h}, {name}: {row}")
+            del flow, kw
+            torch.cuda.empty_cache()
 
 
 def expected_launches(w: int, h: int, cfg, levels: range = None, smooth: bool = True) -> dict:
@@ -2388,11 +2445,112 @@ def phase_mesh_explicit(card: str) -> dict:
                 max_err = max(max_err, krow["max_abs_err"], krow["max_abs_vs_unsharded_kernels"])
     inputs.clear()
     torch.cuda.empty_cache()
+    max_err = max(max_err, explicit_cards(card))
     blocks = prologue_blocks(card)
     row = {"phase": "mesh_explicit_done", "card": card, "cases": cases,
            "max_abs_err": max_err, "seconds": time.perf_counter() - t0}
     emit(row)
     return {"explicit_max_abs_err": max_err, "prologue_blocks": blocks}
+
+
+def explicit_cards(card: str) -> float:
+    """Phase 18, one field set a card: relax_sharded_explicit in the lanes'
+    form, each case's positions dealt over the cards, in
+    the SHARDED_CHECKS cases and the race case: each card's copy of the fields
+    holds its shards' padded blocks, NaN elsewhere, and its ``rows`` entry
+    is its owned rows widened by the 5x5 median's two rows; each card's T
+    bitwise relax_sharded's over its own shards' owned rows and the other
+    shards' rows inside that entry, the copies explicit_copies, the peer
+    copies card_copies. In the race case each card's copy is written on
+    that card's current stream behind a device sleep on one card's, so a
+    block copied in before that stream's event would read NaN. On one card
+    every position is on it: the tuple form runs with one field set (its
+    events, streams and copy-outs), and the row says that no peer copy
+    across cards ran. Returns the largest error."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch import models
+    from tpuflow_torch.config import FlowConfig
+    from tpuflow_torch.ops.level import level_tensor_plain
+    from tpuflow_torch.parallel import make_mesh, relax_sharded
+    from tpuflow_torch.parallel.halo import (
+        card_copies, card_rows, explicit_copies, halo_rows, relax_sharded_explicit, row_split,
+    )
+    from tpuflow_torch.parallel.mesh import peer_copy
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "mesh_explicit_cards", "cross_card": False, "cards": cards,
+              "reason": "the peer copies across cards need at least 2 cards; this machine "
+                        "has 1, so the tuple form runs with one field set on it"})
+    max_err, inputs = 0.0, {}
+    for case in SHARDED_CHECKS + (RACE_CASE + ("race",),):
+        w, h, n_y, k, constancy, inner = case[:6]
+        race = len(case) > 6
+        if (w, h) not in inputs:
+            inputs.clear()
+            torch.cuda.empty_cache()
+            inputs[(w, h)] = kernel_inputs(w, h)
+        x = inputs[(w, h)]
+        cfg = {"grey": FlowConfig(), "gradient": models.full_model(),
+               "log": models.xray_log(alpha=LOG_ALPHA)}[constancy]
+        cfg = dataclasses.replace(cfg, inner_iterations_count=inner)
+        J = {"grey": None, "gradient": x["J"],
+             "log": level_tensor_plain(x["f0"], x["f1"], x["fxyz"], x["sc"], True)}[constancy]
+        plain = relax_sharded(x["fxyz"], x["uvf"], x["sc"], cfg, make_mesh(n_y), k, J=J)
+        mesh = make_mesh(n_y, [f"cuda:{i % cards}" for i in range(n_y)])
+        groups = mesh.row_groups()
+        split = row_split(h, n_y, halo_rows(cfg, k))
+        needs = [(max(0, split[ys[0]].row0 - 2), min(h, split[ys[-1]].row0 + split[ys[-1]].rows
+                                                      + 2)) for _, ys in groups]
+        sync_all()
+
+        def copies(t):
+            """Each card's copy of t on its current stream: NaN, then (in the
+            race case behind a sleep on the second card) its padded blocks."""
+            out = []
+            for c, (dev, ys) in enumerate(groups):
+                with torch.cuda.device(dev):
+                    mine = torch.full(t.shape, float("nan"), device=dev)
+                    if race and c == min(1, len(groups) - 1):
+                        torch.cuda._sleep(RACE_SLEEP_CYCLES * 100)
+                    for y in ys:
+                        rows = slice(split[y].first, split[y].first + split[y].padded)
+                        mine[:, rows] = t[:, rows].to(dev)
+                out.append(mine)
+            return tuple(out)
+
+        fields = [copies(t) for t in (x["fxyz"], x["uvf"])] + [None if J is None else copies(J)]
+        relax_sharded_explicit.copies = peer_copy.messages = peer_copy.bytes = 0
+        got = relax_sharded_explicit(fields[0], fields[1], x["sc"], cfg, mesh, k, J=fields[2],
+                                     rows=needs)
+        sync_all()
+        err, finite = 0.0, True
+        for T, (dev, ys), need in zip(got, groups, needs):
+            for s, lo, hi in card_rows(split, ys, need):
+                part = T[:, lo:hi].cpu()
+                err = max(err, float((part - plain[:, lo:hi].cpu()).abs().max()))
+                finite &= bool(torch.isfinite(part).all())
+        want = {"copies": explicit_copies(h, cfg, n_y, k, J is not None),
+                **card_copies(split, [ys for _, ys in groups], needs, w)}
+        have = {"copies": relax_sharded_explicit.copies, "messages": peer_copy.messages,
+                "bytes": peer_copy.bytes}
+        row = {"phase": "mesh_explicit_cards", "shape": [h, w], "n_y": n_y, "k": k,
+               "constancy": constancy, "inner": inner, "race": race,
+               "cards": [str(dev) for dev, _ in groups], "cross_card": len(groups) > 1,
+               "max_abs_err": err,
+               "bound": SHARDED_BOUND, "finite": finite, "counts": have, "expected": want}
+        row["ok"] = finite and err <= SHARDED_BOUND and have == want
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"relax_sharded_explicit, one field set a card: {row}")
+        max_err = max(max_err, err)
+        del got, fields
+    inputs.clear()
+    torch.cuda.empty_cache()
+    return max_err
 
 
 def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, data: int = 0,
@@ -2411,9 +2569,11 @@ def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, da
 
     plan = sharded_plan(w, h, cfg, mesh, halo, k, data)
     bands = sharded_bands(w, h, cfg, mesh, halo, k, data)
-    lanes = sharded_lanes(w, h, cfg, mesh, halo, k, data) if levels is None else None
     stop = len(plan) if levels is None else levels.stop
     start = 0 if levels is None else levels.start
+    # lanes run a solve that ends at the finest level and solves some level
+    lanes = (sharded_lanes(w, h, cfg, mesh, halo, k, data)
+             if stop == len(plan) and start < stop else None)
     if levels is not None:
         plan = plan[levels.start:levels.stop]
     want = expected_launches(w, h, cfg, levels, smooth)
@@ -2422,13 +2582,15 @@ def expected_sharded_counts(w: int, h: int, cfg, mesh, halo: str, k: int = 1, da
     want.update({prologue: 0, "jacobi_sweeps": 0, "relax_sharded": 0, "copies": 0,
                  "messages": 0, "peer_copies": 0, "peer_bytes": 0})
     if lanes:
-        # each other card: its presmooth, frame pyramid and stages over the suffix
+        # each other card: its presmooth (none on a smoothed pair), frame
+        # pyramid and stages from the first banded level it solves
+        first = max(start, lanes[0].plan.start)
         for _ in lanes[1:]:
-            lane = expected_launches(w, h, cfg, range(lanes[0].plan.start, len(plan)), smooth)
+            lane = expected_launches(w, h, cfg, range(first, stop), smooth)
             for key in ("gaussian_smooth", "resample", "warp", "level_derivs", "level_tensor",
                         "add_median"):
                 want[key] += lane[key]
-        peers = lane_copies(w, h, cfg, [lane.plan for lane in lanes])
+        peers = lane_copies(w, h, cfg, [lane.plan for lane in lanes], start)
         want.update(peer_copies=peers["messages"], peer_bytes=peers["bytes"])
     processes = mesh.row_spans_processes(data)
     shard = mesh.row(data).index(mesh.local_positions()[0]) if processes else None
@@ -2598,11 +2760,19 @@ def phase_crosscard_e2e(card: str, counts_total: dict) -> dict:
 def phase_mesh_dp(card: str, counts_total: dict) -> dict:
     """Phase 20: a (4, 388, 584) grey stack through compute_flow(...,
     mesh=) on 4 data positions and through compute_flow_hybrid on 4 y
-    positions, of cuda:0 and of the cards where there are several, and a
-    ragged B of 3: bitwise per-pair compute_flow, exact counts; timed in
-    turns with the stack without a mesh. Returns the last layout's row."""
+    positions, of cuda:0 and of the cards where there are several (there
+    the hybrid's fine part by lanes), and a ragged B of 3: bitwise per-pair
+    compute_flow, exact counts, rows and peer copies; timed in turns with
+    the stack without a mesh. Returns the last layout's row; on one card it
+    prints that the layout over several cards did not run."""
+    import torch
+
     from tpuflow_torch import FlowConfig, compute_flow, make_mesh
     from tpuflow_torch.synthetic import textured_frames
+
+    if torch.cuda.device_count() < 2:
+        emit({"phase": "mesh_dp_cards", "ran": False, "cards": 1,
+              "reason": "the hybrid's lanes need at least 2 cards; this machine has 1"})
 
     w, h = SIZES[0]
     cfg = FlowConfig()
@@ -2618,10 +2788,12 @@ def phase_mesh_dp(card: str, counts_total: dict) -> dict:
 def mesh_dp_run(card: str, counts_total: dict, dp, hyb, F0, F1, singles) -> dict:
     """Phase 20 on one layout of the positions."""
     from tpuflow_torch import FlowConfig, compute_flow, compute_flow_hybrid
+    from tpuflow_torch.ops.level import row_counts
     from tpuflow_torch.parallel.hybrid import hybrid_split_level
     from tpuflow_torch.pyramid import level_schedule
     from tpuflow_torch.solver import sharded
-    from tpuflow_torch.solver.sharded import sharded_plan
+    from tpuflow_torch.solver.bands import stage_rows
+    from tpuflow_torch.solver.sharded import sharded_lanes, sharded_plan
     from tpuflow_torch.tools.roofline import cuda_ms
 
     w, h = SIZES[0]
@@ -2636,9 +2808,11 @@ def mesh_dp_run(card: str, counts_total: dict, dp, hyb, F0, F1, singles) -> dict
              expected_sharded_counts(w, h, cfg, hyb, "auto", levels=range(split, n),
                                      smooth=False))
     hyb_want = {key: parts[0][key] + parts[1][key] for key in parts[0]}
+    lanes = sharded_lanes(w, h, cfg, hyb, "auto")
     row = {"phase": "mesh_dp", "shape": [len(F0), h, w], "config": "FlowConfig()", "card": card,
            "devices": [str(d) for d in hyb.devices], "hybrid_split_level": split,
-           "hybrid_phase_b_plan": [f"{lh}x{lw}:{r}" for lh, lw, r, _ in plan[split:]]}
+           "hybrid_phase_b_plan": [f"{lh}x{lw}:{r}" for lh, lw, r, _ in plan[split:]],
+           "hybrid_path": "lanes" if lanes else "first card"}
     ok = True
     for b in (len(F0), len(F0) - 1):
         for name, fn, want in (
@@ -2657,6 +2831,16 @@ def mesh_dp_run(card: str, counts_total: dict, dp, hyb, F0, F1, singles) -> dict
             ok &= all(same) and res.u.shape == (b, h, w) and counts == want
             if counts != want:
                 row[f"{name}_B{b}_expected"] = want
+            if name == "hybrid" and lanes:
+                # phase A's levels count under the first lane, whole
+                got = [row_counts(i) for i in range(len(lanes))]
+                rows = [stage_rows(w, h, cfg, lane.plan, prefix=i == 0, levels=range(split, n))
+                        for i, lane in enumerate(lanes)]
+                coarse = stage_rows(w, h, cfg, None, levels=range(split))
+                rows[0] = {key: v + coarse[key] for key, v in rows[0].items()}
+                rows = [scaled(r, b) for r in rows]
+                row[f"hybrid_B{b}_rows_by_card"], row[f"hybrid_B{b}_rows_ok"] = got, got == rows
+                ok &= got == rows
             for key in MAIN_PATH:
                 counts_total[key] = counts_total.get(key, 0) + counts[key]
     runs = {"stack": lambda: compute_flow(F0, F1, cfg, device="cuda"),

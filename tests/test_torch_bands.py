@@ -23,7 +23,8 @@ plain ``relax_sharded`` over the owned rows of each lane's fields, the
 owned rows joined on the first lane at the end: bitwise the whole solve for
 the three constancies on the kernel route and on ``auto``, each lane's rows
 its plan's, and within the cross-program class (mean EPE 1e-3) of the JAX
-package's ``compute_flow``.
+package's ``compute_flow``. The explicit route's levels by lanes are in
+tests/test_torch_lanes.py.
 """
 
 import math
@@ -498,43 +499,52 @@ def test_lanes_of_cards_holding_several_shards(groups):
     assert peers == peer_counts(plans, W, H, plans[0].start)
 
 
-def test_lane_suffix_is_the_kernel_levels_alone():
-    """Over processes the kernel and the explicit route are banded; in one
-    process the kernel alone: its suffix starts after the last level of
-    any other route, and there is none where the finest level is explicit.
-    A row on one card, or over processes, takes no lanes."""
-    from tpuflow_torch.solver.bands import LANE_ROUTES, SHARDED_ROUTES, lane_plans
+def test_lane_suffix_is_the_sharded_levels():
+    """In one process, as over processes, the lanes' suffix is that of
+    sharded levels, kernel and explicit alike. It starts after the last replicated level, and there
+    is none where the finest level is replicated; each plan keeps its
+    levels' routes. A row on one card, or over processes, takes no lanes."""
+    from tpuflow_torch.solver.bands import lane_plans
     from tpuflow_torch.solver.sharded import sharded_lanes
 
     cfg = FlowConfig(**{**KW, "warp_levels_count": 4})
     mixed = [("kernel", 1), ("explicit", 1), ("kernel", 2), ("kernel", 1)]
     assert band_plan(W, H, cfg, mixed, 2, 0).start == 0
-    assert band_plan(W, H, cfg, mixed, 2, 0, banded=LANE_ROUTES).start == 2
-    assert band_plan(W, H, cfg, mixed, 2, 0, banded=SHARDED_ROUTES).start == 0
     plans = lane_plans(W, H, cfg, mixed, 2, [(0,), (1,)])
-    assert [p.start for p in plans] == [2, 2] and [p.shards for p in plans] == [(0,), (1,)]
+    assert [p.start for p in plans] == [0, 0] and [p.shards for p in plans] == [(0,), (1,)]
+    assert plans[1].route(1) == ("explicit", 1) and plans[1].route(2) == ("kernel", 2)
+    assert plans[0].prior is None and plans[0].entry(3) == plans[0].levels[2].median
+    replicated = [("kernel", 1), ("replicated", 1), ("explicit", 1), ("kernel", 1)]
+    plans = lane_plans(W, H, cfg, replicated, 2, [(0,), (1,)])
+    assert [p.start for p in plans] == [2, 2] and plans[1].routes == (("explicit", 1),
+                                                                      ("kernel", 1))
     assert plans[0].prior == plans[0].entry(2) and plans[0].entry(3) == plans[0].levels[0].median
-    assert lane_plans(W, H, cfg, mixed[:3] + [("explicit", 1)], 2, [(0,), (1,)]) is None
+    assert lane_plans(W, H, cfg, mixed[:3] + [("replicated", 1)], 2, [(0,), (1,)]) is None
+    assert lane_plans(W, H, cfg, mixed[:3] + [("explicit", 1)], 2, [(0,), (1,)])[0].start == 0
     assert lane_plans(W, H, cfg, [("kernel", 1)] * 4, 2, [(0,), (1,)])[1].prior is None
     assert sharded_lanes(1920, 1080, models.full_model(), Mesh(4, "cpu"), "kernel") is None
     procs = Mesh(2, devices=["cpu"] * 2, ranks=[0, 1], uuids=["a", "b"])
     assert sharded_lanes(1920, 1080, models.full_model(), procs, "kernel") is None
 
 
-def test_an_explicit_level_keeps_the_whole_field_on_the_first_card():
-    """An explicit level in the one-process suffix of sharded levels: it and
-    every level before it run over the whole field on the first lane
-    alone, the kernel levels after it by lanes; bitwise the whole solve."""
+@pytest.mark.parametrize("mixed,start", [
+    ([("replicated", 1), ("kernel", 1), ("explicit", 1), ("kernel", 1)], 1),
+    ([("kernel", 1), ("replicated", 1), ("explicit", 1), ("kernel", 1)], 2)])
+def test_an_explicit_level_runs_by_lanes(mixed, start):
+    """An explicit level in the one-process suffix of sharded levels runs
+    by lanes like the kernel levels around it. Only the replicated levels before the suffix
+    run over the whole field, on the first lane alone; bitwise the whole
+    solve."""
     cfg = FlowConfig(**{**KW, "warp_levels_count": 4, "data_constancy": DataConstancy.GRADIENT})
-    mixed = [("kernel", 1), ("kernel", 1), ("explicit", 1), ("kernel", 1)]
     flow, plans, rows, _, whole = run_lanes(cfg, mixed, 2)
-    assert same(flow, whole) and plans[0].start == 3
+    assert same(flow, whole) and plans[0].start == start
     from tpuflow_torch.pyramid import level_schedule
 
     specs = level_schedule(W, H, cfg.warp_levels_count, cfg.warp_scale_factor)
-    assert rows[0]["warp"] == sum(s.height for s in specs[:3]) + plans[0].levels[0].warp[1] - \
-        plans[0].levels[0].warp[0]
-    assert rows[1]["warp"] == plans[1].levels[0].warp[1] - plans[1].levels[0].warp[0]
+    banded = [sum(lv.warp[1] - lv.warp[0] for lv in plan.levels) for plan in plans]
+    assert rows[0]["warp"] == sum(s.height for s in specs[:start]) + banded[0]
+    assert rows[1]["warp"] == banded[1]
+    assert all(rows[i] == stage_rows(W, H, cfg, p, prefix=i == 0) for i, p in enumerate(plans))
 
 
 def test_a_lane_needs_every_entry_row(monkeypatch):
@@ -627,10 +637,10 @@ class CpuCards(Mesh):
 
 @pytest.mark.parametrize("halo", ["kernel", "auto", "explicit"])
 def test_compute_flow_sharded_runs_lanes_over_several_cards(halo):
-    """``compute_flow_sharded`` on a one-process row of 4 "cards": the kernel
-    route and auto by lanes (``sharded_lanes``; each lane's rows its plan's,
-    the peer copies ``lane_copies``), the explicit route over the whole
-    field on the first card (no lanes, no peer copy); every flow bitwise
+    """``compute_flow_sharded`` on a one-process row of 4 "cards": every
+    route by lanes (``sharded_lanes``; each lane's rows its plan's, the
+    peer copies ``lane_copies``: on the explicit route also the other
+    shards' rows of T each card reads); every flow bitwise
     ``compute_flow``'s."""
     import dataclasses
 
@@ -649,11 +659,9 @@ def test_compute_flow_sharded_runs_lanes_over_several_cards(halo):
     res = compute_flow_sharded(f0, f1, cfg, mesh=mesh, halo=halo, device="cpu")
     assert res.u.tobytes() == base.u.tobytes() and res.v.tobytes() == base.v.tobytes()
     lanes = sharded.sharded_lanes(w, h, cfg, mesh, halo)
-    if halo == "explicit":
-        assert lanes is None and peer_copy.messages == 0
-        assert L.row_counts(0) == stage_rows(w, h, cfg, None)
-        return
     assert [lane.plan.shards for lane in lanes] == [(0,), (1,), (2,), (3,)]
+    routes = {route for plan in (lanes[0].plan,) for route, _ in plan.routes}
+    assert routes == ({"explicit"} if halo == "explicit" else {"kernel"})
     for i, lane in enumerate(lanes):
         assert L.row_counts(i) == stage_rows(w, h, cfg, lane.plan, prefix=i == 0)
     assert lane_copies(w, h, cfg, [lane.plan for lane in lanes]) == {

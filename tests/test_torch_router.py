@@ -243,18 +243,28 @@ def test_kernel_comm_cost_is_stores_and_barriers_not_torch_copies():
     assert model.level_comm_cost(h, w, cfg, 4, "kernel", model.NVLINK) < 80 * 2.84e-5
 
 
-def test_kernel_route_is_accepted_on_a_row_over_several_cards():
+def test_kernel_route_is_accepted_on_a_row_over_several_cards(monkeypatch):
     """halo="kernel" builds its routes over distinct cards (no card needed
-    to plan), one relax_sharded_kernel over the whole row per admitted
-    level; the hybrid's split offers the kernel there too."""
+    to plan; the lanes' peer access and streams, which need them, are
+    recorded), one relax_sharded_kernel over the whole row per admitted
+    level and one lane a card; the hybrid's split offers the kernel there
+    too."""
     from tpuflow_torch.parallel.hybrid import hybrid_split_level
-    from tpuflow_torch.solver.sharded import sharded_relax_for
+    from tpuflow_torch.solver import sharded
 
+    enabled = []
+    monkeypatch.setattr(sharded, "enable_peer_access", enabled.append)
     cfg = FlowConfig()
     mesh = spread(4)
+    monkeypatch.setattr(mesh, "stream", lambda p: f"stream of position {p}")
     plan = sharded_plan(1920, 1080, cfg, mesh, "kernel")
     assert {r for *_, r, _ in plan} == {"kernel", "replicated"}
-    relax_for = sharded_relax_for(cfg, mesh, "kernel")
+    solve_kw = sharded.sharded_solve(cfg, mesh, (1080, 1920), "kernel")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    assert enabled == [cards]
+    assert [(lane.device, lane.stream) for lane in solve_kw["bands"]] == [
+        (cards[0], None)] + [(cards[y], f"stream of position {y}") for y in range(1, 4)]
+    relax_for = solve_kw["relax_for"]
     fn = relax_for(1080, 1920)
     assert fn.func.__name__ == "relax_sharded_kernel"
     assert fn.keywords == {"mesh": mesh, "k_outer": 1, "data": 0}

@@ -23,7 +23,10 @@ no counterpart.
 ``relax_sharded_explicit`` runs the same schedule with each shard's block
 on its own mesh position: the prologue and k-sweep kernels on the shard's
 device and stream, the halos moved by copies ordered by CUDA events (the
-port of the shard_map + ppermute route, halo.py:100-289). On a row of
+port of the shard_map + ppermute route, halo.py:100-289). Given one field
+set a card of a one-process row (the level driver's lanes), each shard
+copies its block in from its own card's fields, and each card gets a T of
+its own with the rows its later steps read. On a row of
 processes each process runs its own shard so, and the halos and T's owned
 rows go between the processes as point-to-point messages on the default
 group (``group.row_exchange``: NCCL between the cards, gloo on the CPU),
@@ -39,21 +42,22 @@ level's whole fields (each computes them), and gets the whole T.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.ops.level import (
-    N_TENSOR, _check_planes, jacobi_sweep_plain, jacobi_sweeps, outer_prologue,
+    N_TENSOR, _check_planes, jacobi_sweeps, jacobi_sweeps_plain, outer_prologue,
     outer_prologue_plain,
 )
 from tpuflow_torch.parallel.group import (
     exchange_with, process_rank, row_all_gather, row_exchange,
 )
-from tpuflow_torch.parallel.mesh import Mesh
+from tpuflow_torch.parallel.mesh import Mesh, peer_copy
 
 F = np.float32
 MIN_SHARD_ROWS = 16   # below this the JAX pipeline replicates a level (halo.py:66-68)
@@ -158,28 +162,91 @@ def relax_sharded(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConfig, mes
     if mesh.row_spans_processes(data):
         return _relax_process_row(fxyz, uv, sc, cfg, mesh.row_ranks(data), shards, halo,
                                   k_outer, J)
-    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
-    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
-    uv_b = _pad(uv, shards, halo)
-    fxyz_b = _pad(fxyz, shards, halo)
-    J_b = _pad(J, shards, halo) if J is not None else [None] * len(shards)
-    T_b = [b.clone() for b in uv_b]
-    for i in range(cfg.outer_iterations_count):
-        if i % k_outer == 0:
-            _exchange(T_b, shards, halo)
-        for s, sh in enumerate(shards):
-            T_b[s] = _outer(T_b[s], uv_b[s], fxyz_b[s], J_b[s], sc, cfg, e_s2, e_d2, sh,
-                            uv.shape[1])
+    T_b = relax_padded(_pad(fxyz, shards, halo), _pad(uv, shards, halo),
+                       None if J is None else _pad(J, shards, halo), sc, cfg, shards, halo,
+                       k_outer, uv.shape[1])
     return torch.cat([T[:, sh.top:sh.top + sh.rows] for T, sh in zip(T_b, shards)], dim=1)
 
 
-def _outer(T, uv, fxyz, J, sc, cfg: FlowConfig, e_s2, e_d2, sh: ShardRows, h: int):
-    """One outer iteration of the plain version on a shard's padded block."""
-    hoist = outer_prologue_plain(T, uv, fxyz, sc.div2hx, sc.div2hy, sc.alpha_hx2, sc.alpha_hy2,
-                                 e_s2, e_d2, J=J, row0=sh.first, height=h)
-    for _ in range(cfg.inner_iterations_count):
-        T = jacobi_sweep_plain(T, uv, hoist)
-    return T
+def relax_padded(fxyz_b, uv_b, J_b, sc, cfg: FlowConfig, shards: List[ShardRows], halo: int,
+                 k_outer: int, h: int, prologue=outer_prologue_plain,
+                 sweeps=jacobi_sweeps_plain) -> List[torch.Tensor]:
+    """T's padded block of each shard after outer x inner relaxation from T
+    = uv, on padded blocks of uv, fxyz and J (None for grey) that hold their
+    halos' true rows, so the exchange before the first outer moves nothing
+    and is left out; T's halos are exchanged once every ``k_outer`` outers
+    after it. ``prologue`` and ``sweeps`` run each outer on a block (by
+    default the plain versions; the emulated lanes give the steps they
+    run)."""
+    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
+    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
+    J_b = [None] * len(shards) if J_b is None else J_b
+    T_b = [b.clone() for b in uv_b]
+    for i in range(cfg.outer_iterations_count):
+        if i and i % k_outer == 0:
+            _exchange(T_b, shards, halo)
+        for s, sh in enumerate(shards):
+            T_b[s] = _outer(T_b[s], uv_b[s], fxyz_b[s], J_b[s], sc, cfg, e_s2, e_d2, sh, h,
+                            prologue, sweeps)
+    return T_b
+
+
+def _outer(T, uv, fxyz, J, sc, cfg: FlowConfig, e_s2, e_d2, sh: ShardRows, h: int,
+           prologue=outer_prologue_plain, sweeps=jacobi_sweeps_plain):
+    """One outer iteration on a shard's padded block (the plain version by
+    default)."""
+    hoist = prologue(T, uv, fxyz, sc.div2hx, sc.div2hy, sc.alpha_hx2, sc.alpha_hy2,
+                     e_s2, e_d2, J=J, row0=sh.first, height=h)
+    return sweeps(T, uv, hoist, cfg.inner_iterations_count)
+
+
+def owned_rows(fields, groups, shards: List[ShardRows]) -> torch.Tensor:
+    """One whole field from each card's copy of it (``fields``, one a card
+    of ``groups``: (device, shard indices) a card): every shard's owned
+    rows from its card's copy."""
+    whole = torch.empty_like(fields[0])
+    for field, (_, ys) in zip(fields, groups):
+        for y in ys:
+            rows = slice(shards[y].row0, shards[y].row0 + shards[y].rows)
+            whole[:, rows] = field[:, rows].to(whole.device)
+    return whole
+
+
+def padded_rows(fields, groups, shards: List[ShardRows]) -> List[torch.Tensor]:
+    """Each shard's padded block from its own card's copy of a field
+    (``fields``, one a card of ``groups``), as the explicit route copies
+    it in: a copy of those rows, on its card."""
+    card = {y: c for c, (_, ys) in enumerate(groups) for y in ys}
+    return [fields[card[s]][:, sh.first:sh.first + sh.padded].contiguous()
+            for s, sh in enumerate(shards)]
+
+
+def card_rows(shards: List[ShardRows], ys, need=None) -> List[Tuple[int, int, int]]:
+    """The rows of T that the card holding shards ``ys`` gets from each
+    shard on the explicit route, (shard, lo, hi): its own shards' owned
+    rows, and every other shard's owned rows inside ``need`` (the rows of
+    T that the card's later steps read; every row where None)."""
+    out = []
+    for s, sh in enumerate(shards):
+        lo, hi = sh.row0, sh.row0 + sh.rows
+        if s not in ys and need is not None:
+            lo, hi = max(lo, need[0]), min(hi, need[1])
+        if lo < hi:
+            out.append((s, lo, hi))
+    return out
+
+
+def card_copies(shards: List[ShardRows], groups, needs, w: int) -> dict:
+    """The peer copies (``mesh.peer_copy``, a plane a copy) of one explicit
+    level's T in the form with one field set a card: the other shards'
+    owned rows that each card of ``groups`` (its shard indices) reads
+    (``needs``, one (lo, hi) a card), a w-wide level."""
+    messages = nbytes = 0
+    for ys, need in zip(groups, needs):
+        for s, lo, hi in card_rows(shards, ys, need):
+            if s not in ys:
+                messages, nbytes = messages + 2, nbytes + 2 * (hi - lo) * w * 4
+    return {"messages": messages, "bytes": nbytes}
 
 
 def _exchange_processes(block: torch.Tensor, s: int, shards: List[ShardRows], halo: int,
@@ -260,9 +327,8 @@ def _copy(dst: torch.Tensor, src: torch.Tensor, dst_stream, src_stream, after) -
     src.record_stream(dst_stream)
 
 
-def relax_sharded_explicit(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConfig,
-                           mesh: Mesh, k_outer: int = 1, J: Optional[torch.Tensor] = None,
-                           data: int = 0) -> torch.Tensor:
+def relax_sharded_explicit(fxyz, uv, sc, cfg: FlowConfig, mesh: Mesh, k_outer: int = 1,
+                           J=None, data: int = 0, rows=None):
     """``relax_sharded`` with shard s on position (``data``, s) of ``mesh``:
     its padded block on that position's device, its prologue (``row0``,
     ``height``: the block's place in the level) and k-sweep kernels on that
@@ -278,12 +344,25 @@ def relax_sharded_explicit(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowCo
     makes between positions and the level's fields in
     ``relax_sharded_explicit.copies``.
 
+    ``fxyz``, ``uv`` and ``J`` as tuples, one entry a card of a one-process
+    row (``mesh.row_groups(data)``'s order, each on its card: the level
+    driver's lanes, solver/level.py) return one T a card, each on its
+    card's current stream (``_explicit_cards``): each shard's block is
+    copied in from its own card's fields, and each card's T holds its own
+    shards' owned rows and, of the other shards' owned rows, those inside
+    its entry of ``rows`` ((lo, hi) a card: the rows of T its add + median
+    reads; all of them without ``rows``), which come as peer copies
+    (``mesh.peer_copy``). No other row of a card's T is written.
+
     On a row whose positions belong to several processes (one a process)
     every process of the row calls it at once with the level's fields,
     which each computed itself, and runs only its own shard: its blocks
     copied in from its fields, its exchanges as messages with the
     neighbour processes (``_explicit_process_row``), and every process gets
     the whole T."""
+    if isinstance(uv, (tuple, list)):
+        return _explicit_cards(tuple(fxyz), tuple(uv), sc, cfg, mesh, k_outer,
+                               None if J is None else tuple(J), data, rows)
     halo = check_sharded_args(fxyz, uv, cfg, mesh, k_outer, J)
     _, h, w = uv.shape
     shards = row_split(h, mesh.n_y, halo)
@@ -293,22 +372,42 @@ def relax_sharded_explicit(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowCo
     if any(mesh.devices[p].type != uv.device.type for p in positions):
         raise ValueError(f"fields on {uv.device} for shards on "
                          f"{[str(mesh.devices[p]) for p in positions]}")
-    streams = [mesh.stream(p) for p in positions]
     caller = torch.cuda.current_stream(uv.device) if uv.is_cuda else None
-    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
-    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
     fields = [uv, fxyz] + ([] if J is None else [J])
     ready = _event(caller)
-    blocks, T_b = [], []
-    for sh, p, stream in zip(shards, positions, streams):
+    T_b, streams, copies = _explicit_shards(lambda s: (fields, caller, ready), sc, cfg, mesh,
+                                            shards, halo, k_outer, data, h, w)
+    T = torch.empty_like(uv)
+    for s, (sh, stream) in enumerate(zip(shards, streams)):
+        _copy(T[:, sh.row0:sh.row0 + sh.rows], T_b[s][:, sh.top:sh.top + sh.rows], caller,
+              stream, _event(stream))
+    relax_sharded_explicit.copies += copies + len(shards)
+    return T
+
+
+def _explicit_shards(source, sc, cfg: FlowConfig, mesh: Mesh, shards: List[ShardRows],
+                     halo: int, k_outer: int, data: int, h: int, w: int):
+    """The explicit route's shards on their positions: each shard's padded
+    blocks copied in from ``source(s)`` (the fields uv, fxyz [, J], the
+    stream that wrote them and an event of it), its prologue and k-sweep
+    kernels on its position's stream, T's halos copied every ``k_outer``
+    outers after the first. Returns (T's padded blocks, the shards'
+    streams, the copies made)."""
+    positions = mesh.row(data)
+    streams = [mesh.stream(p) for p in positions]
+    e_s2 = F(cfg.equation_smoothness) * F(cfg.equation_smoothness)
+    e_d2 = F(cfg.equation_data) * F(cfg.equation_data)
+    blocks, T_b, copies = [], [], 0
+    for s, (sh, p, stream) in enumerate(zip(shards, positions, streams)):
+        fields, src_stream, ready = source(s)
         with mesh.on(p):
             mine = [torch.empty((x.shape[0], sh.padded, w), dtype=torch.float32,
                                 device=mesh.devices[p]) for x in fields]
             for block, x in zip(mine, fields):
-                _copy(block, x[:, sh.first:sh.first + sh.padded], stream, caller, ready)
+                _copy(block, x[:, sh.first:sh.first + sh.padded], stream, src_stream, ready)
             blocks.append(mine + [None] * (3 - len(mine)))
             T_b.append(mine[0].clone())
-    copies = len(fields) * len(shards)
+        copies += len(fields)
     for i in range(cfg.outer_iterations_count):
         if i and i % k_outer == 0:
             swept = [_event(stream) for stream in streams]
@@ -326,12 +425,62 @@ def relax_sharded_explicit(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowCo
                 hoist = outer_prologue(T_b[s], uv_s, fxyz_s, sc.div2hx, sc.div2hy, sc.alpha_hx2,
                                        sc.alpha_hy2, e_s2, e_d2, J_s, row0=sh.first, height=h)
                 T_b[s] = jacobi_sweeps(T_b[s], uv_s, hoist, cfg.inner_iterations_count)
-    T = torch.empty_like(uv)
-    for s, (sh, stream) in enumerate(zip(shards, streams)):
-        _copy(T[:, sh.row0:sh.row0 + sh.rows], T_b[s][:, sh.top:sh.top + sh.rows], caller,
-              stream, _event(stream))
-    relax_sharded_explicit.copies += copies + len(shards)
-    return T
+    return T_b, streams, copies
+
+
+def check_card_fields(groups, uv, fxyz, J) -> list:
+    """Check one field set a card of a one-process row (``groups``,
+    ``Mesh.row_groups``'s): each of uv, fxyz and J (None for grey) one
+    tensor a card, on that card. Returns the cards."""
+    cards = [dev for dev, _ in groups]
+    for name, fields in [("uv", uv), ("fxyz", fxyz)] + ([] if J is None else [("J", J)]):
+        if len(fields) != len(cards) or any(f.device != dev for f, dev in zip(fields, cards)):
+            raise ValueError(f"{name}: one tensor a card of the row, on "
+                             f"{[str(d) for d in cards]}, got "
+                             f"{[str(f.device) for f in fields]}")
+    return cards
+
+
+def _explicit_cards(fxyz, uv, sc, cfg: FlowConfig, mesh: Mesh, k_outer: int, J, data: int,
+                    rows) -> Tuple[torch.Tensor, ...]:
+    """``relax_sharded_explicit`` with one field set a card of a one-process
+    row (its docstring): each shard's blocks copied in from its own card's
+    fields after an event of that card's current stream, one T a card."""
+    groups = mesh.row_groups(data)
+    cards = check_card_fields(groups, uv, fxyz, J)
+    n = len(cards)
+    if rows is not None and len(rows) != n:
+        raise ValueError(f"rows: one (lo, hi) a card of the row, got {len(rows)} for {n}")
+    if mesh.row_spans_processes(data):
+        raise ValueError("a row over processes gives each process its own fields alone")
+    halo = check_sharded_args(fxyz[0], uv[0], cfg, mesh, k_outer, None if J is None else J[0])
+    _, h, w = uv[0].shape
+    shards = row_split(h, mesh.n_y, halo)
+    card = {y: c for c, (_, ys) in enumerate(groups) for y in ys}
+    callers = [torch.cuda.current_stream(dev) if dev.type == "cuda" else None for dev in cards]
+    ready = [_event(caller) for caller in callers]   # each card's fields are in
+
+    def source(s):
+        c = card[s]
+        return [uv[c], fxyz[c]] + ([] if J is None else [J[c]]), callers[c], ready[c]
+
+    T_b, streams, copies = _explicit_shards(source, sc, cfg, mesh, shards, halo, k_outer, data,
+                                            h, w)
+    Ts = []
+    for c, (dev, ys) in enumerate(groups):
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            T = torch.empty_like(uv[c])   # on the card's current stream
+        for s, lo, hi in card_rows(shards, ys, None if rows is None else rows[c]):
+            a, b = lo - shards[s].first, hi - shards[s].first
+            if s in ys:
+                _copy(T[:, lo:hi], T_b[s][:, a:b], callers[c], streams[s], _event(streams[s]))
+                copies += 1
+            else:
+                for plane in range(2):
+                    peer_copy(T[plane, lo:hi], T_b[s][plane, a:b], callers[c], streams[s])
+        Ts.append(T)
+    relax_sharded_explicit.copies += copies
+    return tuple(Ts)
 
 
 relax_sharded_explicit.copies = 0
@@ -412,25 +561,33 @@ def _explicit_process_row(fxyz, uv, sc, cfg: FlowConfig, mesh: Mesh, shards: Lis
     return T
 
 
+def explicit_exchanges(cfg: FlowConfig, k_outer: int) -> int:
+    """The halo exchanges of T in one explicit relaxation: one every
+    ``k_outer`` outers after the first."""
+    return max(-(-cfg.outer_iterations_count // k_outer) - 1, 0)
+
+
 def explicit_sends(cfg: FlowConfig, n_y: int, k_outer: int, shard: int) -> int:
     """The messages that the process holding shard ``shard`` of a row of
     ``n_y`` processes sends in one ``relax_sharded_explicit`` call, one a
     plane: two to each neighbour an exchange after the first, two to each
     other process of the row at the end."""
-    exchanges = max(-(-cfg.outer_iterations_count // k_outer) - 1, 0)
     neighbours = (shard > 0) + (shard < n_y - 1)
-    return exchanges * 2 * neighbours + 2 * (n_y - 1)
+    return explicit_exchanges(cfg, k_outer) * 2 * neighbours + 2 * (n_y - 1)
 
 
 def explicit_copies(h: int, cfg: FlowConfig, n_y: int, k_outer: int = 1,
                     tensor: bool = False, shard: Optional[int] = None) -> int:
     """The copies of one ``relax_sharded_explicit`` call: each shard's
     blocks in (uv, fxyz and J), the halos of every exchange after the first,
-    and the owned rows out. With ``shard``, the process form: those of the
-    process that holds shard ``shard`` of a row over processes, its blocks
-    in and its owned rows into T (its messages are ``explicit_sends``)."""
+    and the owned rows out. The form with one field set a card makes the
+    same: each shard's blocks from its own card's fields, and its owned
+    rows into its own card's T (the rows of T that cross cards are peer
+    copies, ``card_copies``). With ``shard``, the process form: those of
+    the process that holds shard ``shard`` of a row over processes, its
+    blocks in and its owned rows into T (its messages are
+    ``explicit_sends``)."""
     fields = 3 if tensor else 2
     if shard is not None:
         return fields + 1
-    exchanges = max(-(-cfg.outer_iterations_count // k_outer) - 1, 0)
-    return n_y * fields + exchanges * 2 * (n_y - 1) + n_y
+    return n_y * fields + explicit_exchanges(cfg, k_outer) * 2 * (n_y - 1) + n_y

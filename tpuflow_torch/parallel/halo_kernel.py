@@ -71,7 +71,7 @@ from tpuflow_torch.config import FlowConfig
 from tpuflow_torch.ops.cuda_lib import call, on_cuda
 from tpuflow_torch.ops.level import KMAX, KSWEEP_RW
 from tpuflow_torch.parallel.halo import (
-    check_sharded_args, halo_applicable, relax_sharded, row_split,
+    check_card_fields, check_sharded_args, halo_applicable, owned_rows, relax_sharded, row_split,
 )
 from tpuflow_torch.parallel.mesh import MAX_SHARDS, Mesh, card_stream, enable_peer_access
 
@@ -176,7 +176,7 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
                          mesh: Mesh, k_outer: int = 1, J: Optional[torch.Tensor] = None,
                          syncs: Optional[torch.Tensor] = None,
                          barriers: Optional[torch.Tensor] = None, data: int = 0,
-                         reserve: Optional[Tuple[int, int]] = None,
+                         reserve: Optional[Tuple[int, int]] = None, rows=None,
                          _skip_card: Optional[int] = None) -> torch.Tensor:
     """T (2, h, w) after outer x inner relaxation with rows sharded over data
     row ``data`` of ``mesh`` and halos exchanged once every ``k_outer``
@@ -200,8 +200,10 @@ def relax_sharded_kernel(fxyz: torch.Tensor, uv: torch.Tensor, sc, cfg: FlowConf
     row over several cards (``mesh.row_groups(data)``'s order, each on its
     card, each holding at least its card's shards' owned rows) return a
     tuple of T, one whole T a card, each on its card's current stream
-    (module docstring). On CPU tensors the plain version relaxes the
-    owned rows that each card's launch would copy in."""
+    (module docstring); ``rows``, the rows of T each card's later steps
+    read (``relax_sharded_explicit``'s), then hold, since every card's T
+    is whole. On CPU tensors the plain version relaxes the owned rows that
+    each card's launch would copy in."""
     if cfg.inner_iterations_count < 1:
         raise ValueError("relax_sharded_kernel needs at least one inner sweep per outer")
     if isinstance(uv, (tuple, list)):
@@ -281,31 +283,14 @@ def _shard_buffers(groups, streams, shards, planes: int, w: int, after) -> tuple
     return bufs, shard_card
 
 
-def owned_rows(fields: Tuple[torch.Tensor, ...], groups, shards) -> torch.Tensor:
-    """One whole field from each card's copy of it: every shard's owned
-    rows from its card's (``groups``: (device, shard indices) a card)."""
-    whole = torch.empty_like(fields[0])
-    for field, (_, ys) in zip(fields, groups):
-        for y in ys:
-            rows = slice(shards[y].row0, shards[y].row0 + shards[y].rows)
-            whole[:, rows] = field[:, rows].to(whole.device)
-    return whole
-
-
 def _relax_card_fields(fxyz, uv, sc, cfg: FlowConfig, mesh: Mesh, k_outer: int, J, syncs,
                        barriers, data: int, skip: Optional[int]) -> Tuple[torch.Tensor, ...]:
     """``relax_sharded_kernel`` with one field set a card of a one-process
     row: one launch a card, each card's copy-in from its own fields, every
     card's T filled (module docstring)."""
     groups = mesh.row_groups(data)
-    cards = tuple(dev for dev, _ in groups)
+    cards = tuple(check_card_fields(groups, uv, fxyz, J))
     n = len(cards)
-    sets = [("uv", uv), ("fxyz", fxyz)] + ([] if J is None else [("J", J)])
-    for name, fields in sets:
-        if len(fields) != n or any(f.device != dev for f, dev in zip(fields, cards)):
-            raise ValueError(f"{name}: one tensor a card of the row, on "
-                             f"{[str(d) for d in cards]}, got "
-                             f"{[str(f.device) for f in fields]}")
     halo = check_sharded_args(fxyz[0], uv[0], cfg, mesh, k_outer, None if J is None else J[0])
     _, h, w = uv[0].shape
     shards = row_split(h, mesh.n_y, halo)

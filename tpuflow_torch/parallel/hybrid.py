@@ -15,6 +15,19 @@ phases:
 padding: a position simply takes fewer of them. Each pair's flow is
 bitwise that of ``compute_flow`` on the pair alone.
 
+Phase B is one ``solve`` of the levels from the split with
+``solver.sharded.sharded_solve``'s keywords, found once for each data row:
+the relaxation on the router's routes and, where the row spans several
+cards of this process, the lanes (solver/level.py), which compute each
+card's own rows of the whole-field stages over the schedule's suffix of
+sharded levels. The pair and the flow of the last phase-A level come to
+the row's first card; each other card then receives the smoothed pair
+from it, and the rows of the flow its plan reads at the first banded
+level from the split on (``max(split, start)``), and its owned rows of
+the finest flow go back to the first card. The levels from the split to
+the suffix, and a row on one card, run on the row's first card. A split
+past the finest level solves nothing there, and gathers nothing.
+
 On a mesh over processes (one position a process) every process calls it
 with the whole stack. Phase A runs this process's pairs (b % mesh.size is
 its position); then pair b's owner sends its working set (the smoothed
@@ -47,7 +60,7 @@ from tpuflow_torch.solver.flow2d import (
 )
 from tpuflow_torch.solver.level import smooth_pair, solve
 from tpuflow_torch.solver.sharded import (
-    row_device, sharded_plan, sharded_relax_for, sharded_solve,
+    row_device, sharded_plan, sharded_solve,
 )
 from tpuflow_torch.utils.timing import Timer
 
@@ -101,7 +114,7 @@ def compute_flow_hybrid(frames_0, frames_1, cfg: Optional[FlowConfig] = None, *,
         raise ValueError(f"split_level {g0} outside the {n} levels of a {w}x{h} pair")
     if mesh.spans_processes:
         return _hybrid_processes(f0, f1, cfg, mesh, g0, n)
-    relax_for = [sharded_relax_for(cfg, mesh, "auto", data=d) for d in range(mesh.n_data)]
+    sharded = [sharded_solve(cfg, mesh, (h, w), data=d) for d in range(mesh.n_data)]
     with _full_float32(), Timer() as timer:
         tails = []
         for i in range(b):                     # phase A
@@ -121,7 +134,7 @@ def compute_flow_hybrid(frames_0, frames_1, cfg: Optional[FlowConfig] = None, *,
                 uv = None if uv is None else _move(uv, p, home, mesh)
             with _on(mesh.devices[home]), mesh.on(home):
                 flows.append((home, solve(smoothed[0], smoothed[1], cfg, levels=range(g0, n),
-                                          uv=uv, smoothed=True, relax_for=relax_for[data])))
+                                          uv=uv, smoothed=True, **sharded[data])))
         out = np.empty((2, b, h, w), dtype=np.float32)
         for i, (home, flow) in enumerate(flows):
             with mesh.on(home):

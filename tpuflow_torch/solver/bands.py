@@ -16,12 +16,16 @@ each way with every other rank).
 
 One process driving a row over several cards does the same with a *lane*
 a card (``Lane``: the card's plan, device and stream), each card's plan
-the hull of its shards' rows (``lane_plans``). Only the kernel route gives
-each card its own T there (its copy-out into every card's T, each card's
-copy-in from its own fields), so the suffix is that of kernel levels
-(``LANE_ROUTES``); the level driver steps the lanes level by level
-(solver/level.py::solve), and the finest flow's owned rows reach the first
-card as peer copies (``gather_lanes``).
+the hull of its shards' rows (``lane_plans``), over the same suffix of
+sharded levels, kernel and explicit alike. Both routes read each card's
+own fields and give each card its own T there: the kernel's copy-out
+stores every shard's owned rows into every card's T, and the explicit
+route copies each shard's padded block in from its own card's fields and
+gives each card its own shards' owned rows and, as peer copies, the
+other shards' rows of T that its add + median reads (``LevelRows.T``).
+The level driver steps the lanes level by level (solver/level.py::solve),
+and the finest flow's owned rows reach the first card as peer copies
+(``gather_lanes``).
 
 ``band_plan`` finds those rows backward from the finest level, whose median
 rows are the process's owned rows:
@@ -35,7 +39,8 @@ rows are the process's owned rows:
     of each fxyz row -+ 1) and, for the log tensor, the rows its log1p
     derivatives read through the clamp and then the reflect;
   * uv over the warp's rows, ``C``, and the rows the median's windows read
-    (``refl`` of each median row -+ R/2);
+    (``refl`` of each median row -+ R/2), which are also the rows of T
+    that add + median reads;
   * the previous level's median rows: the coarse rows that the resample's
     Y windows read over this level's uv rows (``banded.band_span``), since
     row_split rounds each level's owned rows on its own, so a fixed pad
@@ -65,15 +70,16 @@ from tpuflow_torch.ops.median import effective_radius
 from tpuflow_torch.ops.resample import resample_band
 from tpuflow_torch.ops.solver_ops import clamp, refl
 from tpuflow_torch.parallel.group import row_exchange
-from tpuflow_torch.parallel.halo import halo_rows, relax_sharded, row_split
+from tpuflow_torch.parallel.halo import (
+    card_copies, card_rows, halo_rows, owned_rows, padded_rows, relax_padded, relax_sharded,
+    row_split,
+)
 from tpuflow_torch.parallel.mesh import Mesh, peer_copy
 from tpuflow_torch.pyramid import level_schedule
 
 Rows = Tuple[int, int]
-# The routes whose levels are banded over processes, and in one process
-# (where only the kernel gives each card its own T).
+# The routes whose levels are banded, over processes and by lanes.
 SHARDED_ROUTES = ("kernel", "explicit")
-LANE_ROUTES = ("kernel",)
 # each row stage (``ops.level.row_counts``' names) and its field of ``LevelRows``
 STAGE_ROWS = {"resample": "uv", "warp": "warp", "level_derivs": "fxyz", "level_tensor": "J",
               "add_median": "median"}
@@ -83,13 +89,15 @@ STAGE_ROWS = {"resample": "uv", "warp": "warp", "level_derivs": "fxyz", "level_t
 class LevelRows:
     """A banded level's output rows (lo, hi) of each stage: the resampled
     flow, the warped frame, fxyz, J (the relaxation's rows of its inputs)
-    and add + median."""
+    and add + median; and T, the rows of the relaxation's output that add +
+    median reads."""
 
     uv: Rows
     warp: Rows
     fxyz: Rows
     J: Rows
     median: Rows
+    T: Rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +110,7 @@ class BandPlan:
     of the flow of the level before ``start`` that the plan reads (None
     where ``start`` is 0). ``ranks`` are the row's ranks, between which
     ``gather_rows`` moves the finest flow (None: no gather between
-    processes)."""
+    processes). ``routes`` are the levels' (route, k), as ``levels``."""
 
     start: int
     levels: Tuple[LevelRows, ...]
@@ -110,6 +118,7 @@ class BandPlan:
     shard: Union[int, Tuple[int, ...]]
     ranks: Optional[Tuple[int, ...]] = None
     prior: Optional[Rows] = None
+    routes: Tuple[Tuple[str, int], ...] = ()
 
     @property
     def shards(self) -> Tuple[int, ...]:
@@ -119,6 +128,10 @@ class BandPlan:
         """The rows of the level at schedule ``position``; None before the
         suffix."""
         return self.levels[position - self.start] if position >= self.start else None
+
+    def route(self, position: int) -> Tuple[str, int]:
+        """The (route, k) of the banded level at schedule ``position``."""
+        return self.routes[position - self.start]
 
     def entry(self, position: int) -> Rows:
         """The rows of the flow of the level before banded ``position`` that
@@ -138,19 +151,20 @@ class Lane:
 
 
 def stage_rows(w: int, h: int, cfg: FlowConfig, plan: Optional[BandPlan],
-               prefix: bool = True) -> dict:
+               prefix: bool = True, levels: Optional[range] = None) -> dict:
     """The output rows that a w x h pair's solve computes of each row stage
-    (``ops.level.row_counts``' names), summed over its levels: the plan's
-    at its banded levels, every row at the others (all of them without a
-    plan); without ``prefix`` none before the plan's suffix (a lane after
-    the first card's, ``ops.level.row_counts(lane)``). ``solve`` resamples
-    no flow at the coarsest level nor where the size stays, and takes no
-    tensor for grey."""
+    (``ops.level.row_counts``' names), summed over its levels (those of
+    ``levels``, where given: a solve in parts): the plan's at its banded
+    levels, every row at the others (all of them without a plan); without
+    ``prefix`` none before the plan's suffix (a lane after the first
+    card's, ``ops.level.row_counts(lane)``). ``solve`` resamples no flow at
+    the coarsest level nor where the size stays, and takes no tensor for
+    grey."""
     specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
     out = dict.fromkeys(STAGE_ROWS, 0)
     for p, spec in enumerate(specs):
         lv = plan.at(p) if plan is not None else None
-        if lv is None and not prefix:
+        if (lv is None and not prefix) or (levels is not None and p not in levels):
             continue
         for stage, field in STAGE_ROWS.items():
             if stage == "resample" and (not p or (specs[p - 1].width, specs[p - 1].height)
@@ -186,35 +200,34 @@ def level_rows(h: int, median: Rows, copy_in: Rows, cfg: FlowConfig) -> LevelRow
     if constancy == DataConstancy.LOG_DERIVATIVES:
         g = reach(copy_in, 1, h, clamp)        # the log derivatives the tensor reads
         warp = hull(warp, g, reach(g, 1, h, refl))
-    r2 = effective_radius(cfg.median_radius) // 2
-    uv = hull(warp, copy_in, reach(median, r2, h, refl))
-    return LevelRows(uv=uv, warp=warp, fxyz=fxyz, J=copy_in, median=median)
+    T = reach(median, effective_radius(cfg.median_radius) // 2, h, refl)
+    uv = hull(warp, copy_in, T)
+    return LevelRows(uv=uv, warp=warp, fxyz=fxyz, J=copy_in, median=median, T=T)
 
 
 def band_plan(w: int, h: int, cfg: FlowConfig, routes: Sequence[Tuple[str, int]], n_y: int,
-              shard: Union[int, Sequence[int]], ranks: Optional[Sequence[int]] = None,
-              banded: Sequence[str] = SHARDED_ROUTES) -> Optional[BandPlan]:
+              shard: Union[int, Sequence[int]],
+              ranks: Optional[Sequence[int]] = None) -> Optional[BandPlan]:
     """Shard ``shard``'s plan (``BandPlan``; shards in a sequence: the hull
     of their rows, a card's) of a w x h pair over a row of ``n_y`` shards
     whose levels, coarse to fine, take ``routes`` ((route, k) a level,
-    ``solver.sharded.sharded_plan``'s); None where the finest level's route
-    is not in ``banded``. The banded levels are the suffix after the last
-    level of any route not in ``banded``. Found once for each set of
-    arguments."""
+    ``solver.sharded.sharded_plan``'s); None where the finest level is
+    replicated. The banded levels are the suffix after the last replicated
+    level (``SHARDED_ROUTES``). Found once for each set of arguments."""
     return _band_plan(w, h, cfg, tuple((r, k) for r, k in routes), n_y,
                       shard if isinstance(shard, int) else tuple(shard),
-                      None if ranks is None else tuple(ranks), tuple(banded))
+                      None if ranks is None else tuple(ranks))
 
 
 @functools.lru_cache(maxsize=64)
 def _band_plan(w: int, h: int, cfg: FlowConfig, routes: Tuple[Tuple[str, int], ...], n_y: int,
-               shard: Union[int, Tuple[int, ...]], ranks: Optional[Tuple[int, ...]],
-               banded: Tuple[str, ...]) -> Optional[BandPlan]:
+               shard: Union[int, Tuple[int, ...]],
+               ranks: Optional[Tuple[int, ...]]) -> Optional[BandPlan]:
     specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
     if len(routes) != len(specs):
         raise ValueError(f"{len(routes)} routes for the {len(specs)} levels of a {w}x{h} pair")
     start = len(specs)
-    while start and routes[start - 1][0] in banded:
+    while start and routes[start - 1][0] in SHARDED_ROUTES:
         start -= 1
     if start == len(specs):
         return None
@@ -235,17 +248,17 @@ def _band_plan(w: int, h: int, cfg: FlowConfig, routes: Tuple[Tuple[str, int], .
             if (prev.width, prev.height) != (spec.width, spec.height):
                 median = band_span(resample_band(prev.height, spec.height), *lv.uv)
     return BandPlan(start=start, levels=tuple(reversed(levels)), owned=owned, shard=shard,
-                    ranks=ranks, prior=median if start else None)
+                    ranks=ranks, prior=median if start else None, routes=routes[start:])
 
 
 def lane_plans(w: int, h: int, cfg: FlowConfig, routes: Sequence[Tuple[str, int]], n_y: int,
                groups: Sequence[Sequence[int]]) -> Optional[Tuple[BandPlan, ...]]:
     """The plan of each card of a one-process row (``groups``: each card's
-    shards, in ``Mesh.row_groups`` order) over the suffix of kernel levels
-    (``LANE_ROUTES``); None where the finest level is not on the kernel
-    route."""
-    plans = tuple(band_plan(w, h, cfg, routes, n_y, ys[0] if len(ys) == 1 else tuple(ys),
-                            banded=LANE_ROUTES) for ys in groups)
+    shards, in ``Mesh.row_groups`` order) over the suffix of sharded
+    levels, kernel and explicit alike; None where the finest level is
+    replicated."""
+    plans = tuple(band_plan(w, h, cfg, routes, n_y, ys[0] if len(ys) == 1 else tuple(ys))
+                  for ys in groups)
     return None if plans[0] is None else plans
 
 
@@ -306,23 +319,37 @@ def poisoned(steps, fill: float):
                                                 device=device))
 
 
-def lane_copies(w: int, h: int, cfg: FlowConfig, plans: Sequence[BandPlan]) -> dict:
+def lane_copies(w: int, h: int, cfg: FlowConfig, plans: Sequence[BandPlan],
+                start: int = 0) -> dict:
     """The peer copies (``mesh.peer_copy``) of a w x h pair's lane solve
-    from the coarsest level with ``plans`` (one a lane): to each other lane
-    the pair, then the entry rows of the flow before the suffix (a plane a
-    copy; none where the suffix starts at level 0), and from it at the end
+    with ``plans`` (one a lane) from schedule position ``start`` (the
+    hybrid's split; a solve of no level makes none): to each other lane the
+    pair, then the entry rows of the flow before its first banded level
+    (a plane a copy; none where that is level 0); at each explicit level
+    the other shards' rows of T that each card reads (``halo.card_copies``,
+    every lane, the first included); and from each other lane at the end
     its shards' owned rows of the finest flow (a plane a copy)."""
     specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
     messages = nbytes = 0
+    if start >= len(specs):
+        return {"messages": messages, "bytes": nbytes}
+    first = max(start, plans[0].start)
     for plan in plans[1:]:
         messages, nbytes = messages + 1, nbytes + 2 * h * w * 4
-        if plan.start:
-            lo, hi = plan.prior
+        if first:
+            lo, hi = plan.entry(first)
             messages += 2
-            nbytes += 2 * (hi - lo) * specs[plan.start - 1].width * 4
+            nbytes += 2 * (hi - lo) * specs[first - 1].width * 4
         for s in plan.shards:
             lo, hi = plan.owned[s]
             messages, nbytes = messages + 2, nbytes + 2 * (hi - lo) * w * 4
+    groups = [plan.shards for plan in plans]
+    for p in range(first, len(specs)):
+        route, k = plans[0].route(p)
+        if route == "explicit":
+            split = row_split(specs[p].height, len(plans[0].owned), halo_rows(cfg, k))
+            got = card_copies(split, groups, [plan.at(p).T for plan in plans], specs[p].width)
+            messages, nbytes = messages + got["messages"], nbytes + got["bytes"]
     return {"messages": messages, "bytes": nbytes}
 
 
@@ -378,20 +405,27 @@ def emulate_shard(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig, plan: Ban
 def emulate_lanes(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
                   routes: Sequence[Tuple[str, int]], n_y: int,
                   groups: Optional[Sequence[Sequence[int]]] = None, fill: Optional[float] = None,
+                  levels: Optional[range] = None, uv: Optional[torch.Tensor] = None,
+                  smoothed: bool = False,
                   _steps=None) -> Tuple[torch.Tensor, Tuple[BandPlan, ...]]:
     """A one-process row over several cards, every lane on f0's device:
-    the level driver's lanes (``solve(..., bands=lanes)``), one a group of
-    shards (``groups``, by default one shard a lane) over a row of ``n_y``
-    shards whose levels take ``routes``, with their plans
-    (``lane_plans``). Each suffix level's relaxation is the plain
-    ``relax_sharded`` over the owned rows each lane's card would copy in
-    (``halo_kernel.owned_rows``), and every lane gets its own copy of T;
-    the levels before the suffix relax by ``relax``. Where ``fill`` is set
-    every banded stage writes its rows into a whole-size buffer of
-    ``fill`` (``poisoned``). Returns (the first lane's finest flow after
+    the level driver's lanes (``solve(..., bands=lanes)``, with ``levels``,
+    ``uv`` and ``smoothed`` as ``solve`` takes them: the hybrid's fine
+    part), one a group of shards (``groups``, by default one shard a lane)
+    over a row of ``n_y`` shards whose levels take ``routes``, with their
+    plans (``lane_plans``). A kernel level of the suffix relaxes by the
+    plain ``relax_sharded`` over the owned rows each lane's card would copy
+    in (``halo.owned_rows``), and every lane gets its own copy of T; an
+    explicit level relaxes each shard's padded block from its own lane's
+    fields (``halo.padded_rows``, ``halo.relax_padded`` with the steps'
+    prologue and sweeps: the plain versions on the CPU), and each lane's T
+    holds only the rows the explicit route gives it (``halo.card_rows``),
+    the rest ``fill`` (NaN without it), the other lanes' rows by
+    ``peer_copy``; the levels before the suffix relax by ``relax``. Where
+    ``fill`` is set every banded stage writes its rows into a whole-size
+    buffer of ``fill`` (``poisoned``). Returns (the first lane's flow after
     the gather, the plans); each lane's rows count under its index
     (``ops.level.row_counts(lane)``)."""
-    from tpuflow_torch.parallel.halo_kernel import owned_rows
     from tpuflow_torch.solver.level import KERNEL_STEPS, relax, solve
 
     steps = KERNEL_STEPS if _steps is None else _steps
@@ -400,24 +434,45 @@ def emulate_lanes(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
               else tuple(tuple(ys) for ys in groups))
     plans = lane_plans(w, h, cfg, routes, n_y, groups)
     if plans is None:
-        raise ValueError("the finest level is not on the kernel route: no lanes")
+        raise ValueError("the finest level is replicated: no lanes")
     specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
-    ks = {(s.height, s.width): k for s, (_, k) in zip(specs, routes)}
+    positions = iter(range(len(specs)) if levels is None else levels)
     cards = [(f0.device, ys) for ys in groups]
     mesh = Mesh(n_y, f0.device)
+    poison = float("nan") if fill is None else fill
 
     def relax_for(lh, lw):
-        def fn(fxyz, uv, sc, cfg, J=None):
+        route, k = routes[next(positions)]
+
+        def fn(fxyz, uv, sc, cfg, J=None, rows=None):
             if not isinstance(uv, tuple):
                 return relax(fxyz, uv, sc, cfg, _steps=steps, J=J)
-            k = ks[(lh, lw)]
-            split = row_split(lh, n_y, halo_rows(cfg, k))
-            T = relax_sharded(owned_rows(fxyz, cards, split), owned_rows(uv, cards, split), sc,
-                              cfg, mesh, k, None if J is None else owned_rows(J, cards, split))
-            return tuple(T.clone() for _ in uv)
+            halo = halo_rows(cfg, k)
+            split = row_split(lh, n_y, halo)
+            if route == "kernel":
+                T = relax_sharded(owned_rows(fxyz, cards, split), owned_rows(uv, cards, split),
+                                  sc, cfg, mesh, k,
+                                  None if J is None else owned_rows(J, cards, split))
+                return tuple(T.clone() for _ in uv)
+            T_b = relax_padded(padded_rows(fxyz, cards, split), padded_rows(uv, cards, split),
+                               None if J is None else padded_rows(J, cards, split), sc, cfg,
+                               split, halo, k, lh, steps.outer_prologue, steps.jacobi_sweeps)
+            Ts = []
+            for (_, ys), need, mine in zip(cards, rows, uv):
+                T = torch.full_like(mine, poison)
+                for s, lo, hi in card_rows(split, ys, need):
+                    got = T_b[s][:, lo - split[s].first:hi - split[s].first]
+                    if s in ys:
+                        T[:, lo:hi] = got
+                    else:   # from another lane's card, as the explicit route copies it
+                        for plane in range(2):
+                            peer_copy(T[plane, lo:hi], got[plane])
+                Ts.append(T)
+            return tuple(Ts)
         return fn
 
     if fill is not None:
         steps = poisoned(steps, fill)
     lanes = [Lane(plan, f0.device) for plan in plans]
-    return solve(f0, f1, cfg, steps, relax_for=relax_for, bands=lanes), plans
+    return solve(f0, f1, cfg, steps, relax_for=relax_for, levels=levels, uv=uv,
+                 smoothed=smoothed, bands=lanes), plans

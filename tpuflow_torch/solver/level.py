@@ -26,9 +26,10 @@ cards it is every card of the row, each a lane (``bands.Lane``) with its
 own frames, pyramid, flow and stream; the levels before the suffix run on
 the first card, and from the suffix's first level on the lanes are stepped
 together, level by level: every lane's resample, warp, derivatives and
-tensor over its rows, one relaxation call for the row (the kernel, which
-reads each card's fields and fills each card's T), every lane's add +
-median. A lane's stages are the calls a process makes over its rows.
+tensor over its rows, one relaxation call for the row on the level's
+route (the kernel or the explicit route, each of which reads each card's
+fields and gives each card its own T), every lane's add + median. A
+lane's stages are the calls a process makes over its rows.
 """
 
 from __future__ import annotations
@@ -323,10 +324,11 @@ def _lanes_level(runs: List[_LaneRun], position: int, spec, sc: LevelScalars,
                  cfg: FlowConfig, _steps: Steps, relax_fn: Optional[RelaxFn]) -> None:
     """One banded level on every lane: each lane's stages up to the
     relaxation over its rows, one relaxation call for the row with every
-    lane's fields (one tuple each, every lane's stream current), then each
-    lane's add + median over its rows."""
+    lane's fields (one tuple each, every lane's stream current) and the
+    rows of T each lane's add + median reads (``rows``), then each lane's
+    add + median over its rows."""
     if relax_fn is None:
-        raise ValueError("lanes relax by the row's kernel: give relax_for")
+        raise ValueError("lanes relax on the row's routes: give relax_for")
     cw, ch = spec.width, spec.height
     fields = []
     for run in runs:
@@ -345,7 +347,8 @@ def _lanes_level(runs: List[_LaneRun], position: int, spec, sc: LevelScalars,
         for run in runs:
             every.enter_context(run.on())
         T = relax_fn(fxyz, tuple(run.uv for run in runs), sc, cfg,
-                     J=None if J[0] is None else J)
+                     J=None if J[0] is None else J,
+                     rows=tuple(run.lane.plan.at(position).T for run in runs))
     for run, T_lane in zip(runs, T):
         with run.on():
             run.uv = _steps.add_median(T_lane, run.uv, cfg.median_radius,
@@ -393,13 +396,16 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
     the flow holds this shard's owned rows alone). A sequence of
     ``bands.Lane`` (one a card of a one-process row, the first on f0's
     device) steps every lane through the suffix together (module
-    docstring): each other card first gets the pair (a peer copy), smooths
-    it and takes its own frame pyramid, then at the suffix's first level
-    the rows of the first card's flow that its plan reads; ``relax_for``
-    gives each suffix level's relaxation, which takes one field tuple a
-    lane and returns one T a lane; the finest flow's owned rows then reach
-    the first card (``bands.gather_lanes``). A banded solve takes no
-    ``tiers``, and ``levels`` must end at the finest level.
+    docstring): each other card first gets the pair (a peer copy; with
+    ``smoothed`` the smoothed pair, else it smooths it), takes its own
+    frame pyramid, then at the first banded level of ``levels`` the rows of
+    the first card's flow that its plan reads; ``relax_for`` gives each
+    suffix level's relaxation, which takes one field tuple a lane and the
+    rows of T each lane reads, and returns one T a lane; the finest flow's
+    owned rows then reach the first card (``bands.gather_lanes``). A
+    banded solve takes no ``tiers``, and ``levels`` must end at the finest
+    level; one of no level (the hybrid's split past the finest) makes no
+    lane and gathers nothing.
     """
     h0, w0 = f0.shape
     if min(h0, w0) < 4:
@@ -423,7 +429,7 @@ def solve(f0: torch.Tensor, f1: torch.Tensor, cfg: FlowConfig,
     sizes = _pyramid_sizes(specs, (w0, h0))
     pyramid = dict(zip(sizes, resample_levels(frames, sizes)))
     runs = None
-    if len(lanes) > 1:
+    if len(lanes) > 1 and len(levels):
         # every card but the first runs the suffix alone
         first = max(levels.start, plan.start)
         runs = _lane_runs(lanes, _LaneRun(lanes[0], 0, frames, pyramid), pair, smoothed, cfg,

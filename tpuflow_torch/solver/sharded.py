@@ -51,15 +51,17 @@ whole on every process.
 One process driving a row over several cards (``mesh.row_cards(data) >=
 2``, peer access between them) does the same by lanes, one a card
 (``sharded_lanes``, ``solver.bands.lane_plans``; solver/level.py steps
-them), over the suffix of kernel levels alone: the kernel is the route
-that reads each card's own fields and fills each card's T. Each card
-smooths the pair and takes its frame pyramid itself; the finest flow's
-owned rows reach the first card as peer copies. The whole field stays on
-the first card, by routing rules decided from the plan before any launch:
-at the levels before that suffix (the replicated ones, the explicit
-route's, and any kernel level before one of them), on a row on one card,
-and in the one-process hybrid's fine part (parallel/hybrid.py, which
-relaxes by ``sharded_relax_for`` alone).
+them), over the same suffix of sharded levels, kernel and explicit alike:
+each route reads each card's own fields and gives each card its own T
+(the kernel's copy-out fills every card's T; the explicit route gives
+each card its own shards' owned rows and, as peer copies, the other
+shards' rows that its add + median reads). Each card smooths the pair and
+takes its frame pyramid itself; the finest flow's owned rows reach the
+first card as peer copies. The one-process hybrid's fine part
+(parallel/hybrid.py) takes the same lanes from its split on. The whole
+field stays on the first card only by routing rules decided from the
+plan before any launch: at the replicated levels before that suffix, and
+on a row on one card.
 """
 
 from __future__ import annotations
@@ -153,20 +155,6 @@ def _route_fn(route: str, k: int, mesh: Mesh, data: int,
     return relax
 
 
-def sharded_relax_for(cfg: FlowConfig, mesh: Mesh, halo: str = "auto", k_outer: int = 1,
-                      data: int = 0, reserve: Optional[Tuple[int, int]] = None):
-    """``solve``'s ``relax_for``: each level's relaxation on its route over
-    data row ``data`` of ``mesh``. ``reserve`` is the pair's (h, w), which
-    sizes a row of processes' arenas once."""
-    _check_halo(halo, k_outer)
-
-    def relax_for(h: int, w: int):
-        return _route_fn(*level_route(h, w, cfg, mesh, halo, k_outer, data), mesh, data,
-                         reserve)
-
-    return relax_for
-
-
 def sharded_bands(w: int, h: int, cfg: FlowConfig, mesh: Mesh, halo: str = "auto",
                   k_outer: int = 1, data: int = 0,
                   plan: Optional[List[Tuple[int, int, str, int]]] = None) -> Optional[BandPlan]:
@@ -194,12 +182,13 @@ def sharded_lanes(w: int, h: int, cfg: FlowConfig, mesh: Mesh, halo: str = "auto
     """The lanes of a w x h pair on data row ``data`` of a one-process mesh
     whose row spans at least two cards: one a card (``Mesh.row_groups``
     order), its plan the hull of its shards' (``bands.lane_plans``, the
-    suffix of kernel levels of ``sharded_plan``'s routes, ``plan`` where
-    the caller has it), the first lane's stream the caller's, each other's
-    that of the card's first position. Peer access between the cards is
-    enabled here, and raises where a pair lacks it. None where the path is
-    not taken: a row over processes (``sharded_bands``), a row on one card,
-    or a finest level off the kernel route."""
+    suffix of sharded levels of ``sharded_plan``'s routes, kernel and
+    explicit alike, ``plan`` where the caller has it), the first lane's
+    stream the caller's, each other's that of the card's first position.
+    Peer access between the cards is enabled here, and raises where a pair
+    lacks it. None where the path is not taken: a row over processes
+    (``sharded_bands``), a row on one card, or a replicated finest
+    level."""
     if mesh.row_spans_processes(data) or mesh.row_cards(data) < 2:
         return None
     if plan is None:

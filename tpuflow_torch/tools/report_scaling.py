@@ -15,15 +15,20 @@ row-sharded, one JSON line (the port of tools/report_scaling.py).
         With one card the N positions are N streams of it: the line says
         "streams on one card", which is not scaling. ``--routes`` (for
         example ``sp_kernel``) times those alone beside one position.
-        ``--profile``: for each sp route, one pair under torch.profiler:
-        card 0's busy share and device ms by kernel, those of the
-        whole-field kernels by name (``WHOLE_FIELD``), the peer copies'
-        device ms on each card, the kernels the one host thread launched,
-        and, where the package counts them, the peer copies (messages and
-        bytes, ``mesh.peer_copy``) and each card's rows of each row stage
-        against its lane's plan (``ops.level.row_counts(lane)``,
-        ``bands.stage_rows``); beside it the host's ms to queue one pair
-        (every card idle before it) and the host's µs a launch.
+        ``--profile``: for each sp route (``sp_kernel``, ``sp_explicit``,
+        ``sp_auto``), one pair under torch.profiler, and for the
+        one-process hybrid (``hybrid``) its stack of N pairs: card 0's busy
+        share and device ms by kernel, those of the whole-field kernels by
+        name (``WHOLE_FIELD``), the peer copies' device ms on each card,
+        the kernels the one host thread launched, and, where the package
+        counts them, the peer copies (messages and bytes,
+        ``mesh.peer_copy``), each card's rows of each row stage (against
+        its lane's plan, ``ops.level.row_counts(lane)``,
+        ``bands.stage_rows``) and, for an sp route, the bytes its explicit
+        levels move between cards besides the peer copies (halos, and
+        without lanes each other card's blocks and T); beside it the host's
+        ms to queue the pair (every card idle before it; for the hybrid,
+        up to its first download) and the host's µs a launch.
         ``--turns PARENT`` runs the same report in
         four processes of this file, in turns on PARENT's package (a
         checkout's root) and on the package this process imports: parent,
@@ -346,8 +351,12 @@ def measure(n: int = POSITIONS, size=SIZE, reps: int = 4, k: int = 4,
                                          and res.v.tobytes() == base.v.tobytes())
         if profile and name.startswith("sp_"):
             report[f"{name}_profile"] = _profiled_lanes(fn, home, sp, cfg, w, h, name[3:])
-            report[f"{name}_host"] = _issue(f0, f1, cfg, sp, name[3:], home,
+            report[f"{name}_host"] = _issue(_queue_pair(f0, f1, cfg, sp, name[3:], home),
                                             report[f"{name}_profile"]["kernels_launched"])
+        if profile and name == "hybrid":
+            report["hybrid_profile"] = _profiled_lanes(fn, home, sp, cfg, w, h, "auto", pairs=n)
+            report["hybrid_host"] = _issue(fn, report["hybrid_profile"]["kernels_launched"],
+                                           reps=3, download=True)
         t = time_best(fn, reps, k)
         pairs = n if name in ("dp", "hybrid") else 1
         report[f"mpix_s_{name}"] = pairs * mpix / t
@@ -433,10 +442,11 @@ def _profiled(fn, device) -> dict:
             "peer_copy_ms_by_card": {f"cuda:{i}": ms for i, ms in sorted(peer.items())}}
 
 
-def _profiled_lanes(fn, device, mesh, cfg, w: int, h: int, halo: str) -> dict:
-    """``_profiled`` of one pair on a one-process mesh, with the peer
-    copies and each card's rows where the package counts them (module
-    docstring)."""
+def _profiled_lanes(fn, device, mesh, cfg, w: int, h: int, halo: str, pairs: int = 0) -> dict:
+    """``_profiled`` of one pair on a one-process mesh (with ``pairs``, of
+    the hybrid's stack of that many), with the peer copies, the bytes the
+    explicit route moves between cards, and each card's rows where the
+    package counts them (module docstring)."""
     import inspect
 
     from tpuflow_torch.ops import level as L
@@ -451,25 +461,108 @@ def _profiled_lanes(fn, device, mesh, cfg, w: int, h: int, halo: str) -> dict:
     if not hasattr(M, "peer_copy") or "lane" not in inspect.signature(L.row_counts).parameters:
         out["lanes"] = "not counted by this package"
         return out
-    from tpuflow_torch.solver.bands import lane_copies, stage_rows
+    from tpuflow_torch.solver import bands
 
     lanes = sharded.sharded_lanes(w, h, cfg, mesh, halo)
     out["peer_copies"] = {"messages": M.peer_copy.messages, "bytes": M.peer_copy.bytes}
+    if not pairs:
+        out["explicit_cross_card_bytes"] = _explicit_cross_bytes(
+            w, h, cfg, mesh, halo, lanes[0].plan.start if lanes else None)
     if lanes:
-        out["peer_copies_expected"] = lane_copies(w, h, cfg, [lane.plan for lane in lanes])
-        out["banded_levels"] = len(lanes[0].plan.levels)
+        plans = [lane.plan for lane in lanes]
+        if not pairs:
+            out["peer_copies_expected"] = bands.lane_copies(w, h, cfg, plans)
+        out["banded_levels"] = len(plans[0].levels)
         out["rows_by_card"] = [L.row_counts(i) for i in range(len(lanes))]
-        out["rows_by_card_plan"] = [stage_rows(w, h, cfg, lane.plan, prefix=i == 0)
-                                    for i, lane in enumerate(lanes)]
-        out["rows_whole_field"] = stage_rows(w, h, cfg, None)
+        if not pairs:
+            out["rows_by_card_plan"] = [bands.stage_rows(w, h, cfg, plan, prefix=i == 0)
+                                        for i, plan in enumerate(plans)]
+        out["rows_whole_field"] = bands.stage_rows(w, h, cfg, None)
     return out
 
 
-def _issue(f0, f1, cfg, mesh, halo: str, device, launches: int, reps: int = 5) -> dict:
-    """The host's ms to queue one pair's sharded solve (the pair already on
-    the card, every card idle before it), the wall to its end, and the
-    host's µs a launch (over the profiled pair's ``launches``): best of
-    ``reps``."""
+def _explicit_cross_bytes(w: int, h: int, cfg, mesh, halo: str, start) -> dict:
+    """The bytes that one pair's explicit levels move between the row's
+    cards besides the peer copies (host arithmetic on the plan): the halos
+    between neighbour shards on different cards, every exchange after the
+    first; and at each explicit level where the whole field stays on the
+    first card (before ``start``, the lanes' first level; every level where
+    None), each shard on another card's padded blocks in (uv, fxyz [, J])
+    and its owned rows of T back (``card_copies`` with the first card
+    reading every row). ``first_card_whole`` is the same with no explicit
+    level by lanes, as a package without them moves. A package without
+    the helpers (``card_copies``) is not counted."""
+    from tpuflow_torch.config import DataConstancy
+    from tpuflow_torch.ops.level import N_TENSOR
+    from tpuflow_torch.parallel import halo as H
+    from tpuflow_torch.solver.sharded import sharded_plan
+
+    if not hasattr(H, "card_copies"):
+        return "not counted by this package"
+    card = [mesh.card(p) for p in mesh.row(0)]
+    first = tuple(y for y, c in enumerate(card) if c == card[0])
+    planes = 2 + 3 + (0 if cfg.data_constancy == DataConstancy.GREY else N_TENSOR)
+    plan = sharded_plan(w, h, cfg, mesh, halo)
+    start = len(plan) if start is None else start
+    halos = blocks = lanes_saved = 0
+    for i, (lh, lw, route, k) in enumerate(plan):
+        if route != "explicit":
+            continue
+        rows = H.halo_rows(cfg, k)
+        split = H.row_split(lh, mesh.n_y, rows)
+        crossings = sum(card[s] != card[s - 1] for s in range(1, len(split)))
+        halos += H.explicit_exchanges(cfg, k) * crossings * 2 * 2 * rows * lw * 4
+        moved = (sum(planes * sh.padded * lw * 4 for s, sh in enumerate(split) if s not in first)
+                 + H.card_copies(split, [first], [(0, lh)], lw)["bytes"])
+        if i < start:
+            blocks += moved
+        else:
+            lanes_saved += moved
+    return {"halos": halos, "blocks_and_T": blocks,
+            "first_card_whole": {"halos": halos, "blocks_and_T": blocks + lanes_saved}}
+
+
+def _issue(run, launches: int, reps: int = 5, download: bool = False) -> dict:
+    """The host's ms to queue ``run``'s work (every card idle before it),
+    the wall to its end, and the host's µs a launch (over the profiled
+    run's ``launches``): best of ``reps``. With ``download``, ``run``
+    queues and then downloads in one call (``compute_flow_hybrid``, whose
+    parent and this tree ``--turns`` time alike, neither with a seam
+    between the two), so the issue ends at its first ``Tensor.cpu``, which
+    waits for the cards: that method is wrapped for the call alone."""
+    import torch
+
+    real = torch.Tensor.cpu
+    issue, wall = [], []
+    for _ in range(reps):
+        first = []
+
+        def cpu(self, *args, **kw):
+            if not first:
+                first.append(time.perf_counter())
+            return real(self, *args, **kw)
+
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+        if download:
+            torch.Tensor.cpu = cpu
+        try:
+            t0 = time.perf_counter()
+            run()
+            t1 = time.perf_counter()
+        finally:
+            torch.Tensor.cpu = real
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+        issue.append(((first[0] if first else t1) - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return {"issue_ms": min(issue), "issue_ms_all": issue, "wall_ms": min(wall),
+            "host_us_a_launch": min(issue) * 1e3 / launches}
+
+
+def _queue_pair(f0, f1, cfg, mesh, halo: str, device):
+    """A function that queues one pair's sharded solve on ``halo``'s
+    routes, the pair already on the card."""
     import numpy as np
     import torch
 
@@ -478,20 +571,12 @@ def _issue(f0, f1, cfg, mesh, halo: str, device, launches: int, reps: int = 5) -
 
     frames = torch.from_numpy(np.stack([f0, f1]).astype(np.float32)).to(device)
     kw = sharded_solve(cfg, mesh, f0.shape, halo)
-    issue, wall = [], []
-    with torch.cuda.device(device):
-        for _ in range(reps):
-            for d in range(torch.cuda.device_count()):
-                torch.cuda.synchronize(d)
-            t0 = time.perf_counter()
+
+    def run():
+        with torch.cuda.device(device):
             solve(frames[0], frames[1], cfg, **kw)
-            t1 = time.perf_counter()
-            for d in range(torch.cuda.device_count()):
-                torch.cuda.synchronize(d)
-            issue.append((t1 - t0) * 1e3)
-            wall.append((time.perf_counter() - t0) * 1e3)
-    return {"issue_ms": min(issue), "issue_ms_all": issue, "wall_ms": min(wall),
-            "host_us_a_launch": min(issue) * 1e3 / launches}
+
+    return run
 
 
 def measure_turns(parent: str, argv: List[str], timeout_s: int = 1500) -> dict:
